@@ -1,0 +1,131 @@
+"""The port's flash-attention forward against the JAX package's.
+
+On CPU tensors the port runs its plain version; the JAX side runs the
+Pallas kernel in interpret mode, as its own tests do. Both get the same
+numpy inputs. O is held against ``flash_attention`` and lse against
+``_flash_fwd``'s ``lse[:, 0, :]`` (the TPU's sublane-replicated layout).
+The card's kernel is held against the plain version in
+``test_torch_cuda_kernels.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.ops.flash_attention import _flash_fwd
+from kubeflow_tpu.ops.flash_attention import flash_attention as jax_flash
+from kubeflow_tpu_torch.ops import flash_attention as fa
+
+# The shapes are tiny: one intra-op thread keeps torch's OpenMP pool
+# from spinning on cores that the other test workers share.
+torch.set_num_threads(1)
+
+# (shape [b, s, h, d], dtype, causal, rtol/atol on O). f32 at 2e-5 is
+# test_forward_matches_reference's tolerance. bf16: both sides round P and
+# O to bf16 after f32 math in another order, so O may differ by about one
+# bf16 ulp of |O| < 2 (2**-7 = 7.8e-3): 1e-2.
+CASES = {
+    "f32_causal": ((2, 256, 2, 128), "float32", True, 2e-5),
+    "f32_full": ((2, 256, 2, 128), "float32", False, 2e-5),
+    "f32_d64": ((2, 256, 2, 64), "float32", True, 2e-5),
+    "f32_s32": ((2, 32, 2, 128), "float32", True, 2e-5),
+    "bf16_causal": ((2, 256, 2, 128), "bfloat16", True, 1e-2),
+}
+LSE_TOL = 2e-5   # lse is f32 in both, from f32 scores
+
+
+def _inputs(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    jx = [jnp.asarray(a).astype(dtype) for a in arrays]
+    th = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, th
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_and_lse_match_jax(case):
+    shape, dtype, causal, tol = CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, dtype)
+    b, s, h, d = shape
+
+    o_jax = jax_flash(jq, jk, jv, causal=causal)
+
+    def fold(t):
+        return t.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+    _, lse_jax = _flash_fwd(fold(jq), fold(jk), fold(jv), scale=d ** -0.5,
+                            causal=causal, block_q=1024, block_k=1024,
+                            interpret=True)
+    o, lse = fa.flash_attention_fwd(tq, tk, tv, causal=causal)
+
+    assert o.dtype == tq.dtype and o.shape == tq.shape
+    assert lse.dtype == torch.float32 and lse.shape == (b * h, s)
+    np.testing.assert_allclose(_np(o), _np(o_jax), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_jax[:, 0, :]),
+                               rtol=LSE_TOL, atol=LSE_TOL)
+    # The public wrapper is the forward's O.
+    assert torch.equal(fa.flash_attention(tq, tk, tv, causal=causal), o)
+
+
+def test_shape_contract_raises_where_jax_raises():
+    (jq, _, _), (tq, _, _) = _inputs((1, 1536, 1, 64), "float32")
+    with pytest.raises(ValueError, match="divide"):
+        jax_flash(jq, jq, jq)
+    with pytest.raises(ValueError, match="divide"):
+        fa.flash_attention(tq, tq, tq)
+    # 2048 = 2 × 1024 and anything up to 1024 are accepted by both.
+    (_, _, _), (t2, _, _) = _inputs((1, 2048, 1, 8), "float32")
+    assert fa.flash_attention(t2, t2, t2).shape == t2.shape
+
+
+def test_rejects_other_dtypes_and_mismatched_inputs():
+    q = torch.zeros((1, 16, 1, 64), dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 16, 1, 64))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :8], q)
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    before = fa.LAUNCHES
+    _, (tq, tk, tv) = _inputs((1, 64, 2, 128), "bfloat16")
+    fa.flash_attention_fwd(tq, tk, tv)
+    assert fa.LAUNCHES == before
+
+
+def test_kernel_layout_check_takes_qkv_slices_and_refuses_the_rest():
+    """The kernel reads through strides and never copies: the column
+    slices of a fused qkv product pass, layouts its 16-byte loads cannot
+    read raise."""
+    b, s, h, d = 2, 16, 2, 64
+    qkv = torch.zeros((b, s, 3 * h * d), dtype=torch.bfloat16)
+    for t in qkv.split(h * d, dim=-1):
+        fa._check_kernel_layout("q", t.reshape(b, s, h, d))
+    x = torch.zeros((b, s, h, d + 4), dtype=torch.bfloat16)
+    refused = {
+        "head_dim stride": torch.zeros((b, s, d, h),
+                                       dtype=torch.bfloat16).transpose(2, 3),
+        "row stride": x[..., :d],
+        "start": x.reshape(-1)[4:4 + b * s * h * d].reshape(b, s, h, d),
+    }
+    for why, t in refused.items():
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._check_kernel_layout(why, t)
+
+
+def test_plain_version_is_causal_and_floors_masked_rows():
+    _, (tq, tk, tv) = _inputs((1, 64, 2, 64), "float32", seed=3)
+    o1, _ = fa.flash_attention_fwd(tq, tk, tv)
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, -1] += 100.0
+    tv2[:, -1] += 100.0
+    o2, _ = fa.flash_attention_fwd(tq, tk2, tv2)
+    torch.testing.assert_close(o1[:, :-1], o2[:, :-1], rtol=0, atol=0)
+    assert not torch.allclose(o1[:, -1], o2[:, -1])
