@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and hold its
-kernels against their plain versions.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and hold its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -13,22 +13,43 @@ last line. With no CUDA device it exits 1 and prints no result.
    comparisons are float32.
 2. build   — every ``.cu`` source of the package, one ``nvcc`` each, in
    parallel; seconds and ptxas's register / spill lines.
-3. kernels — each kernel against its plain PyTorch version at the
-   shapes the serving path gives it (and the edge shapes the port
-   promises), tolerances enforced; at the decode shape the kernel, the
-   plain version and one PyTorch library call timed with CUDA events
+3. kernels — the forward kernel against its plain PyTorch version at the
+   shapes the serving and training paths give it (and the edge shapes the
+   port promises), tolerances enforced; at the decode shape the kernel,
+   the plain version and one PyTorch library call timed with CUDA events
    (median of 30 batches of 10 back-to-back calls, after 5 warm-up
    calls), and the kernel's device time read by ``torch.profiler`` too.
-4. model   — the full-width burn-in config through ``forward`` with
-   ``attention="flash"`` and ``"xla"`` (plain dense) on the same seeded
-   weights and tokens; logits held together within a stated bf16
-   tolerance; the flash forward launches the kernel once per layer.
-5. serving — the main path: ``ServingEngine`` cold start, model
+4. bwd_kernels — the dQ and the dK/dV kernels against their plain
+   versions at the training shape, a multi-tile, a ragged, an f32 case
+   and three ring-hop offsets; at the training shape a bitwise repeat,
+   and q, k, v as column slices of one qkv tensor (as the model passes
+   them), bitwise equal to the contiguous case; there each kernel timed
+   as above beside its plain version, its bound, and one SDPA backward
+   (dq, dk, dv together) as the library yardstick.
+5. model   — the full-width burn-in serving config through ``forward``
+   with ``attention="flash"`` and ``"xla"`` (plain dense) on the same
+   seeded weights and tokens; logits within a stated bf16 tolerance; the
+   flash forward launches the kernel once per layer.
+6. serving — a main path: ``ServingEngine`` cold start, model
    registration and swaps, a seeded open-loop trace, ``park`` and
    ``warm_restore``, a replay. Launch counts are zeroed just before and
    read just after, and must equal one per layer for every forward the
    engine ran. Then the decode step is timed and profiled, and the
    restored engine's argmax is checked against the dense forward.
+7. train_grads — at full width (``BENCH_MODEL``, batch 8, seq 1025) the
+   loss and every gradient leaf with ``attention="flash"`` against
+   ``"xla"`` on the same seeded params and tokens, within stated bounds.
+8. train   — the training main path: ``make_train_step`` at full width,
+   2 warm-up steps, 100 steps in 4 chunks of 25 each ending in a host
+   sync (as bench.py times its step), 3 profiled steps; step ms, TFLOP/s
+   and MFU against the dense bf16 peak, the loss falling; launches
+   counted from zero: one forward, one dQ and one dK/dV per layer and
+   step.
+9. trainer — ``trainer.fit`` with ``TrainerConfig()`` (AdamW,
+   warmup-cosine, clip 1.0) and 2 accumulation steps, 10 steps at full
+   width; each kernel launches once per layer and microbatch. Step times
+   from the per-step sync, the first step (which allocates the AdamW
+   moments) apart from the steady ones; then 3 more steps profiled.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the result line.
 """
@@ -36,11 +57,13 @@ Then the ``{"kernels": [...]}`` line, the card line, and the result line.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from dataclasses import replace
+from functools import partial
 
 # H100 SXM published dense peaks (NVIDIA data sheet): the bound a kernel
 # is held against, with the card's power limit printed beside it.
@@ -69,12 +92,63 @@ KERNEL_CASES = [
 # the summation order differs: 1e-4. lse is f32 from f32 scores in both.
 TOL_O = {"bfloat16": 2e-2, "float32": 1e-4}
 TOL_LSE = 1e-3
+# The training config: bench.py's BENCH_MODEL as it is (seq_len 1025:
+# the loss trains on tokens[:, :-1], so attention runs at 1024), batch 8.
+TRAIN_MODEL = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=8,
+                   d_ff=16384, seq_len=1025, attention="flash",
+                   dtype="bfloat16")
+TRAIN_BATCH = 8
+TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS, TRAIN_PROFILED = 2, 4, 25, 3
+FIT_STEPS, FIT_ACCUM = 10, 2
+
+# Backward cases (name, [b, s, h, d], dtype, causal, q_offset, k_offset):
+# the train step's attention, several tiles past the JAX block, a ragged
+# full case at head dim 64, the f32 path, and three ring hops (the K
+# block below the diagonal, on it, above it: all-zero gradients).
+BWD_CASES = [
+    ("train", (TRAIN_BATCH, 1024, 16, 128), "bfloat16", True, 0, 0),
+    ("multi_tile", (2, 2048, 4, 128), "bfloat16", True, 0, 0),
+    ("ragged_full_d64", (2, 100, 3, 64), "bfloat16", False, 0, 0),
+    ("f32_causal", (1, 77, 2, 128), "float32", True, 0, 0),
+    ("hop_below", (2, 256, 4, 128), "bfloat16", True, 256, 0),
+    ("hop_diagonal", (2, 256, 4, 128), "bfloat16", True, 256, 256),
+    ("hop_above", (2, 256, 4, 128), "bfloat16", True, 0, 256),
+]
+# dQ, dK, dV against the plain version, as a fraction of the plain
+# version's largest magnitude. bf16: both round P and dS to bf16 at the
+# same points, an f32 value on a rounding boundary may round the other
+# way, and the outputs are stored in bf16 (one ulp is 2**-8 of a value):
+# 1e-2. f32: summation order only: 1e-4. delta is f32 in both: 1e-3.
+TOL_GRAD = {"bfloat16": 1e-2, "float32": 1e-4}
+TOL_DELTA = 1e-3
+# Flash vs dense gradients at full width (bounds fixed in PERF.md before
+# the first run): the dense path rounds logits and probabilities to bf16,
+# the flash path keeps scores in f32; measured with the plain versions on
+# an 8-layer d_model-512 config: loss 1.9e-4, rel L2 <= 1.4e-2, cosine
+# >= 0.99986 per leaf.
+TOL_TRAIN_LOSS = 0.01
+TOL_GRAD_REL_L2 = 0.10
+MIN_GRAD_COSINE = 0.995
 # Flash vs dense logits at full width: the dense path rounds scaled logits
 # and probabilities to bf16, the flash path keeps scores in f32 and rounds
 # P against a running max; the gap compounds over 8 residual layers
 # (measured 0.023 max, 0.0033 mean on an 8-layer d_model-512 config).
 TOL_LOGITS_MAX = 0.125
 TOL_LOGITS_MEAN = 0.01
+
+
+# Device kernels by what they do, for the profiled steps' breakdown: the
+# first category whose key is in a kernel's name takes it.
+KERNEL_CATEGORIES = (
+    ("attention kernels (this port)", ("fwd_bf16_kernel", "dq_bf16_kernel",
+                                       "dkv_bf16_kernel")),
+    ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("casts and copies", ("copy",)),
+    ("foreach passes (SGD, AdamW, clip norm, accumulation)",
+     ("multi_tensor_apply",)),
+    ("reductions (norms, softmax, loss, embedding grad)",
+     ("reduce", "softmax", "nll_loss", "norm", "embedding", "index")),
+)
 
 
 def emit(obj) -> None:
@@ -114,11 +188,16 @@ def time_ms(fn, torch, *, warmup=5, runs=30, batch=10) -> float:
 
 def _device_rows(prof, calls: int) -> list:
     """(device ms per call, kernel name, launches per call) of every
-    device kernel a ``torch.profiler`` run saw, largest first."""
+    device kernel a ``torch.profiler`` run saw, largest first. A range
+    named on the host (``torch.optim``'s ``Optimizer.step#AdamW.step``)
+    also shows on the device's timeline, spanning kernels counted on
+    their own: it is left out."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total",
                          getattr(ev, "cuda_time_total", 0.0))
+        if getattr(ev, "is_user_annotation", False):
+            continue
         if dev_us and ev.device_type.name == "CUDA":
             rows.append((dev_us / calls / 1e3, ev.key, ev.count // calls))
     rows.sort(reverse=True)
@@ -198,6 +277,132 @@ def phase_kernels(torch, fa) -> dict:
     return out
 
 
+def bwd_bound_ms(shape, dtype: str, causal: bool, kernel: str) -> tuple:
+    """Least time for one backward kernel on these inputs. dQ reads q, k,
+    v, dO, o and lse and writes dq and delta (it computes delta); dK/dV
+    reads q, k, v, dO, lse and delta and writes dk and dv: six [b, s, h, d]
+    tensors and two f32 [b*h, s] rows each. Against the causal (or full)
+    products each needs: S, dP and dS K (dQ); S, dP, P^T dO and dS^T Q
+    (dK/dV)."""
+    b, s, h, d = shape
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = 6 * b * s * h * d * elt + 2 * b * h * s * 4
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = (3 if kernel == "dq" else 4) * 2 * b * h * pairs * d
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_SEC, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max_err(got, ref) -> tuple:
+    """(max |got - ref|, that over max |ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    return err, (err / top if top else (0.0 if err == 0 else math.inf))
+
+
+def phase_bwd_kernels(torch, fa) -> dict:
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    out = {}
+    for name, shape, dtype, causal, q_off, k_off in BWD_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        hop = bool(q_off or k_off)
+        # A ring hop is handed the final delta; a full call computes it.
+        given = fa.attention_delta(o, do) if hop else None
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, None if hop else o,
+                                              lse, do, delta=given, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw)
+        torch.cuda.synchronize()
+        rdq, rdelta = fa.flash_attention_bwd_dq_reference(
+            q, k, v, o, lse, do, delta=given, **kw)
+        rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, lse, do,
+                                                        rdelta, **kw)
+        errs = {key: _max_err(g, r) for key, g, r in (
+            ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
+        err_delta = (delta - rdelta).abs().max().item()
+        zeros = all(bool((g == 0).all()) for g in (dq, dk, dv))
+        ok = (all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+              and all(rel <= TOL_GRAD[dtype] for _, rel in errs.values())
+              and err_delta <= TOL_DELTA
+              and (zeros if name == "hop_above" else not zeros))
+        row = {"phase": "bwd_kernels", "case": name, "shape": list(shape),
+               "dtype": dtype, "causal": causal, "q_offset": q_off,
+               "k_offset": k_off,
+               **{f"max_err_{key}": e for key, (e, _) in errs.items()},
+               **{f"rel_err_{key}": r for key, (_, r) in errs.items()},
+               "max_err_delta": err_delta, "tol_rel": TOL_GRAD[dtype],
+               "all_zero": zeros, "ok": ok}
+        if name == "train":
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            row["bitwise_repeat"] = all(
+                torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
+            # As the model hands them over: q, k, v are column slices of
+            # one [b, s, 3*h*d] qkv product, read through a seq stride of
+            # 3*h*d; the same values must give the same bits.
+            b, s, h, d = shape
+            qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
+            sq, sk, sv = (t.reshape(b, s, h, d)
+                          for t in qkv.split(h * d, dim=-1))
+            strided = fa.flash_attention_bwd(sq, sk, sv, o, lse, do,
+                                             causal=causal)
+            row["strided_seq_stride"] = sq.stride(1)
+            row["strided_rel_err"] = max(
+                _max_err(g, r)[1]
+                for g, r in zip(strided, (rdq, rdk, rdv)))
+            row["strided_bitwise_equal"] = all(
+                torch.equal(a, b) for a, b in zip(strided, (dq, dk, dv)))
+            ok = row["ok"] = (ok and row["bitwise_repeat"]
+                              and sq.stride(1) == 3 * h * d
+                              and row["strided_rel_err"] <= TOL_GRAD[dtype]
+                              and row["strided_bitwise_equal"])
+            del qkv, sq, sk, sv, strided, again
+
+            def run_dq():
+                return fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+
+            def run_dkv():
+                return fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
+
+            def plain_dq():
+                return fa.flash_attention_bwd_dq_reference(q, k, v, o, lse,
+                                                           do)
+
+            def plain_dkv():
+                return fa.flash_attention_bwd_dkv_reference(q, k, v, lse, do,
+                                                            delta)
+
+            for key, run, plain in (("dq", run_dq, plain_dq),
+                                    ("dkv", run_dkv, plain_dkv)):
+                row[f"{key}_ms"] = time_ms(run, torch)
+                row[f"{key}_profiler_ms"] = profiled_ms(run, torch)
+                row[f"{key}_plain_ms"] = time_ms(plain, torch)
+                row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = \
+                    bwd_bound_ms(shape, dtype, causal, key)
+            # One PyTorch call for the same gradients: SDPA's backward
+            # (dq, dk and dv together), timed only, never on the port's path.
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            dot = do.transpose(1, 2)
+            row["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                            retain_graph=True), torch)
+            del qt, kt, vt, ot
+        emit(row)
+        if not ok:
+            raise AssertionError(f"backward kernels disagree with their "
+                                 f"plain versions at {name}: {row}")
+        out[name] = row
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_model(torch, fa, burnin) -> None:
     cfg = burnin.BurninConfig(**MODEL)
     dense = replace(cfg, attention="xla")
@@ -239,21 +444,34 @@ def phase_model(torch, fa, burnin) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_decode(torch, engine, tokens) -> dict:
-    """Device time by kernel over three decode steps (torch.profiler)."""
+def profile_steps(torch, fn, steps: int = 3) -> dict:
+    """Device time by kernel over ``steps`` calls of ``fn`` (one step
+    each), host clock around them ending in a device sync."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            engine._step_fn(engine._params, tokens).cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    rows = _device_rows(prof, 3)
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = _device_rows(prof, steps)
     busy_ms = sum(r[0] for r in rows)
+    by_category = {}
+    for ms, name, calls in rows:
+        category = next((cat for cat, keys in KERNEL_CATEGORIES
+                         if any(key in name for key in keys)),
+                        "other elementwise")
+        total = by_category.setdefault(category, [0.0, 0])
+        total[0] += ms
+        total[1] += calls
     return {"wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
+            "by_category": {cat: {"ms_per_step": round(ms, 4),
+                                  "calls_per_step": calls}
+                            for cat, (ms, calls) in by_category.items()},
             "top_kernels": [{"name": k[:90], "ms_per_step": round(ms, 4),
                              "calls_per_step": n} for ms, k, n in rows[:12]]}
 
@@ -341,7 +559,8 @@ def phase_serving(torch, fa, burnin, engine_mod, loadgen) -> dict:
         t0 = time.perf_counter()
         engine._step_fn(engine._params, tokens).cpu()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    prof = profile_decode(torch, engine, tokens)
+    prof = profile_steps(
+        torch, lambda: engine._step_fn(engine._params, tokens).cpu())
     emit({"phase": "decode_step", "shape": [MAX_BATCH, cfg.seq_len],
           "median_ms": statistics.median(step_ms[2:]),
           "min_ms": min(step_ms[2:]), "max_ms": max(step_ms[2:]),
@@ -366,13 +585,207 @@ def phase_serving(torch, fa, burnin, engine_mod, loadgen) -> dict:
     return {"launches": main_launches}
 
 
+def train_step_flops(cfg, batch: int) -> float:
+    """Analytic matmul FLOPs of one train step (forward + backward = 3x
+    the forward), as bench.py's train_step_flops counts them: the dense
+    products and the causal half of attention's score and context
+    products, on the seq_len - 1 positions the loss trains."""
+    s = cfg.seq_len - 1
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    per_token_layer = 2 * d * 3 * d + 2 * d * d + 2 * d * ff + 2 * ff * d
+    per_layer_attn = 2 * batch * s * s * d
+    fwd = (batch * s * (cfg.n_layers * per_token_layer + 2 * d * v)
+           + cfg.n_layers * per_layer_attn)
+    return 3.0 * fwd
+
+
+def _leaf_names(tree, path="") -> list:
+    if isinstance(tree, dict):
+        return [n for key, value in tree.items()
+                for n in _leaf_names(value, f"{path}.{key}".lstrip("."))]
+    if isinstance(tree, list):
+        return [n for i, value in enumerate(tree)
+                for n in _leaf_names(value, f"{path}[{i}]")]
+    return [path]
+
+
+def _launch_counts(fa) -> dict:
+    return {"fwd": fa.LAUNCHES, "dq": fa.BWD_DQ_LAUNCHES,
+            "dkv": fa.BWD_DKV_LAUNCHES}
+
+
+def _zero_launch_counts(fa) -> None:
+    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    fa.DO_COPIES = 0
+
+
+def _train_inputs(torch, burnin, cfg, seed: int):
+    params = burnin.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
+                           generator=gen, device="cuda")
+    return params, tokens
+
+
+def phase_train_grads(torch, fa, burnin) -> None:
+    cfg = burnin.BurninConfig(**TRAIN_MODEL)
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=0)
+    before = _launch_counts(fa)
+    loss, grads = burnin.value_and_grad(burnin.loss_fn, params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launch_counts(fa).items()}
+    ref_loss, ref = burnin.value_and_grad(
+        burnin.loss_fn, params, tokens, replace(cfg, attention="xla"))
+    leaves = []
+    for name, g, r in zip(_leaf_names(params), grads, ref):
+        leaves.append({
+            "leaf": name, "finite": bool(torch.isfinite(g).all()),
+            "rel_l2": ((g - r).norm() / r.norm()).item(),
+            "cosine": torch.nn.functional.cosine_similarity(
+                g.flatten(), r.flatten(), dim=0).item()})
+    worst = max(leaves, key=lambda x: x["rel_l2"])
+    least = min(leaves, key=lambda x: x["cosine"])
+    row = {"phase": "train_grads", "config": TRAIN_MODEL,
+           "batch": TRAIN_BATCH, "loss_flash": float(loss),
+           "loss_dense": float(ref_loss),
+           "loss_diff": float(loss) - float(ref_loss),
+           "worst_rel_l2": worst["rel_l2"], "worst_rel_l2_leaf": worst["leaf"],
+           "min_cosine": least["cosine"], "min_cosine_leaf": least["leaf"],
+           "tol_loss": TOL_TRAIN_LOSS, "tol_rel_l2": TOL_GRAD_REL_L2,
+           "min_cosine_bound": MIN_GRAD_COSINE, "launches": launches,
+           "leaves": leaves}
+    emit(row)
+    if not (all(x["finite"] for x in leaves)
+            and abs(row["loss_diff"]) <= TOL_TRAIN_LOSS
+            and worst["rel_l2"] <= TOL_GRAD_REL_L2
+            and least["cosine"] >= MIN_GRAD_COSINE
+            and all(n == cfg.n_layers for n in launches.values())):
+        raise AssertionError(f"flash and dense gradients disagree: {row}")
+    del params, grads, ref
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, fa, burnin, card: str) -> dict:
+    cfg = burnin.BurninConfig(**TRAIN_MODEL)
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    step = burnin.make_train_step(cfg)
+    t0 = time.perf_counter()
+    params, loss = step(params, tokens)
+    first_loss = float(loss)
+    for _ in range(TRAIN_WARMUP - 1):
+        params, loss = step(params, tokens)
+    float(loss)
+    warmup_sec = time.perf_counter() - t0
+    # bench.py's timing: chunks of steps queued back to back, each ending
+    # in a host sync on the loss (which depends on every step before it).
+    chunk_ms = []
+    t1 = time.perf_counter()
+    for _ in range(TRAIN_CHUNKS):
+        tc = time.perf_counter()
+        for _ in range(TRAIN_CHUNK_STEPS):
+            params, loss = step(params, tokens)
+        float(loss)
+        chunk_ms.append((time.perf_counter() - tc) * 1e3 / TRAIN_CHUNK_STEPS)
+    steps = TRAIN_CHUNKS * TRAIN_CHUNK_STEPS
+    step_ms = (time.perf_counter() - t1) * 1e3 / steps
+    last_loss = float(loss)
+    prof = profile_steps(torch, lambda: step(params, tokens),
+                         TRAIN_PROFILED)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    copies = fa.DO_COPIES
+    run = TRAIN_WARMUP + steps + TRAIN_PROFILED
+    flops = train_step_flops(cfg, TRAIN_BATCH)
+    tflops = flops / (step_ms / 1e3) / 1e12
+    spread = sorted(chunk_ms)
+    row = {"phase": "train", "config": TRAIN_MODEL, "batch": TRAIN_BATCH,
+           "card": card, "warmup_steps": TRAIN_WARMUP,
+           "warmup_sec": warmup_sec, "steps": steps,
+           "step_ms": step_ms, "chunk_step_ms": chunk_ms,
+           "step_spread_pct": 100.0 * (spread[-1] - spread[0])
+           / statistics.median(spread),
+           "flops_per_step": flops, "tflops": tflops,
+           "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
+           "tokens_per_sec": TRAIN_BATCH * (cfg.seq_len - 1)
+           / (step_ms / 1e3),
+           "loss_first": first_loss, "loss_last": last_loss,
+           "launches": launches, "launches_expected": cfg.n_layers * run,
+           "do_copies": copies,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "profile": prof}
+    emit(row)
+    if not (math.isfinite(first_loss) and math.isfinite(last_loss)
+            and last_loss < first_loss and copies == 0
+            and all(n == cfg.n_layers * run for n in launches.values())):
+        raise AssertionError(f"train phase failed: {row}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_trainer(torch, fa, burnin, trainer) -> dict:
+    cfg = burnin.BurninConfig(**TRAIN_MODEL)
+    params, _ = _train_inputs(torch, burnin, cfg, seed=2)
+    tx = trainer.make_optimizer(trainer.TrainerConfig())
+    state = trainer.init_state(params, tx)
+    step = trainer.make_train_step(partial(burnin.loss_fn, cfg=cfg), tx,
+                                   accum_steps=FIT_ACCUM)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batches = (torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
+                             generator=gen, device="cuda")
+               for _ in range(FIT_STEPS))
+    losses, marks = [], []
+
+    def on_step(i, loss):               # float(loss) synced the step
+        losses.append(loss)
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    t0 = time.perf_counter()
+    state = trainer.fit(state, batches, steps=FIT_STEPS, step_fn=step,
+                        on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    more = torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
+                         generator=gen, device="cuda")
+    prof = profile_steps(torch, lambda: step(state, more), TRAIN_PROFILED)
+    expect = cfg.n_layers * FIT_ACCUM * FIT_STEPS
+    row = {"phase": "trainer", "trainer_config": "TrainerConfig()",
+           "accum_steps": FIT_ACCUM, "steps": state["step"],
+           "batch": TRAIN_BATCH, "losses": losses,
+           "step_ms_with_sync": wall * 1e3 / FIT_STEPS,
+           "first_step_ms": step_ms[0],
+           "steady_step_ms_mean": statistics.mean(step_ms[1:]),
+           "steady_step_ms_median": statistics.median(step_ms[1:]),
+           "step_ms": step_ms,
+           "launches": launches, "launches_expected": expect,
+           "max_memory_allocated_bytes": peak, "profile": prof}
+    emit(row)
+    if not (state["step"] == FIT_STEPS and len(losses) == FIT_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and all(n == expect for n in launches.values())):
+        raise AssertionError(f"trainer phase failed: {row}")
+    del state, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from kubeflow_tpu_torch.models import burnin
+    from kubeflow_tpu_torch.models import burnin, trainer
     from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.serving import engine as engine_mod
@@ -392,25 +805,55 @@ def main() -> int:
           "build_sec": time.perf_counter() - t0,
           "ptxas": [line.strip() for log in _build.BUILD_LOG.values()
                     for line in log.splitlines()
-                    if "registers" in line or "spill" in line]})
+                    if "registers" in line or "spill" in line
+                    or "entry function" in line]})
 
     kernels = phase_kernels(torch, fa)
+    bwd_rows = phase_bwd_kernels(torch, fa)
+    bwd = bwd_rows["train"]
     phase_model(torch, fa, burnin)
-    serving = phase_serving(torch, fa, burnin, engine_mod, loadgen)
+    by_path = {"serving": {"fwd": phase_serving(
+        torch, fa, burnin, engine_mod, loadgen)["launches"]}}
+    phase_train_grads(torch, fa, burnin)
+    by_path["train"] = phase_train(torch, fa, burnin, card)
+    by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer)
+
+    def launches(kernel):
+        return {path: counts.get(kernel, 0)
+                for path, counts in by_path.items()}
 
     decode = kernels["decode"]
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        "replaces": "kubeflow_tpu/ops/flash_attention.py:67",
-        "launches": serving["launches"],
-        "max_abs_err": max(row["max_err_o"] for row in kernels.values()),
-        "max_err_o": max(row["max_err_o"] for row in kernels.values()),
-        "max_err_lse": max(row["max_err_lse"] for row in kernels.values()),
-        "ms": decode["ms"], "profiler_ms": decode["profiler_ms"],
-        "plain_ms": decode["plain_ms"],
-        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"]}]})
+    emit({"kernels": [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+         "replaces": "kubeflow_tpu/ops/flash_attention.py:67",
+         "launches": sum(launches("fwd").values()),
+         "launches_by_path": launches("fwd"),
+         "max_abs_err": max(row["max_err_o"] for row in kernels.values()),
+         "max_err_o": max(row["max_err_o"] for row in kernels.values()),
+         "max_err_lse": max(row["max_err_lse"] for row in kernels.values()),
+         "ms": decode["ms"], "profiler_ms": decode["profiler_ms"],
+         "plain_ms": decode["plain_ms"],
+         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+         "library_ms": decode["library_ms"]},
+        *({"name": f"flash_attention_bwd_{key}", "route": "cuda",
+           "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+           "replaces": f"kubeflow_tpu/ops/flash_attention.py:{line}",
+           "launches": sum(launches(key).values()),
+           "launches_by_path": launches(key),
+           "max_abs_err": max(row[f"max_err_{out}"]
+                              for row in bwd_rows.values() for out in outs),
+           "max_rel_err": max(row[f"rel_err_{out}"]
+                              for row in bwd_rows.values() for out in outs),
+           "ms": bwd[f"{key}_ms"], "profiler_ms": bwd[f"{key}_profiler_ms"],
+           "plain_ms": bwd[f"{key}_plain_ms"],
+           "bound_ms": bwd[f"{key}_bound_ms"],
+           "bound_by": bwd[f"{key}_bound_by"],
+           "library_ms": bwd["library_ms"],
+           "library_call": "F.scaled_dot_product_attention backward "
+                           "(dq, dk, dv together)"}
+          for key, line, outs in (("dq", 167, ("dq",)),
+                                  ("dkv", 195, ("dk", "dv"))))]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

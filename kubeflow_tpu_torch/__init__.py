@@ -2,10 +2,20 @@
 PyTorch and CUDA on an NVIDIA H100.
 
 The JAX package ``kubeflow_tpu`` stays the reference; this package
-imports nothing of it (and no JAX). Ported so far: the serving engine
-(``serving.engine``) over the burn-in transformer (``models.burnin``),
-whose attention runs through a hand-written Hopper flash-attention
-forward (``ops.flash_attention``, CUDA source in ``ops/csrc/``).
+imports nothing of it (and no JAX). Ported so far, slice by slice:
+
+1. serving: the serving engine (``serving.engine``) over the burn-in
+   transformer's forward (``models.burnin``), whose attention runs
+   through a hand-written Hopper flash-attention forward;
+2. training: the burn-in loss and SGD train step (``models.burnin``) and
+   the training harness (``models.trainer``: AdamW or SGD, warmup-cosine,
+   global-norm clip, accumulation, ``fit``), whose attention gradient runs
+   through two hand-written Hopper backward kernels, dQ and dK/dV, behind
+   a ``torch.autograd.Function`` over the forward kernel.
+
+The kernels live in ``ops.flash_attention``, their CUDA sources in
+``ops/csrc/``; ``entry.entry`` mirrors the JAX package's
+``__graft_entry__.entry``.
 """
 
 from kubeflow_tpu_torch.device import resolve_device

@@ -1,7 +1,8 @@
-"""Burn-in transformer forward on PyTorch.
+"""Burn-in transformer on PyTorch: forward, loss and SGD train step.
 
-The port of ``kubeflow_tpu/models/burnin.py`` as far as serving needs it:
-the config, the parameter tree and ``forward``. Parameters are a plain
+The port of ``kubeflow_tpu/models/burnin.py`` on one device: the config,
+the parameter tree, ``forward``, ``loss_fn`` and ``make_train_step``
+(sharding waits for the sharded slice). Parameters are a plain
 dict with the JAX tree's names, shapes and f32 master weights, in the
 JAX layout (``x @ W`` with ``W: [d_in, d_out]``), so converting a JAX
 tree is a copy (:mod:`.convert`). Compute follows the JAX code's
@@ -10,7 +11,9 @@ the embedding and position add and the residual adds in that dtype,
 RMSNorm in f32, GELU in its tanh form, the tied head in the compute
 dtype and then cast to f32. The plain GEMMs stay ``torch.matmul``, as
 the JAX package leaves them to XLA; ``attention="flash"`` runs the
-hand-written kernel (:mod:`kubeflow_tpu_torch.ops.flash_attention`).
+hand-written kernels (:mod:`kubeflow_tpu_torch.ops.flash_attention`): the
+forward, and under autograd the dQ and dK/dV backward kernels. Gradients
+land in f32 on the f32 master weights, as JAX's do through ``astype``.
 """
 
 from __future__ import annotations
@@ -140,3 +143,50 @@ def forward(params: dict, tokens: torch.Tensor,
         x = x + h @ layer["ff2"].to(dtype)
     x = _rmsnorm(x, params["out_norm"])
     return (x @ params["embed"].T.to(dtype)).float()
+
+
+def loss_fn(params: dict, tokens: torch.Tensor,
+            cfg: BurninConfig) -> torch.Tensor:
+    """Next-token cross entropy (shift-by-one on the same sequence): the
+    forward on ``tokens[:, :-1]``, targets ``tokens[:, 1:]``, an f32 log
+    softmax and the mean over ``batch * (seq - 1)``."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].reshape(-1))
+
+
+def leaves(tree) -> list:
+    """The tree's tensors in a fixed order (dict order, then list order)."""
+    if isinstance(tree, dict):
+        return [t for value in tree.values() for t in leaves(value)]
+    if isinstance(tree, list):
+        return [t for value in tree for t in leaves(value)]
+    return [tree]
+
+
+def value_and_grad(fn, params: dict, *args):
+    """``(fn(params, *args), grads)``, the grads a list in
+    :func:`leaves` order. The gradient is taken through aliases of the
+    parameters, so their own ``requires_grad`` is left as it is."""
+    live = map_params(lambda p: p.detach().requires_grad_(), params)
+    loss = fn(live, *args)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves(live)))
+
+
+def make_train_step(cfg: BurninConfig, lr: float = 1e-3):
+    """SGD train step ``(params, tokens) -> (params, loss)``: gradients in
+    f32 (the master weights' dtype) and ``p - lr * g`` on every leaf.
+
+    The update is in place: the returned params are the tensors passed in,
+    the counterpart of the JAX step's ``donate_argnums=(0,)`` (the caller
+    gives up the old params). The loss stays on the device, so steps
+    queue without a host sync; reading it synchronises.
+    """
+
+    def step(params, tokens):
+        loss, grads = value_and_grad(loss_fn, params, tokens, cfg)
+        with torch.no_grad():
+            torch._foreach_add_(leaves(params), grads, alpha=-lr)
+        return params, loss
+
+    return step

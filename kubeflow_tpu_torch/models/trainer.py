@@ -1,0 +1,194 @@
+"""Training harness: optimizer, gradient accumulation and ``fit``.
+
+The port of ``kubeflow_tpu/models/trainer.py`` on one device. The optax
+chain becomes torch objects with optax's numbers:
+
+- ``clip_by_global_norm``: ``g / ‖g‖ * max`` only when ``‖g‖ ≥ max``,
+  with no epsilon (``torch.nn.utils.clip_grad_norm_`` divides by
+  ``‖g‖ + 1e-6`` and scales below the threshold too, so it is not used);
+- ``adamw`` (b1 0.9, b2 0.999, eps 1e-8 outside the square root, decoupled
+  weight decay scaled by the scheduled lr, on every leaf) is
+  ``torch.optim.AdamW``, whose update is the same arithmetic;
+- ``warmup_cosine_decay_schedule(init_value=0)`` is a ``LambdaLR`` that
+  counts from 0 as optax does, so the first update runs at lr 0;
+- ``sgd`` is ``torch.optim.SGD`` without momentum.
+
+The train state is a dict as in the JAX package, ``{"params",
+"opt_state", "step"}``; the step updates params and optimizer state in
+place (the counterpart of donating the state to a jitted step). Sharding
+(``state_sharding_rules``, ``shard_state``) and the abstract state of an
+Orbax restore wait for the sharded and checkpoint slices; ``fit``'s
+``profiler`` and ``publisher`` wait for the telemetry port and raise
+when given.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from itertools import islice
+from typing import Callable, Iterator
+
+import torch
+
+from kubeflow_tpu_torch.models.burnin import leaves, value_and_grad
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    optimizer: str = "adamw"          # "adamw" | "sgd"
+    lr: float = 3e-4
+    weight_decay: float = 0.01
+    warmup_steps: int = 100
+    decay_steps: int = 10_000         # cosine horizon (adamw)
+    grad_clip: float = 1.0            # global-norm clip; 0 disables
+
+
+def warmup_cosine(cfg: TrainerConfig) -> Callable[[int], float]:
+    """The lr multiplier at update ``count`` (from 0): linear from 0 to 1
+    over ``warmup_steps``, then a cosine to 0 at ``decay_steps`` (at least
+    ``warmup_steps + 1``), as optax's ``warmup_cosine_decay_schedule``."""
+    warmup = cfg.warmup_steps
+    span = max(cfg.decay_steps, warmup + 1) - warmup
+
+    def factor(count: int) -> float:
+        if count < warmup:
+            return count / warmup
+        done = min(count - warmup, span) / span
+        return 0.5 * (1.0 + math.cos(math.pi * done))
+
+    return factor
+
+
+def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place by ``max_norm / ‖g‖`` when the global norm
+    ``‖g‖ ≥ max_norm``, as ``optax.clip_by_global_norm``: ``g / ‖g‖ *
+    max_norm``, no epsilon, untouched below the threshold. Returns the
+    norm (on the device; nothing synchronises)."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    below = norm < max_norm
+    divisor = torch.where(below, torch.ones_like(norm), norm)
+    factor = torch.where(below, torch.ones_like(norm),
+                         torch.full_like(norm, max_norm))
+    for g in grads:
+        g.div_(divisor).mul_(factor)
+    return norm
+
+
+class Optimizer:
+    """The optimizer chain of a :class:`TrainerConfig`: ``init(params)``
+    gives its state, ``update(grads, opt_state, params)`` clips the grads
+    and applies one update to the params in place."""
+
+    def __init__(self, cfg: TrainerConfig):
+        if cfg.optimizer not in ("adamw", "sgd"):
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        self.cfg = cfg
+
+    def init(self, params) -> dict:
+        cfg = self.cfg
+        tensors = leaves(params)
+        if cfg.optimizer == "sgd":
+            return {"optimizer": torch.optim.SGD(tensors, lr=cfg.lr),
+                    "schedule": None}
+        opt = torch.optim.AdamW(tensors, lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=cfg.weight_decay)
+        return {"optimizer": opt,
+                "schedule": torch.optim.lr_scheduler.LambdaLR(
+                    opt, warmup_cosine(cfg))}
+
+    def update(self, grads: list, opt_state: dict, params) -> None:
+        if self.cfg.grad_clip:
+            clip_by_global_norm_(grads, self.cfg.grad_clip)
+        tensors = leaves(params)
+        for p, g in zip(tensors, grads):
+            p.grad = g
+        opt_state["optimizer"].step()
+        for p in tensors:
+            p.grad = None
+        if opt_state["schedule"] is not None:
+            opt_state["schedule"].step()
+
+
+def make_optimizer(cfg: TrainerConfig) -> Optimizer:
+    return Optimizer(cfg)
+
+
+def init_state(params, optimizer: Optimizer) -> dict:
+    """The train state: params, optimizer state and the step count."""
+    return {"params": params, "opt_state": optimizer.init(params), "step": 0}
+
+
+def make_train_step(loss_fn: Callable, optimizer: Optimizer,
+                    accum_steps: int = 1):
+    """``(state, batch) -> (state, loss)``, updating the state in place.
+
+    ``loss_fn(params, batch) -> scalar``: close over the model config at
+    the call site (``functools.partial(burnin.loss_fn, cfg=cfg)``).
+
+    ``accum_steps > 1`` splits the batch's leading dim into that many
+    microbatches, one after another (the activations of one microbatch
+    live at a time), sums ``loss / accum_steps`` and ``grads /
+    accum_steps`` over them, and applies the optimizer once.
+    """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def grads_of(params, batch):
+        if accum_steps == 1:
+            return value_and_grad(loss_fn, params, batch)
+        if batch.shape[0] % accum_steps:
+            raise ValueError(f"batch size {batch.shape[0]} not divisible by "
+                             f"accum_steps={accum_steps}")
+        loss = torch.zeros((), dtype=torch.float32, device=batch.device)
+        total = None
+        for micro in batch.chunk(accum_steps):
+            part, grads = value_and_grad(loss_fn, params, micro)
+            loss = loss + (part / accum_steps).float()
+            torch._foreach_div_(grads, accum_steps)
+            if total is None:
+                total = grads
+            else:
+                torch._foreach_add_(total, grads)
+        return loss, total
+
+    def step(state, batch):
+        loss, grads = grads_of(state["params"], batch)
+        optimizer.update(grads, state["opt_state"], state["params"])
+        return {"params": state["params"], "opt_state": state["opt_state"],
+                "step": state["step"] + 1}, loss
+
+    return step
+
+
+def fit(state: dict, batches: Iterator, *, steps: int, step_fn: Callable,
+        checkpoints=None, save_every: int = 100,
+        on_step: Callable | None = None, profiler=None,
+        publisher=None) -> dict:
+    """Run ``step_fn`` until ``state["step"] == steps``, checkpointing.
+
+    Resume: pass a state restored at step k. The loop continues from its
+    step counter and fast-forwards ``batches`` past the first k elements,
+    so interrupt-at-k and a rerun over the same deterministic batch
+    sequence equal an uninterrupted run.
+
+    ``checkpoints`` is any object with ``save(step, state)`` and
+    ``wait()``: ``save`` every ``save_every`` steps, ``wait`` at the end.
+    ``profiler`` and ``publisher`` are the JAX package's telemetry hooks,
+    not ported yet: passing either raises ``NotImplementedError``.
+    """
+    if profiler is not None or publisher is not None:
+        raise NotImplementedError(
+            "fit's profiler and publisher hooks wait for the telemetry port")
+    start = int(state["step"])
+    if start:
+        batches = islice(batches, start, None)
+    for i in range(start, steps):
+        state, loss = step_fn(state, next(batches))
+        if on_step is not None:
+            on_step(i + 1, float(loss))
+        if checkpoints is not None and (i + 1) % save_every == 0:
+            checkpoints.save(i + 1, state)
+    if checkpoints is not None:
+        checkpoints.wait()
+    return state

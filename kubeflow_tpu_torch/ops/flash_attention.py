@@ -1,26 +1,33 @@
-"""Fused flash-attention forward: the Hopper kernel and its plain version.
+"""Fused flash attention, forward and backward: the Hopper kernels and
+their plain versions.
 
-The port of ``kubeflow_tpu/ops/flash_attention.py``'s forward
-(``_fwd_kernel``, reached through ``flash_attention``). The CUDA source is
-``csrc/flash_attention_fwd.cu``; its header states the bound on an H100
-and what the design does about it.
+The port of ``kubeflow_tpu/ops/flash_attention.py``: the forward
+(``_fwd_kernel``) and the two backward kernels (``_bwd_dq_kernel``,
+``_bwd_dkv_kernel``), joined by a ``torch.autograd.Function`` as the JAX
+package joins them by ``jax.custom_vjp``. The CUDA sources are
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``; their
+headers state each kernel's bound on an H100 and what the design does
+about it.
 
 Dispatch is by the tensors' device. A CUDA tensor launches the kernel
 (built from the source at first use, see :mod:`._build`) or raises; it
-never falls back. A CPU tensor takes :func:`flash_attention_reference`,
-the plain PyTorch version the tests hold the JAX package against and the
-card's kernel is compared with.
+never falls back. A CPU tensor takes the plain PyTorch version beside
+each kernel (``flash_attention_reference``,
+``flash_attention_bwd_dq_reference``, ``flash_attention_bwd_dkv_reference``),
+which the tests hold the JAX package against and the card's kernels are
+compared with.
 
 Layout and shape contract follow the JAX wrapper: q, k, v are
 ``[batch, seq, heads, head_dim]`` of one dtype (bfloat16 or float32),
 the default scale is ``1/sqrt(head_dim)``, and a sequence longer than the
-JAX default block (1024) must be a multiple of it. The kernel's own tiles
-are internal. The kernel takes head dims 64 and 128; the plain version
-takes any.
+JAX default block (1024) must be a multiple of it. lse and delta are f32
+``[batch * heads, seq]``. The kernels' own tiles are internal. The kernels
+take head dims 64 and 128; the plain versions take any.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -28,17 +35,29 @@ import torch
 
 from kubeflow_tpu_torch.ops import _build
 
-#: Kernel launches by this process (one per successful CUDA launch; the
-#: plain version never counts).
-LAUNCHES = 0
+#: Kernel launches by this process, one counter per kernel (one per
+#: successful CUDA launch; the plain versions never count).
+LAUNCHES = 0          # the forward
+BWD_DQ_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
+#: Backward calls whose dO the kernels could not read through its strides
+#: (an expanded gradient, say) and which copied it first.
+DO_COPIES = 0
 
 SOURCE = "flash_attention_fwd.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_BIG = -1e30
 # The JAX wrapper's default blocks (DEFAULT_BLOCK_Q/K) fix which sequence
 # lengths it accepts; the port keeps that contract.
 _JAX_BLOCK = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_seq(s: int) -> None:
+    block = min(_JAX_BLOCK, s)
+    if s % block:
+        raise ValueError(f"seq {s} must divide by blocks {block}/{block}")
 
 
 def _check(q, k, v) -> None:
@@ -52,10 +71,11 @@ def _check(q, k, v) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v on different devices: "
                          f"{q.device}, {k.device}, {v.device}")
-    s = q.shape[1]
-    block = min(_JAX_BLOCK, s)
-    if s % block:
-        raise ValueError(f"seq {s} must divide by blocks {block}/{block}")
+    _check_seq(q.shape[1])
+
+
+def _default_scale(scale, q) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = True,
@@ -63,8 +83,7 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     """Dense softmax attention in f32 with P rounded to V's dtype before
     PV: ``(o [b, s, h, d] in q's dtype, lse [b*h, s] f32)``."""
     b, s, h, d = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
+    scale = _default_scale(scale, q)
     qf = q.float().transpose(1, 2)                       # [b, h, s, d]
     kf = k.float().transpose(1, 2)
     vf = v.float().transpose(1, 2)
@@ -84,13 +103,39 @@ def _check_kernel_layout(name: str, t: torch.Tensor) -> None:
     """Raise unless the kernel's 16-byte loads can read ``t`` through its
     strides: unit stride along head_dim, a 16-byte aligned start, and
     16-byte multiples for the batch, seq and head strides."""
-    per16 = 16 // t.element_size()
-    if not (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % per16 == 0 for st in t.stride()[:3])):
+    if not _kernel_readable(t):
         raise ValueError(
             f"{name}: the CUDA kernel reads 16-byte aligned rows with unit "
             f"head_dim stride; got strides {t.stride()} at offset "
             f"{t.data_ptr() % 16} bytes from 16-byte alignment")
+
+
+def _kernel_readable(t: torch.Tensor) -> bool:
+    per16 = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % per16 == 0 for st in t.stride()[:3]))
+
+
+def _check_kernel_shape(q) -> None:
+    b, _, h, d = q.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the CUDA kernel takes "
+                         f"{KERNEL_HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError(f"batch*heads {b * h} exceeds the kernel grid")
+
+
+@contextlib.contextmanager
+def _on_device(device):
+    """Make ``device`` current; yields its current stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.kftpu_cuda_error_string(err).decode())
 
 
 def _library() -> ctypes.CDLL:
@@ -109,18 +154,13 @@ def _library() -> ctypes.CDLL:
 def _launch(q, k, v, causal: bool, scale: float):
     global LAUNCHES
     b, s, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the CUDA kernel takes "
-                         f"{KERNEL_HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"batch*heads {b * h} exceeds the kernel grid")
+    _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_layout(name, t)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _on_device(q.device) as stream:
         err = lib.kftpu_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, s, h, d, _DTYPE_CODES[q.dtype],
@@ -129,9 +169,7 @@ def _launch(q, k, v, causal: bool, scale: float):
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
             scale, int(causal), stream)
-    if err:
-        raise RuntimeError("flash_attention_fwd launch failed: "
-                           + lib.kftpu_cuda_error_string(err).decode())
+    _raise_on(err, lib, "flash_attention_fwd")
     LAUNCHES += 1
     return o, lse
 
@@ -141,8 +179,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     """``(o [b, s, h, d], lse [b*h, s] f32)`` of softmax attention; the
     kernel on CUDA tensors, the plain version on CPU tensors."""
     _check(q, k, v)
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _default_scale(scale, q)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale)
     if q.device.type == "cpu":
@@ -150,8 +187,301 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     raise ValueError(f"no flash attention for device {q.device}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Attention with its gradient, as the JAX package's ``_flash``
+    custom VJP: the forward kernel saves q, k, v, o and lse, and the
+    backward runs :func:`flash_attention_bwd` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, _default_scale(scale, q)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
     """Fused attention. q/k/v ``[batch, seq, heads, head_dim]``; returns
-    o in the same layout and q's dtype."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+    o in the same layout and q's dtype, differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, scale)
+
+
+# ---------------------------------------------------------------- backward
+
+
+def _check_bwd(q, k, v, o, lse, do, delta) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or do.shape != q.shape or (o is not None and o.shape != q.shape) \
+            or (k.shape[0], k.shape[2], k.shape[3]) \
+            != (q.shape[0], q.shape[2], q.shape[3]):
+        raise ValueError(
+            f"q, dO, o [b, s_q, h, d] and k, v [b, s_k, h, d] disagree: "
+            f"{tuple(q.shape)}, {tuple(do.shape)}, "
+            f"{None if o is None else tuple(o.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODES or any(
+            t.dtype != q.dtype for t in (k, v, do, o) if t is not None):
+        raise TypeError(f"flash attention's backward takes bfloat16 or "
+                        f"float32 q, k, v, o, dO of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
+    b, s_q, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != (b * h, s_q)):
+            raise ValueError(f"{name} must be f32 [{b * h}, {s_q}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if o is None and delta is None:
+        raise ValueError("the backward needs o or delta")
+    if any(t.device != q.device for t in (k, v, o, lse, do, delta)
+           if t is not None):
+        raise ValueError("flash attention's backward takes tensors on one "
+                         "device")
+    _check_seq(s_q)
+    _check_seq(k.shape[1])
+
+
+def _bwd_probs_and_ds(q, k, v, lse, do, delta, causal, scale, q_offset,
+                      k_offset):
+    """P = exp(S * scale - lse) from f32 scores, masked entries at -1e30
+    before the exp, and dS = P (dO V^T - delta): both f32
+    ``[b, h, s_q, s_k]``."""
+    b, s_q, h, _ = q.shape
+    s_k = k.shape[1]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2)
+    scores = (qf @ kf.transpose(-1, -2)) * scale
+    if causal:
+        rows = torch.arange(s_q, device=q.device) + q_offset
+        cols = torch.arange(s_k, device=q.device) + k_offset
+        scores = scores.masked_fill(cols[None, :] > rows[:, None], _NEG_BIG)
+    p = torch.exp(scores - lse.reshape(b, h, s_q, 1))
+    dp = do.float().transpose(1, 2) @ v.float().transpose(1, 2).transpose(
+        -1, -2)
+    return p, p * (dp - delta.reshape(b, h, s_q, 1))
+
+
+def attention_delta(o, do) -> torch.Tensor:
+    """``rowsum(f32(dO) * f32(O))`` as f32 ``[b*h, s]``: the backward's
+    delta (a plain sum outside the TPU kernels; fused into the dQ kernel
+    on the card)."""
+    b, s, h, _ = o.shape
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, o, lse, do, *,
+                                     causal: bool = True,
+                                     scale: float | None = None,
+                                     q_offset: int = 0, k_offset: int = 0,
+                                     delta=None):
+    """The dQ kernel's plain version: ``(dq, delta)``, with dS rounded to
+    k's dtype before dS K and the scale applied to the f32 product."""
+    scale = _default_scale(scale, q)
+    if delta is None:
+        delta = attention_delta(o, do)
+    _, ds = _bwd_probs_and_ds(q, k, v, lse, do, delta, causal, scale,
+                              q_offset, k_offset)
+    dq = (ds.to(k.dtype).float() @ k.float().transpose(1, 2)) * scale
+    return dq.transpose(1, 2).to(q.dtype).contiguous(), delta
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, lse, do, delta, *,
+                                      causal: bool = True,
+                                      scale: float | None = None,
+                                      q_offset: int = 0, k_offset: int = 0):
+    """The dK/dV kernel's plain version: ``(dk, dv)``, with P rounded to
+    dO's dtype before P^T dO and dS to q's before dS^T Q."""
+    scale = _default_scale(scale, q)
+    p, ds = _bwd_probs_and_ds(q, k, v, lse, do, delta, causal, scale,
+                              q_offset, k_offset)
+    dv = p.to(do.dtype).float().transpose(-1, -2) \
+        @ do.float().transpose(1, 2)
+    dk = (ds.to(q.dtype).float().transpose(-1, -2)
+          @ q.float().transpose(1, 2)) * scale
+    return (dk.transpose(1, 2).to(k.dtype).contiguous(),
+            dv.transpose(1, 2).to(v.dtype).contiguous())
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
+                                  causal: bool = True,
+                                  scale: float | None = None,
+                                  q_offset: int = 0, k_offset: int = 0,
+                                  delta=None):
+    """The backward's plain version: ``(dq, dk, dv)``."""
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              k_offset=k_offset)
+    dq, delta = flash_attention_bwd_dq_reference(q, k, v, o, lse, do,
+                                                 delta=delta, **kw)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, lse, do, delta, **kw)
+    return dq, dk, dv
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    if lib.kftpu_flash_attention_bwd_dq.argtypes is None:
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.kftpu_flash_attention_bwd_dq.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+        lib.kftpu_flash_attention_bwd_dkv.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.kftpu_flash_attention_bwd_dq.restype = ctypes.c_int
+        lib.kftpu_flash_attention_bwd_dkv.restype = ctypes.c_int
+        lib.kftpu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.kftpu_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _strides(*tensors):
+    """(batch, seq, head) strides of q, k, v, o, dO, dQ, dK, dV in that
+    order, zeros for a tensor the launch does not touch."""
+    values = []
+    for t in tensors:
+        values += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _check_stats_contiguous(lse, delta) -> None:
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the kernel")
+
+
+def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
+               k_offset):
+    global BWD_DQ_LAUNCHES
+    _check_kernel_shape(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do), ("o", o)):
+        if t is not None:
+            _check_kernel_layout(name, t)
+    _check_stats_contiguous(lse, delta)
+    b, s_q, h, d = q.shape
+    compute_delta = delta is None
+    if compute_delta:
+        delta = torch.empty((b * h, s_q), dtype=torch.float32,
+                            device=q.device)
+    dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    lib = _bwd_library()
+    with _on_device(q.device) as stream:
+        err = lib.kftpu_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(o), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, s_q, k.shape[1], h, d, _DTYPE_CODES[q.dtype],
+            _strides(q, k, v, o, do, dq, None, None), scale, int(causal),
+            q_offset, k_offset, int(compute_delta), stream)
+    _raise_on(err, lib, "flash_attention_bwd_dq")
+    BWD_DQ_LAUNCHES += 1
+    return dq, delta
+
+
+def _launch_dkv(q, k, v, lse, do, delta, causal, scale, q_offset, k_offset):
+    global BWD_DKV_LAUNCHES
+    _check_kernel_shape(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
+        _check_kernel_layout(name, t)
+    _check_stats_contiguous(lse, delta)
+    b, s_q, h, d = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    lib = _bwd_library()
+    with _on_device(q.device) as stream:
+        err = lib.kftpu_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s_q, k.shape[1], h, d, _DTYPE_CODES[q.dtype],
+            _strides(q, k, v, None, do, None, dk, dv), scale, int(causal),
+            q_offset, k_offset, stream)
+    _raise_on(err, lib, "flash_attention_bwd_dkv")
+    BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
+                           scale: float | None = None, q_offset: int = 0,
+                           k_offset: int = 0, delta=None):
+    """``(dq, delta)``: the dQ kernel on CUDA tensors (which computes
+    delta from o and dO first when it is not given), the plain version on
+    CPU tensors."""
+    _check_bwd(q, k, v, o, lse, do, delta)
+    args = (_default_scale(scale, q), int(q_offset), int(k_offset))
+    if q.device.type == "cuda":
+        return _launch_dq(q, k, v, o, lse, do, delta, causal, *args)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(
+            q, k, v, o, lse, do, causal=causal, scale=args[0],
+            q_offset=args[1], k_offset=args[2], delta=delta)
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, do, delta, *, causal: bool = True,
+                            scale: float | None = None, q_offset: int = 0,
+                            k_offset: int = 0):
+    """``(dk, dv)``: the dK/dV kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    _check_bwd(q, k, v, None, lse, do, delta)
+    args = (_default_scale(scale, q), int(q_offset), int(k_offset))
+    if q.device.type == "cuda":
+        return _launch_dkv(q, k, v, lse, do, delta, causal, *args)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(
+            q, k, v, lse, do, delta, causal=causal, scale=args[0],
+            q_offset=args[1], k_offset=args[2])
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale: float | None = None, q_offset: int = 0,
+                        k_offset: int = 0, delta=None):
+    """``(dq, dk, dv)`` of attention for the output gradient ``do``, from
+    the forward's o and lse: the two kernels on CUDA tensors, the plain
+    version on CPU tensors. Query row i sits at global position
+    ``q_offset + i`` and key j at ``k_offset + j`` for the causal mask (a
+    ring hop's blocks); ``delta`` (f32 ``[b*h, s_q]``) replaces the one
+    computed from o and dO when given."""
+    global DO_COPIES
+    _check_bwd(q, k, v, o, lse, do, delta)
+    if q.device.type == "cuda" and not _kernel_readable(do):
+        # Autograd may hand over an expanded dO (zero strides, e.g. after
+        # a .sum()); the kernels' 16-byte loads need real rows, so copy.
+        do = do.contiguous()
+        DO_COPIES += 1
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              k_offset=k_offset)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, delta=delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw)
+    return dq, dk, dv
+
+
+def flash_attention_partial_grads(q, k, v, do, lse, delta, q_offset,
+                                  k_offset, *, scale: float | None = None):
+    """One ring hop's backward: the block pair's partial ``(dq, dk, dv)``.
+
+    q/do ``[b, s_q, h, d]``, k/v ``[b, s_k, h, d]``; ``lse`` is the final
+    ring logsumexp ``[b, h, s_q]`` (after folding every hop) and
+    ``delta`` the rowsum(do·o_final) ``[b, h, s_q]``. With those, the
+    causal flash backward restricted to this block pair, at the blocks'
+    global starts ``q_offset`` and ``k_offset``, gives exactly this hop's
+    share of the gradients.
+    """
+    b, s_q, h, _ = q.shape
+
+    def fold_stat(t):  # [b, h, s] -> [b*h, s]
+        return t.reshape(b * h, s_q).contiguous()
+
+    return flash_attention_bwd(q, k, v, None, fold_stat(lse), do,
+                               causal=True, scale=scale, q_offset=q_offset,
+                               k_offset=k_offset, delta=fold_stat(delta))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the serving engine's device path through them.
+version, and the serving engine's and the train step's device paths
+through them.
 
 Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so on
@@ -58,6 +59,104 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, causal):
     torch.testing.assert_close(o.float(), ro.float(), rtol=0,
                                atol=TOL_O[dtype])
     torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
+
+
+# Backward: dQ, dK, dV are stored in bf16 (one ulp is 2**-8 of the value)
+# after P and dS were rounded to bf16 at the same points as the plain
+# version, where an f32 value on a rounding boundary may go the other
+# way: 1e-2 of the reference's largest magnitude. f32: summation order
+# only: 1e-4 of it.
+TOL_GRAD = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+TRAIN_SHAPE = (8, 1024, 16, 128)     # the train step's attention
+BWD_CASES = {
+    "train": (TRAIN_SHAPE, torch.bfloat16, True, 0, 0),
+    "multi_tile": ((2, 2048, 4, 128), torch.bfloat16, True, 0, 0),
+    "ragged_full_d64": ((2, 100, 3, 64), torch.bfloat16, False, 0, 0),
+    "f32_causal": ((1, 77, 2, 128), torch.float32, True, 0, 0),
+    # Ring hops: the K block below the diagonal, on it, and above it.
+    "hop_below": ((2, 256, 4, 128), torch.bfloat16, True, 256, 0),
+    "hop_diagonal": ((2, 256, 4, 128), torch.bfloat16, True, 256, 256),
+    "hop_above": ((2, 256, 4, 128), torch.bfloat16, True, 0, 256),
+}
+
+
+def _bwd_inputs(shape, dtype, device, seed=3):
+    q, k, v = _qkv(shape, dtype, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(shape, generator=gen, device=device).to(dtype)
+    o, lse = fa.flash_attention_reference(q, k, v)
+    return q, k, v, o, lse, do
+
+
+def _assert_grads_close(got, ref, dtype):
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        bound = TOL_GRAD[dtype] * r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_kernels_match_plain_version(cuda, case):
+    shape, dtype, causal, q_off, k_off = BWD_CASES[case]
+    q, k, v, o, lse, do = _bwd_inputs(shape, dtype, cuda)
+    hop = q_off or k_off
+    # A hop is handed the final lse and delta; a full call computes delta.
+    delta = fa.attention_delta(o, do) if hop else None
+    before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    got = fa.flash_attention_bwd(q, k, v, None if hop else o, lse, do,
+                                 causal=causal, q_offset=q_off,
+                                 k_offset=k_off, delta=delta)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                           causal=causal, q_offset=q_off,
+                                           k_offset=k_off, delta=delta)
+    _assert_grads_close(got, ref, dtype)
+    if case == "hop_above":   # no key of the block reaches any query
+        assert all(bool((g == 0).all()) for g in got)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_deterministic(cuda):
+    q, k, v, o, lse, do = _bwd_inputs(TRAIN_SHAPE, torch.bfloat16, cuda)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dq_kernel_writes_the_delta_of_the_plain_version(cuda):
+    q, k, v, o, lse, do = _bwd_inputs((2, 256, 4, 128), torch.bfloat16, cuda)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    torch.testing.assert_close(delta, fa.attention_delta(o, do), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_backward_reads_qkv_slices_and_copies_only_an_expanded_do(cuda):
+    b, s, h, d = 2, 256, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    copies = fa.DO_COPIES
+    sliced = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    dense = fa.flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), o, lse, do)
+    assert fa.DO_COPIES == copies
+    for a, c in zip(sliced, dense):
+        assert torch.equal(a, c)
+    ones = torch.ones((), device=cuda, dtype=torch.bfloat16).expand(o.shape)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, ones)
+    assert fa.DO_COPIES == copies + 1
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, ones)
+    _assert_grads_close(got, ref, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -131,3 +230,70 @@ def test_engine_serves_through_the_kernel(cuda):
     assert fa.LAUNCHES - before == cfg.n_layers * forwards
     engine.kv.assert_consistent()
     assert engine.kv.used_blocks == 0
+
+
+# Flash vs dense gradients in bf16: the dense path rounds logits and
+# probabilities to bf16, the flash path keeps scores in f32 (measured on
+# this config with the plain versions on the CPU: rel L2 1.2e-2, cosine
+# 0.99994; loss 1.7e-4).
+TOL_GRAD_REL_L2 = 0.05
+MIN_GRAD_COSINE = 0.999
+SMALL_TRAIN = dict(vocab=256, d_model=256, n_heads=2, n_layers=2, d_ff=512,
+                   seq_len=129, attention="flash")
+
+
+def _train_inputs(cfg, device, seed=0):
+    params = burnin.init_params(cfg, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    tokens = torch.randint(0, cfg.vocab, (2, cfg.seq_len), generator=gen,
+                           device=device)
+    return params, tokens
+
+
+def _counts():
+    return (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_flash_gradients_reach_qkv_and_ln1_and_match_dense(cuda):
+    """The forward kernel's output used to carry no grad_fn, so with
+    attention="flash" on the card the backward stopped at every attention
+    block: qkv got no gradient and ln1 only part of its. Through the
+    autograd Function every leaf gets the dense path's gradient."""
+    cfg = burnin.BurninConfig(**SMALL_TRAIN)
+    dense = burnin.BurninConfig(**{**SMALL_TRAIN, "attention": "xla"})
+    params, tokens = _train_inputs(cfg, cuda)
+    before = _counts()
+    loss, grads = burnin.value_and_grad(burnin.loss_fn, params, tokens, cfg)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + cfg.n_layers for c in before)
+    ref_loss, ref = burnin.value_and_grad(burnin.loss_fn, params, tokens,
+                                          dense)
+    assert abs(float(loss) - float(ref_loss)) < 0.01
+    it = iter(grads)
+    tree = burnin.map_params(lambda _: next(it), params)
+    for layer in tree["layers"]:
+        assert bool((layer["qkv"] != 0).any())
+        assert bool((layer["ln1"] != 0).any())
+    for g, r in zip(grads, ref):
+        assert bool(torch.isfinite(g).all())
+        rel = ((g - r).norm() / r.norm()).item()
+        cos = torch.nn.functional.cosine_similarity(
+            g.flatten(), r.flatten(), dim=0).item()
+        assert rel <= TOL_GRAD_REL_L2 and cos >= MIN_GRAD_COSINE, (rel, cos)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card(cuda):
+    cfg = burnin.BurninConfig(**SMALL_TRAIN)
+    params, tokens = _train_inputs(cfg, cuda, seed=1)
+    step = burnin.make_train_step(cfg)
+    before, copies = _counts(), fa.DO_COPIES
+    params, loss1 = step(params, tokens)
+    params, loss2 = step(params, tokens)
+    assert params["embed"].device.type == "cuda"
+    assert bool(torch.isfinite(loss1)) and float(loss2) < float(loss1)
+    # One forward, one dQ and one dK/dV launch per layer and step, and the
+    # step's dO reaches the kernels with no copy.
+    assert _counts() == tuple(c + 2 * cfg.n_layers for c in before)
+    assert fa.DO_COPIES == copies

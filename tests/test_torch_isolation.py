@@ -40,6 +40,12 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
     assert "chip_smoke.py" in names
     assert "kubeflow_tpu_torch/serving/engine.py" in names
     assert "kubeflow_tpu_torch/ops/flash_attention.py" in names
+    assert "kubeflow_tpu_torch/models/trainer.py" in names
+    assert "kubeflow_tpu_torch/entry.py" in names
+    # The kernels' CUDA sources, which ops/flash_attention.py builds.
+    csrc = REPO / "kubeflow_tpu_torch" / "ops" / "csrc"
+    assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu"} <= {
+        p.name for p in csrc.glob("*.cu")}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -57,7 +63,8 @@ def test_the_matcher_tells_the_packages_apart():
 
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys, kubeflow_tpu_torch.serving.engine, "
-            "kubeflow_tpu_torch.serving.loadgen, kubeflow_tpu_torch.models; "
+            "kubeflow_tpu_torch.serving.loadgen, kubeflow_tpu_torch.models, "
+            "kubeflow_tpu_torch.models.trainer, kubeflow_tpu_torch.entry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
