@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and hold its kernels against their plain versions.
+"""Drive the PyTorch port's serving, training and long-context training
+paths on one NVIDIA GPU and hold its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -50,6 +50,28 @@ last line. With no CUDA device it exits 1 and prints no result.
    width; each kernel launches once per layer and microbatch. Step times
    from the per-step sync, the first step (which allocates the AdamW
    moments) apart from the steady ones; then 3 more steps profiled.
+10. partial_kernels — the ring hop's partial kernel against its plain
+   version: the one-card hop of ``LONGCTX_MODEL`` ([1, 8192, 16, 128]
+   bf16 at offsets (0, 0)), a 4-shard ring's hops below, on and above the
+   diagonal (above: exactly acc = 0, l = 0, m = -1e30), an f32 head-dim-64
+   case, and q, k, v as column slices of one qkv tensor (bitwise equal to
+   the contiguous case); at the one-card hop timed as the kernels phase
+   times the forward, beside its bound and SDPA's causal forward.
+11. ring_hops — a 4-shard ring simulated in one process at full width:
+   the 16 block pairs of [1, 8192, 16, 128] bf16 through the partial
+   kernel and the fold, and the backward through the dQ and dK/dV kernels
+   with the final lse, held against the one-shot forward and backward
+   kernels over the 8192 tokens.
+12. longctx_grads — ``LONGCTX_MODEL`` at batch 1, one shard: the loss and
+   every gradient leaf of ``"ring_flash"`` against the dense ``"ring"``
+   on the same seeded params and tokens, within stated bounds.
+13. longctx — the long-context main path, as bench.py's
+   ``_longctx_bench``: ``longctx.make_train_step`` at ``LONGCTX_MODEL``,
+   batch 1, ``"ring_flash"``, 2 warm-up steps, 40 steps in 4 chunks of 10
+   each ending in a host sync, 3 profiled steps; launches counted from
+   zero: one partial, one dQ and one dK/dV launch per layer and step, no
+   forward launch. Then one step each of ``"ulysses_flash"`` (the forward,
+   dQ and dK/dV kernels) and the dense ``"ring"``.
 
 Then the ``{"kernels": [...]}`` line, the card line, and the result line.
 """
@@ -136,12 +158,49 @@ MIN_GRAD_COSINE = 0.995
 TOL_LOGITS_MAX = 0.125
 TOL_LOGITS_MEAN = 0.01
 
+# The long-context config: bench.py's LONGCTX_MODEL uncut (8192 tokens,
+# ring_flash, bf16), at batch 1 on one card, mesh=None (one shard, as
+# _longctx_bench's 1x1 mesh).
+LONGCTX_MODEL = dict(vocab=8192, d_model=2048, n_layers=2, d_ff=8192,
+                     n_heads=16, seq_len=8192, attention="ring_flash",
+                     dtype="bfloat16")
+LONGCTX_BATCH = 1
+LONGCTX_WARMUP, LONGCTX_CHUNKS, LONGCTX_CHUNK_STEPS = 2, 4, 10
+LONGCTX_PROFILED = 3
+# Partial-kernel cases (name, [b, s, h, d], dtype, q_offset, k_offset):
+# the one-card hop of LONGCTX_MODEL, the hops of a 4-shard ring of it
+# below, on and above the diagonal, and the f32 path at head dim 64.
+PARTIAL_CASES = [
+    ("one_card_hop", (1, 8192, 16, 128), "bfloat16", 0, 0),
+    ("hop_below", (1, 2048, 16, 128), "bfloat16", 2048, 0),
+    ("hop_diagonal", (1, 2048, 16, 128), "bfloat16", 2048, 2048),
+    ("hop_above", (1, 2048, 16, 128), "bfloat16", 0, 2048),
+    ("f32_d64", (2, 256, 4, 64), "float32", 256, 256),
+]
+# The partial kernel against its plain version. acc, as a fraction of the
+# plain acc's largest magnitude: bf16 P is rounded against the running max
+# in the kernel and the final max in the plain version, so an element may
+# land a bf16 ulp (2**-8) apart: 1e-2; f32: summation order only: 1e-4.
+# m and l are f32 from f32 scores in both: m within 1e-4 (absolute, |m|
+# is a few units), l within 1e-4 of its largest value.
+TOL_PARTIAL_ACC = {"bfloat16": 1e-2, "float32": 1e-4}
+TOL_PARTIAL_M = 1e-4
+TOL_PARTIAL_L = 1e-4
+RING_SHARDS = 4
+# The simulated ring against the one-shot kernels: o in bf16 from a fold
+# in another order, 2e-2 absolute as TOL_O; lse f32, TOL_LSE; dq, dk, dv
+# sum four hops' partial gradients, each rounded to bf16 (2**-8 of a
+# value) before the f32 sum, where the one-shot kernels round once: 2e-2
+# of the largest magnitude.
+TOL_RING_GRAD = 2e-2
+
 
 # Device kernels by what they do, for the profiled steps' breakdown: the
 # first category whose key is in a kernel's name takes it.
 KERNEL_CATEGORIES = (
     ("attention kernels (this port)", ("fwd_bf16_kernel", "dq_bf16_kernel",
-                                       "dkv_bf16_kernel")),
+                                       "dkv_bf16_kernel",
+                                       "partial_bf16_kernel")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("casts and copies", ("copy",)),
     ("foreach passes (SGD, AdamW, clip norm, accumulation)",
@@ -611,12 +670,17 @@ def _leaf_names(tree, path="") -> list:
 
 def _launch_counts(fa) -> dict:
     return {"fwd": fa.LAUNCHES, "dq": fa.BWD_DQ_LAUNCHES,
-            "dkv": fa.BWD_DKV_LAUNCHES}
+            "dkv": fa.BWD_DKV_LAUNCHES, "partial": fa.PARTIAL_LAUNCHES}
 
 
 def _zero_launch_counts(fa) -> None:
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
-    fa.DO_COPIES = 0
+    fa.PARTIAL_LAUNCHES = fa.DO_COPIES = 0
+
+
+def _burnin_counts(n: int) -> dict:
+    """The launches of ``n`` burn-in forwards with their backwards."""
+    return {"fwd": n, "dq": n, "dkv": n, "partial": 0}
 
 
 def _train_inputs(torch, burnin, cfg, seed: int):
@@ -625,6 +689,20 @@ def _train_inputs(torch, burnin, cfg, seed: int):
     tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
                            generator=gen, device="cuda")
     return params, tokens
+
+
+def _grad_gaps(torch, params, grads, ref) -> tuple:
+    """Per leaf: finite, rel L2 and cosine of ``grads`` against ``ref``;
+    and the leaves with the largest rel L2 and the least cosine."""
+    leaves = []
+    for name, g, r in zip(_leaf_names(params), grads, ref):
+        leaves.append({
+            "leaf": name, "finite": bool(torch.isfinite(g).all()),
+            "rel_l2": ((g - r).norm() / r.norm()).item(),
+            "cosine": torch.nn.functional.cosine_similarity(
+                g.flatten(), r.flatten(), dim=0).item()})
+    return (leaves, max(leaves, key=lambda x: x["rel_l2"]),
+            min(leaves, key=lambda x: x["cosine"]))
 
 
 def phase_train_grads(torch, fa, burnin) -> None:
@@ -636,15 +714,7 @@ def phase_train_grads(torch, fa, burnin) -> None:
     launches = {k: v - before[k] for k, v in _launch_counts(fa).items()}
     ref_loss, ref = burnin.value_and_grad(
         burnin.loss_fn, params, tokens, replace(cfg, attention="xla"))
-    leaves = []
-    for name, g, r in zip(_leaf_names(params), grads, ref):
-        leaves.append({
-            "leaf": name, "finite": bool(torch.isfinite(g).all()),
-            "rel_l2": ((g - r).norm() / r.norm()).item(),
-            "cosine": torch.nn.functional.cosine_similarity(
-                g.flatten(), r.flatten(), dim=0).item()})
-    worst = max(leaves, key=lambda x: x["rel_l2"])
-    least = min(leaves, key=lambda x: x["cosine"])
+    leaves, worst, least = _grad_gaps(torch, params, grads, ref)
     row = {"phase": "train_grads", "config": TRAIN_MODEL,
            "batch": TRAIN_BATCH, "loss_flash": float(loss),
            "loss_dense": float(ref_loss),
@@ -659,7 +729,7 @@ def phase_train_grads(torch, fa, burnin) -> None:
             and abs(row["loss_diff"]) <= TOL_TRAIN_LOSS
             and worst["rel_l2"] <= TOL_GRAD_REL_L2
             and least["cosine"] >= MIN_GRAD_COSINE
-            and all(n == cfg.n_layers for n in launches.values())):
+            and launches == _burnin_counts(cfg.n_layers)):
         raise AssertionError(f"flash and dense gradients disagree: {row}")
     del params, grads, ref
     torch.cuda.empty_cache()
@@ -720,7 +790,7 @@ def phase_train(torch, fa, burnin, card: str) -> dict:
     emit(row)
     if not (math.isfinite(first_loss) and math.isfinite(last_loss)
             and last_loss < first_loss and copies == 0
-            and all(n == cfg.n_layers * run for n in launches.values())):
+            and launches == _burnin_counts(cfg.n_layers * run)):
         raise AssertionError(f"train phase failed: {row}")
     del params
     torch.cuda.empty_cache()
@@ -772,11 +842,317 @@ def phase_trainer(torch, fa, burnin, trainer) -> dict:
     emit(row)
     if not (state["step"] == FIT_STEPS and len(losses) == FIT_STEPS
             and all(math.isfinite(x) for x in losses)
-            and all(n == expect for n in launches.values())):
+            and launches == _burnin_counts(expect)):
         raise AssertionError(f"trainer phase failed: {row}")
     del state, params
     torch.cuda.empty_cache()
     return launches
+
+
+def partial_bound_ms(shape, dtype: str, q_offset: int, k_offset: int):
+    """Least time for one partial launch on these inputs: q, k, v read
+    once, the f32 acc and the f32 m and l written once, against the QK^T
+    and PV products of the query-key pairs that the global causal mask
+    leaves visible at these offsets."""
+    b, s, h, d = shape
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = 3 * b * s * h * d * elt + b * s * h * d * 4 + 2 * b * h * s * 4
+    pairs = sum(max(0, min(s, q_offset + i - k_offset + 1)) for i in range(s))
+    flops = 4 * b * h * pairs * d
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_SEC, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _partial_errors(got, ref) -> dict:
+    """acc error over the plain acc's largest magnitude, m's absolute
+    error, l's error over the plain l's largest value (at least 1)."""
+    (o, m, l), (ro, rm, rl) = got, ref
+    top = ro.abs().max().item()
+    err_o = (o - ro).abs().max().item()
+    return {"rel_err_acc": err_o / top if top else err_o,
+            "max_err_acc": err_o,
+            "max_err_m": (m - rm).abs().max().item(),
+            "rel_err_l": (l - rl).abs().max().item()
+            / max(rl.max().item(), 1.0)}
+
+
+def phase_partial_kernels(torch, fa) -> dict:
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    out = {}
+    for name, shape, dtype, q_off, k_off in PARTIAL_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(getattr(torch, dtype)) for _ in range(3))
+        got = fa.flash_attention_partial(q, k, v, q_off, k_off)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_partial_reference(q, k, v, q_off, k_off)
+        errs = _partial_errors(got, ref)
+        o, m, l = got
+        nothing = (bool((o == 0).all()) and bool((l == 0).all())
+                   and bool((m == -1e30).all()))
+        ok = (all(bool(torch.isfinite(t).all()) for t in (o, l))
+              and errs["rel_err_acc"] <= TOL_PARTIAL_ACC[dtype]
+              and errs["max_err_m"] <= TOL_PARTIAL_M
+              and errs["rel_err_l"] <= TOL_PARTIAL_L
+              and (nothing if name == "hop_above" else not nothing))
+        row = {"phase": "partial_kernels", "case": name, "shape": list(shape),
+               "dtype": dtype, "q_offset": q_off, "k_offset": k_off, **errs,
+               "tol_acc": TOL_PARTIAL_ACC[dtype], "tol_m": TOL_PARTIAL_M,
+               "tol_l": TOL_PARTIAL_L, "exactly_nothing": nothing, "ok": ok}
+        del ref
+        if name == "hop_diagonal":
+            # As the model hands them over: column slices of one qkv tensor.
+            b, s, h, d = shape
+            qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
+            sq, sk, sv = (t.reshape(b, s, h, d)
+                          for t in qkv.split(h * d, dim=-1))
+            strided = fa.flash_attention_partial(sq, sk, sv, q_off, k_off)
+            row["strided_seq_stride"] = sq.stride(1)
+            row["strided_bitwise_equal"] = all(
+                torch.equal(a, c) for a, c in zip(strided, got))
+            ok = row["ok"] = (ok and sq.stride(1) == 3 * h * d
+                              and row["strided_bitwise_equal"])
+            del qkv, sq, sk, sv, strided
+        if name == "one_card_hop":
+            def run():
+                return fa.flash_attention_partial(q, k, v, q_off, k_off)
+
+            def plain():
+                return fa.flash_attention_partial_reference(q, k, v, q_off,
+                                                            k_off)
+
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            row["ms"] = time_ms(run, torch)
+            row["profiler_ms"] = profiled_ms(run, torch)
+            # The plain version moves ~20 GB a call at this shape: fewer runs.
+            row["plain_ms"] = time_ms(plain, torch, warmup=1, runs=5, batch=2)
+            # SDPA computes the same causal products and normalizes.
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True), torch)
+            row["bound_ms"], row["bound_by"] = partial_bound_ms(
+                shape, dtype, q_off, k_off)
+            del qt, kt, vt
+        emit(row)
+        if not ok:
+            raise AssertionError(f"partial kernel disagrees with its plain "
+                                 f"version at {name}: {row}")
+        out[name] = row
+        del q, k, v, got, o, m, l
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ring_hops(torch, fa, ring) -> dict:
+    """A ring of RING_SHARDS blocks simulated in one process: each query
+    block's hops in ring order through the partial kernel and the fold;
+    the backward as the ring's second rotation, each block pair's partial
+    gradients from the backward kernels with the final lse and delta."""
+    shape = (1, LONGCTX_MODEL["seq_len"], LONGCTX_MODEL["n_heads"],
+             LONGCTX_MODEL["d_model"] // LONGCTX_MODEL["n_heads"])
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    n, s_local = RING_SHARDS, shape[1] // RING_SHARDS
+
+    def blk(t, i):
+        return t[:, i * s_local:(i + 1) * s_local]
+
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)              # ---- the hop path starts here
+    outs, lses = [], []
+    for my in range(n):
+        carry = None
+        for t in range(n):
+            src = (my - t) % n
+            carry = ring.fold_hop(carry, *fa.flash_attention_partial(
+                blk(q, my), blk(k, src), blk(v, src), my * s_local,
+                src * s_local))
+        o_my, lse_my = ring.finish(carry, q.dtype)
+        outs.append(o_my)
+        lses.append(lse_my)
+    out, lse = torch.cat(outs, 1), torch.cat(lses, 2)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), out.float())
+    grads = [torch.zeros(shape, dtype=torch.float32, device="cuda")
+             for _ in range(3)]
+    for my in range(n):
+        rows = slice(my * s_local, (my + 1) * s_local)
+        for t in range(n):
+            src = (my - t) % n
+            dq, dk, dv = fa.flash_attention_partial_grads(
+                blk(q, my), blk(k, src), blk(v, src), blk(do, my),
+                lse[..., rows], delta[..., rows], my * s_local, src * s_local)
+            blk(grads[0], my).add_(dq.float())
+            blk(grads[1], src).add_(dk.float())
+            blk(grads[2], src).add_(dv.float())
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the hop path ends here
+    ref_o, ref_lse = fa.flash_attention_fwd(q, k, v)
+    ref_grads = fa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do)
+    err_o = (out.float() - ref_o.float()).abs().max().item()
+    err_lse = (lse.reshape(ref_lse.shape) - ref_lse).abs().max().item()
+    errs = {name: _max_err(g, r)[1]
+            for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+    pairs = n * n
+    row = {"phase": "ring_hops", "shape": list(shape), "shards": n,
+           "block_pairs": pairs, "max_err_o": err_o, "max_err_lse": err_lse,
+           **{f"rel_err_{key}": e for key, e in errs.items()},
+           "tol_o": TOL_O["bfloat16"], "tol_lse": TOL_LSE,
+           "tol_grad_rel": TOL_RING_GRAD, "launches": launches}
+    emit(row)
+    if not (err_o <= TOL_O["bfloat16"] and err_lse <= TOL_LSE
+            and all(e <= TOL_RING_GRAD for e in errs.values())
+            and launches == {"fwd": 0, "dq": pairs, "dkv": pairs,
+                             "partial": pairs}):
+        raise AssertionError(f"ring hops disagree with the one-shot "
+                             f"kernels: {row}")
+    del q, k, v, do, out, grads, ref_o, ref_grads
+    torch.cuda.empty_cache()
+    return launches
+
+
+def longctx_train_step_flops(cfg, batch: int) -> float:
+    """Analytic matmul FLOPs of one long-context train step, as bench.py's
+    longctx_train_step_flops counts them: the dense products and the
+    causal half of attention's, on all S positions (the rolled loss
+    trains every token), forward + backward = 3x the forward."""
+    s = cfg.seq_len
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    per_token_layer = 2 * d * 3 * d + 2 * d * d + 2 * d * ff + 2 * ff * d
+    per_layer_attn = 2 * batch * s * s * d
+    fwd = (batch * s * (cfg.n_layers * per_token_layer + 2 * d * v)
+           + cfg.n_layers * per_layer_attn)
+    return 3.0 * fwd
+
+
+def _longctx_inputs(torch, longctx, cfg, seed: int):
+    params = longctx.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (LONGCTX_BATCH, cfg.seq_len),
+                           generator=gen, device="cuda")
+    return params, tokens
+
+
+def _ring_flash_counts(n: int) -> dict:
+    """The launches of ``n`` one-shard ring_flash layers, forward and
+    backward: one partial, one dQ and one dK/dV each, no forward."""
+    return {"fwd": 0, "dq": n, "dkv": n, "partial": n}
+
+
+def phase_longctx_grads(torch, fa, longctx, tree) -> None:
+    cfg = longctx.LongContextConfig(**LONGCTX_MODEL)
+    params, tokens = _longctx_inputs(torch, longctx, cfg, seed=0)
+    before = _launch_counts(fa)
+    loss, grads = tree.value_and_grad(longctx.loss_fn, params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launch_counts(fa).items()}
+    ref_loss, ref = tree.value_and_grad(
+        longctx.loss_fn, params, tokens, replace(cfg, attention="ring"))
+    leaves, worst, least = _grad_gaps(torch, params, grads, ref)
+    row = {"phase": "longctx_grads", "config": LONGCTX_MODEL,
+           "batch": LONGCTX_BATCH, "loss_flash": float(loss),
+           "loss_dense": float(ref_loss),
+           "loss_diff": float(loss) - float(ref_loss),
+           "worst_rel_l2": worst["rel_l2"], "worst_rel_l2_leaf": worst["leaf"],
+           "min_cosine": least["cosine"], "min_cosine_leaf": least["leaf"],
+           "tol_loss": TOL_TRAIN_LOSS, "tol_rel_l2": TOL_GRAD_REL_L2,
+           "min_cosine_bound": MIN_GRAD_COSINE, "launches": launches,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "leaves": leaves}
+    emit(row)
+    if not (all(x["finite"] for x in leaves)
+            and abs(row["loss_diff"]) <= TOL_TRAIN_LOSS
+            and worst["rel_l2"] <= TOL_GRAD_REL_L2
+            and least["cosine"] >= MIN_GRAD_COSINE
+            and launches == _ring_flash_counts(cfg.n_layers)):
+        raise AssertionError(f"ring_flash and dense ring gradients "
+                             f"disagree: {row}")
+    del params, grads, ref
+    torch.cuda.empty_cache()
+
+
+def phase_longctx(torch, fa, longctx, card: str) -> dict:
+    cfg = longctx.LongContextConfig(**LONGCTX_MODEL)
+    params, tokens = _longctx_inputs(torch, longctx, cfg, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    step = longctx.make_train_step(cfg)
+    t0 = time.perf_counter()
+    params, loss = step(params, tokens)
+    first_loss = float(loss)
+    for _ in range(LONGCTX_WARMUP - 1):
+        params, loss = step(params, tokens)
+    float(loss)
+    warmup_sec = time.perf_counter() - t0
+    chunk_ms = []
+    t1 = time.perf_counter()
+    for _ in range(LONGCTX_CHUNKS):
+        tc = time.perf_counter()
+        for _ in range(LONGCTX_CHUNK_STEPS):
+            params, loss = step(params, tokens)
+        float(loss)
+        chunk_ms.append((time.perf_counter() - tc) * 1e3
+                        / LONGCTX_CHUNK_STEPS)
+    steps = LONGCTX_CHUNKS * LONGCTX_CHUNK_STEPS
+    step_ms = (time.perf_counter() - t1) * 1e3 / steps
+    last_loss = float(loss)
+    prof = profile_steps(torch, lambda: step(params, tokens),
+                         LONGCTX_PROFILED)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    run = LONGCTX_WARMUP + steps + LONGCTX_PROFILED
+    flops = longctx_train_step_flops(cfg, LONGCTX_BATCH)
+    tflops = flops / (step_ms / 1e3) / 1e12
+    spread = sorted(chunk_ms)
+    row = {"phase": "longctx", "config": LONGCTX_MODEL,
+           "batch": LONGCTX_BATCH, "mesh": None, "card": card,
+           "warmup_steps": LONGCTX_WARMUP, "warmup_sec": warmup_sec,
+           "steps": steps, "step_ms": step_ms, "chunk_step_ms": chunk_ms,
+           "step_spread_pct": 100.0 * (spread[-1] - spread[0])
+           / statistics.median(spread),
+           "flops_per_step": flops, "tflops": tflops,
+           "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
+           "tokens_per_sec": LONGCTX_BATCH * cfg.seq_len / (step_ms / 1e3),
+           "loss_first": first_loss, "loss_last": last_loss,
+           "launches": launches,
+           "launches_expected": _ring_flash_counts(cfg.n_layers * run),
+           "do_copies": fa.DO_COPIES,
+           "max_memory_allocated_bytes": peak, "profile": prof}
+    emit(row)
+    if not (math.isfinite(first_loss) and math.isfinite(last_loss)
+            and last_loss < first_loss
+            and launches == _ring_flash_counts(cfg.n_layers * run)):
+        raise AssertionError(f"longctx phase failed: {row}")
+
+    # One step of each other strategy on the card, on the trained params.
+    by_path = {"longctx": launches}
+    expected = {"ulysses_flash": _burnin_counts(cfg.n_layers),
+                "ring": _burnin_counts(0)}
+    for attention, expect in expected.items():
+        other = replace(cfg, attention=attention)
+        torch.cuda.synchronize()
+        _zero_launch_counts(fa)
+        t0 = time.perf_counter()
+        params, loss = longctx.make_train_step(other)(params, tokens)
+        value = float(loss)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _launch_counts(fa)
+        row = {"phase": "longctx_strategy", "attention": attention,
+               "loss": value, "step_ms_with_sync": ms, "launches": counts,
+               "launches_expected": expect}
+        emit(row)
+        if not (math.isfinite(value) and counts == expect):
+            raise AssertionError(f"longctx {attention} step failed: {row}")
+        by_path[f"longctx_{attention}"] = counts
+    del params
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def main() -> int:
@@ -785,9 +1161,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from kubeflow_tpu_torch.models import burnin, trainer
+    from kubeflow_tpu_torch.models import burnin, longctx, trainer, tree
     from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import ring
     from kubeflow_tpu_torch.serving import engine as engine_mod
     from kubeflow_tpu_torch.serving import loadgen
 
@@ -817,12 +1194,17 @@ def main() -> int:
     phase_train_grads(torch, fa, burnin)
     by_path["train"] = phase_train(torch, fa, burnin, card)
     by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer)
+    partial = phase_partial_kernels(torch, fa)
+    by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
+    phase_longctx_grads(torch, fa, longctx, tree)
+    by_path.update(phase_longctx(torch, fa, longctx, card))
 
     def launches(kernel):
         return {path: counts.get(kernel, 0)
                 for path, counts in by_path.items()}
 
     decode = kernels["decode"]
+    hop = partial["one_card_hop"]
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -853,7 +1235,22 @@ def main() -> int:
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)"}
           for key, line, outs in (("dq", 167, ("dq",)),
-                                  ("dkv", 195, ("dk", "dv"))))]})
+                                  ("dkv", 195, ("dk", "dv")))),
+        {"name": "flash_attention_partial", "route": "cuda",
+         "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+         "replaces": "kubeflow_tpu/ops/flash_attention.py:375",
+         "launches": sum(launches("partial").values()),
+         "launches_by_path": launches("partial"),
+         "max_abs_err": max(row["max_err_acc"] for row in partial.values()),
+         "max_rel_err_acc": max(row["rel_err_acc"]
+                                for row in partial.values()),
+         "max_err_m": max(row["max_err_m"] for row in partial.values()),
+         "ms": hop["ms"], "profiler_ms": hop["profiler_ms"],
+         "plain_ms": hop["plain_ms"],
+         "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
+         "library_ms": hop["library_ms"],
+         "library_call": "F.scaled_dot_product_attention(is_causal=True): "
+                         "the same products, normalized"}]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

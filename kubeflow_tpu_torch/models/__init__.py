@@ -1,5 +1,6 @@
-"""The burn-in transformer on PyTorch (forward, loss, SGD train step) and
-the training harness (``trainer``)."""
+"""The burn-in transformer on PyTorch (forward, loss, SGD train step),
+its long-context sequence-parallel variant (``longctx``), and the training
+harness (``trainer``)."""
 
 from kubeflow_tpu_torch.models.burnin import (
     BurninConfig,
@@ -11,7 +12,8 @@ from kubeflow_tpu_torch.models.burnin import (
     param_shapes,
 )
 from kubeflow_tpu_torch.models.convert import params_from_jax
+from kubeflow_tpu_torch.models.longctx import LongContextConfig
 
-__all__ = ["BurninConfig", "forward", "init_params", "loss_fn",
-           "make_train_step", "map_params", "param_shapes",
+__all__ = ["BurninConfig", "LongContextConfig", "forward", "init_params",
+           "loss_fn", "make_train_step", "map_params", "param_shapes",
            "params_from_jax"]

@@ -24,7 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.models.tree import leaves, map_params, value_and_grad
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+
+__all__ = ["BurninConfig", "forward", "init_params", "leaves", "loss_fn",
+           "make_train_step", "map_params", "param_shapes", "value_and_grad"]
 
 
 @dataclass(frozen=True)
@@ -56,15 +60,6 @@ def param_shapes(cfg: BurninConfig) -> dict:
     return {"embed": (cfg.vocab, d), "pos": (cfg.seq_len, d),
             "out_norm": (d,), "layers": [dict(layer)
                                          for _ in range(cfg.n_layers)]}
-
-
-def map_params(fn, tree):
-    """``tree`` with ``fn`` applied to every leaf tensor."""
-    if isinstance(tree, dict):
-        return {key: map_params(fn, value) for key, value in tree.items()}
-    if isinstance(tree, list):
-        return [map_params(fn, value) for value in tree]
-    return fn(tree)
 
 
 def init_params(cfg: BurninConfig, *, seed: int, device=None) -> dict:
@@ -153,24 +148,6 @@ def loss_fn(params: dict, tokens: torch.Tensor,
     logits = forward(params, tokens[:, :-1], cfg)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            tokens[:, 1:].reshape(-1))
-
-
-def leaves(tree) -> list:
-    """The tree's tensors in a fixed order (dict order, then list order)."""
-    if isinstance(tree, dict):
-        return [t for value in tree.values() for t in leaves(value)]
-    if isinstance(tree, list):
-        return [t for value in tree for t in leaves(value)]
-    return [tree]
-
-
-def value_and_grad(fn, params: dict, *args):
-    """``(fn(params, *args), grads)``, the grads a list in
-    :func:`leaves` order. The gradient is taken through aliases of the
-    parameters, so their own ``requires_grad`` is left as it is."""
-    live = map_params(lambda p: p.detach().requires_grad_(), params)
-    loss = fn(live, *args)
-    return loss.detach(), list(torch.autograd.grad(loss, leaves(live)))
 
 
 def make_train_step(cfg: BurninConfig, lr: float = 1e-3):

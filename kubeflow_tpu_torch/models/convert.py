@@ -14,10 +14,17 @@ import torch
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.burnin import BurninConfig, param_shapes
+from kubeflow_tpu_torch.models.longctx import LongContextConfig
+
+_CONFIGS = (BurninConfig, LongContextConfig)
 
 
-def params_from_jax(tree, cfg: BurninConfig, device=None) -> dict:
-    """The JAX pytree (numpy leaves) as f32 tensors on ``device``."""
+def params_from_jax(tree, cfg, device=None) -> dict:
+    """The JAX pytree (numpy leaves) of a ``BurninConfig`` or
+    ``LongContextConfig`` model as f32 tensors on ``device``."""
+    if not isinstance(cfg, _CONFIGS):
+        raise TypeError(f"no parameter tree for {type(cfg).__name__}; "
+                        f"want one of {[c.__name__ for c in _CONFIGS]}")
     dev = resolve_device(device)
 
     def convert(ref, shape, path):

@@ -31,7 +31,7 @@ from typing import Callable, Iterator
 
 import torch
 
-from kubeflow_tpu_torch.models.burnin import leaves, value_and_grad
+from kubeflow_tpu_torch.models.tree import leaves, value_and_grad
 
 
 @dataclass(frozen=True)

@@ -1,27 +1,46 @@
-// Flash-attention forward for Hopper (sm_90a), with O and per-row logsumexp.
+// Flash-attention forward for Hopper (sm_90a): the full forward, with O and
+// per-row logsumexp, and the ring hop's partial forward, with the unnormalized
+// accumulator and its softmax statistics. Both run one loop.
 //
-// Replaces the TPU kernel kubeflow_tpu/ops/flash_attention.py:_fwd_kernel
-// (launched by _flash_fwd). Same function: softmax(Q K^T * scale) V with an
-// online softmax whose m, l and acc stay in f32, masked logits set to -1e30
-// (not -inf), K/V tiles above the diagonal skipped when causal, P rounded to
-// V's dtype before the PV product, l floored at 1e-30, and
-// lse = m + log(l) written as f32 [b*h, s] (the TPU's (8, s)
-// sublane-replicated lse layout is a tiling artefact and is not copied).
+// Replaces two TPU kernels of kubeflow_tpu/ops/flash_attention.py:
+//  * _fwd_kernel (launched by _flash_fwd): softmax(Q K^T * scale) V with an
+//    online softmax whose m, l and acc stay in f32, masked logits set to -1e30
+//    (not -inf), K/V tiles above the diagonal skipped when causal, P rounded
+//    to V's dtype before the PV product, l floored at 1e-30, and
+//    lse = m + log(l) written as f32 [b*h, s] (the TPU's (8, s)
+//    sublane-replicated lse layout is a tiling artefact and is not copied).
+//  * _partial_kernel (launched by flash_attention_partial): one ring hop, the
+//    causal block attention of a Q block against a K/V block at the global
+//    positions q_offset + i and k_offset + j. It writes the accumulator
+//    UNnormalized as f32 in the [b, s, h, d] layout and the per-row max m (in
+//    the natural units of s = q.k * scale: ring.py folds exp(m - m_new)
+//    outside the kernel) and sum l as f32 [b*h, s]. A row that no key of the
+//    block reaches is written as acc = 0, m = -1e30, l = 0, which is also what
+//    the TPU kernel writes for it at block-aligned offsets (the only ones a
+//    ring makes); the fold gives such a row no weight either way.
 //
-// Bound on an H100 SXM at the serving decode shape [8, 1024, 16, 128] bf16,
-// causal: 34.4 GFLOP of causal QK^T and PV (35 us at 989 TFLOP/s dense bf16)
-// against 134 MB of q, k, v and o moved once (40 us at 3.35 TB/s). So one
-// launch is bound by bytes at about 40 us; the engine makes 8 per decode step.
+// Bounds on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s):
+//  * forward at the serving decode shape [8, 1024, 16, 128] bf16, causal:
+//    34.4 GFLOP of causal QK^T and PV (35 us) against 134 MB of q, k, v and o
+//    moved once (40 us): bound by bytes at about 40 us; 8 launches a decode
+//    step.
+//  * partial at the long-context hop [1, 8192, 16, 128] bf16 at offsets
+//    (0, 0): 4 * 16 * 33,558,528 * 128 = 274.9 GFLOP (0.278 ms) against
+//    q, k, v read and the f32 acc, m and l written, 168.8 MB (0.050 ms): bound
+//    by operations at about 0.28 ms; one launch per layer and step on one
+//    card.
 //
 // What the design does about it:
 //  * Q, K and V are read in the model's [b, s, h, d] layout through their
 //    strides (the q, k, v column slices of the fused qkv product), so no
-//    transpose or copy runs before the kernel, and O is written in the same
-//    layout; only q, k, v, o and lse touch device memory.
+//    transpose or copy runs before the kernel, and the output is written in
+//    the same layout; only q, k, v and the outputs touch device memory.
 //  * bf16: one CTA of 4 warps per (b*h, 64-row Q tile); the K/V loop runs
 //    inside the CTA (replacing the TPU's sequential "arbitrary" grid axis and
-//    its VMEM scratch carry) and stops at the diagonal. Both products run on
-//    the tensor cores through mma.sync m16n8k16 with f32 accumulation; the S
+//    its VMEM scratch carry) and stops at the global diagonal, so the causal
+//    half of the products is never computed and a hop wholly above the
+//    diagonal launches CTAs that skip every tile. Both products run on the
+//    tensor cores through mma.sync m16n8k16 with f32 accumulation; the S
 //    accumulator fragments become P's A fragments in registers, so S and P
 //    never leave the SM. Tiles are 64x64 (the v5e's 1024x1024 VMEM blocks do
 //    not fit 227 KB of shared memory), rows padded by 8 elements so fragment
@@ -29,8 +48,9 @@
 //    first. K/V tiles are double-buffered with cp.async (the next tile loads
 //    while this one is multiplied); softmax runs in base 2 (one exp2 per
 //    score) and masks only the diagonal and ragged tiles. There is no TMA,
-//    warp specialisation or wgmma yet.
-//  * f32 (not on the serving path): a warp per query row, FMA on the CUDA
+//    warp specialisation or wgmma yet, so the operations-bound partial runs
+//    well below the tensor cores' peak.
+//  * f32 (not on the main paths): a warp per query row, FMA on the CUDA
 //    cores, keeping f32 products exact rather than rounding through TF32.
 //  * Ragged edges (s not a multiple of the tile, e.g. the 32-token prefill
 //    chunk) are zero-filled on load and masked; those rows are not written.
@@ -50,8 +70,10 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  void* o;
-  float* lse;
+  void* o;      // the forward: q's dtype; the partial: f32 acc
+  float* lse;   // the forward: [b*h, s]
+  float* m;     // the partial: [b*h, s], natural units
+  float* l;     // the partial: [b*h, s]
   int b, s, h;
   long long q_sb, q_ss, q_sh;  // strides in elements; the d stride is 1
   long long k_sb, k_ss, k_sh;
@@ -59,6 +81,9 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
+  // Global positions of query row 0 and key 0 for the causal mask (a ring
+  // hop's blocks); 0 and 0 for the forward.
+  int q_offset, k_offset;
 };
 
 // ---------------------------------------------------------------- bf16 path
@@ -142,8 +167,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(Params p) {
+// The body of both bf16 kernels: kPartial selects the ring hop's epilogue.
+template <int D, bool kPartial>
+__device__ __forceinline__ void bf16_attention(const Params& p) {
   constexpr int kLd = Bf16Cfg<D>::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -161,12 +187,18 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(Params p) {
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) +
                            bi * p.v_sb + hi * p.v_sh;
 
-  const int n_end = p.causal ? min(p.s, m0 + kTile) : p.s;
+  const int qo = p.q_offset, ko = p.k_offset;
+  // Keys [0, n_end) reach some row of this tile: causal, the last row's
+  // global position bounds them.
+  const int n_end =
+      p.causal ? max(0, min(p.s, qo + min(m0 + kTile, p.s) - ko)) : p.s;
   const int n_tiles = (n_end + kTile - 1) / kTile;
   load_tile<D>(qs, q, p.q_ss, m0, p.s);
   cp_async_commit();
-  load_tile<D>(kv, k, p.k_ss, 0, p.s);
-  load_tile<D>(kv + kTile * kLd, v, p.v_ss, 0, p.s);
+  if (n_tiles > 0) {
+    load_tile<D>(kv, k, p.k_ss, 0, p.s);
+    load_tile<D>(kv + kTile * kLd, v, p.v_ss, 0, p.s);
+  }
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed; the first K/V tile may still fly
   __syncthreads();
@@ -227,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(Params p) {
     // Scale in f32, mask with -1e30 (only the diagonal and ragged tiles
     // hold masked entries), running row max.
     const bool need_mask =
-        n0 + kTile > p.s || (p.causal && n0 + kTile - 1 > m0);
+        n0 + kTile > p.s || (p.causal && ko + n0 + kTile - 1 > qo + m0);
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -236,7 +268,9 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(Params p) {
         float x = sc[nt][e] * scale2;
         if (need_mask) {
           const int col = n0 + nt * 8 + t * 2 + (e & 1);
-          if (col >= p.s || (p.causal && col > row[e >> 1])) x = kNegBig;
+          if (col >= p.s || (p.causal && ko + col > qo + row[e >> 1])) {
+            x = kNegBig;
+          }
         }
         sc[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -298,31 +332,65 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(Params p) {
     __syncthreads();  // every warp is done with this stage before reuse
   }
 
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + bi * p.o_sb +
-                     hi * p.o_sh;
+  if constexpr (kPartial) {
+    float* o = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= p.s) continue;
-    const float l = fmaxf(l_run[i], 1e-30f);
-    __nv_bfloat16* orow = o + static_cast<long long>(row[i]) * p.o_ss;
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= p.s) continue;
+      // A row that saw a key has a real max: each row that sees any key of
+      // the block sees key 0, which is in the first tile.
+      const bool seen = m_run[i] != kNegBig;
+      float* orow = o + static_cast<long long>(row[i]) * p.o_ss;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + t * 2) =
-          pack_bf16(acc[dt][i * 2] / l, acc[dt][i * 2 + 1] / l);
+      for (int dt = 0; dt < D / 8; ++dt) {
+        *reinterpret_cast<float2*>(orow + dt * 8 + t * 2) =
+            seen ? make_float2(acc[dt][i * 2], acc[dt][i * 2 + 1])
+                 : make_float2(0.f, 0.f);
+      }
+      if (t == 0) {
+        const long long at = static_cast<long long>(bh) * p.s + row[i];
+        p.m[at] = seen ? m_run[i] * kLn2 : kNegBig;  // log2 -> natural units
+        p.l[at] = seen ? l_run[i] : 0.f;
+      }
     }
-    if (t == 0) {
-      p.lse[static_cast<long long>(bh) * p.s + row[i]] =
-          m_run[i] * kLn2 + logf(l);
+  } else {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + bi * p.o_sb +
+                       hi * p.o_sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= p.s) continue;
+      const float l = fmaxf(l_run[i], 1e-30f);
+      __nv_bfloat16* orow = o + static_cast<long long>(row[i]) * p.o_ss;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        *reinterpret_cast<uint32_t*>(orow + dt * 8 + t * 2) =
+            pack_bf16(acc[dt][i * 2] / l, acc[dt][i * 2 + 1] / l);
+      }
+      if (t == 0) {
+        p.lse[static_cast<long long>(bh) * p.s + row[i]] =
+            m_run[i] * kLn2 + logf(l);
+      }
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(Params p) {
+  bf16_attention<D, false>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) partial_bf16_kernel(Params p) {
+  bf16_attention<D, true>(p);
 }
 
 // ----------------------------------------------------------------- f32 path
 
 constexpr int kRowsPerCta = kThreads / 32;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) fwd_f32_kernel(Params p) {
+// The body of both f32 kernels: kPartial selects the ring hop's epilogue.
+template <int D, bool kPartial>
+__device__ __forceinline__ void f32_attention(const Params& p) {
   constexpr int kPer = D / 32;  // output columns per lane
   __shared__ float qs[kRowsPerCta][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -341,13 +409,15 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
   float m_run = kNegBig, l_run = 0.f;
-  const int n_end = p.causal ? row + 1 : p.s;
+  const int qpos = p.q_offset + row;  // this row's global position
+  const int n_end =
+      p.causal ? max(0, min(p.s, qpos - p.k_offset + 1)) : p.s;
 
   for (int n0 = 0; n0 < n_end; n0 += 32) {
     // Lane j scores key n0 + j.
     const int key = n0 + lane;
     float x = kNegBig;
-    if (key < p.s && !(p.causal && key > row)) {
+    if (key < p.s && !(p.causal && p.k_offset + key > qpos)) {
       const float* kr = k + static_cast<long long>(key) * p.k_ss;
       float dot = 0.f;
 #pragma unroll 8
@@ -380,51 +450,97 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(Params p) {
     }
   }
 
-  const float l = fmaxf(l_run, 1e-30f);
   float* o = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh +
              static_cast<long long>(row) * p.o_ss;
+  const long long at = static_cast<long long>(bh) * p.s + row;
+  if constexpr (kPartial) {
+    const bool seen = n_end > 0;  // key 0 reaches this row
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) o[lane + 32 * i] = acc[i] / l;
-  if (lane == 0) p.lse[static_cast<long long>(bh) * p.s + row] = m_run + logf(l);
+    for (int i = 0; i < kPer; ++i) o[lane + 32 * i] = seen ? acc[i] : 0.f;
+    if (lane == 0) {
+      p.m[at] = seen ? m_run : kNegBig;
+      p.l[at] = seen ? l_run : 0.f;
+    }
+  } else {
+    const float l = fmaxf(l_run, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) o[lane + 32 * i] = acc[i] / l;
+    if (lane == 0) p.lse[at] = m_run + logf(l);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) fwd_f32_kernel(Params p) {
+  f32_attention<D, false>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) partial_f32_kernel(Params p) {
+  f32_attention<D, true>(p);
 }
 
 constexpr int kMaxDevices = 64;
 
-// Raise the kernel's dynamic shared-memory limit once per device (the
-// attribute belongs to the device's context), not on every launch.
-template <int D>
-cudaError_t allow_bf16_smem() {
+template <int D, bool kPartial>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int kSmem = Bf16Cfg<D>::kSmem;
+  void (*kernel)(Params) =
+      kPartial ? &partial_bf16_kernel<D> : &fwd_bf16_kernel<D>;
+  // Raise the kernel's dynamic shared-memory limit once per device (the
+  // attribute belongs to the device's context), not on every launch.
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) {
-    return cudaSuccess;
+  if (dev >= kMaxDevices || !done[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
   }
-  err = cudaFuncSetAttribute(fwd_bf16_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Bf16Cfg<D>::kSmem);
-  if (err == cudaSuccess && dev < kMaxDevices) {
-    done[dev].store(true, std::memory_order_release);
-  }
-  return err;
-}
-
-template <int D>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  constexpr int kSmem = Bf16Cfg<D>::kSmem;
-  const cudaError_t err = allow_bf16_smem<D>();
-  if (err != cudaSuccess) return err;
   const dim3 grid((p.s + kTile - 1) / kTile, p.b * p.h);
-  fwd_bf16_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
+  kernel<<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kPartial>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  void (*kernel)(Params) =
+      kPartial ? &partial_f32_kernel<D> : &fwd_f32_kernel<D>;
   const dim3 grid((p.s + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
-  fwd_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+  kernel<<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kPartial>
+int launch(const Params& p, int d, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && d == 128) return launch_bf16<128, kPartial>(p, st);
+  if (dtype == 1 && d == 64) return launch_bf16<64, kPartial>(p, st);
+  if (dtype == 0 && d == 128) return launch_f32<128, kPartial>(p, st);
+  if (dtype == 0 && d == 64) return launch_f32<64, kPartial>(p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   int b, int s, int h, const long long* st, float scale,
+                   int causal) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.b = b;
+  p.s = s;
+  p.h = h;
+  p.q_sb = st[0], p.q_ss = st[1], p.q_sh = st[2];
+  p.k_sb = st[3], p.k_ss = st[4], p.k_sh = st[5];
+  p.v_sb = st[6], p.v_ss = st[7], p.v_sh = st[8];
+  p.o_sb = st[9], p.o_ss = st[10], p.o_sh = st[11];
+  p.scale = scale;
+  p.causal = causal;
+  return p;
 }
 
 }  // namespace
@@ -437,15 +553,26 @@ extern "C" int kftpu_flash_attention_fwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, void* stream) {
-  const Params p{q,    k,    v,    o,    lse,  b,    s,    h,     q_sb,  q_ss,
-                 q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 scale, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 128) return launch_bf16<128>(p, st);
-  if (dtype == 1 && d == 64) return launch_bf16<64>(p, st);
-  if (dtype == 0 && d == 128) return launch_f32<128>(p, st);
-  if (dtype == 0 && d == 64) return launch_f32<64>(p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  Params p = make_params(q, k, v, o, b, s, h, st, scale, causal);
+  p.lse = lse;
+  return launch<false>(p, d, dtype, stream);
+}
+
+// One ring hop, causal: o is the f32 [b, s, h, d] unnormalized accumulator
+// (strides in elements), m and l f32 [b*h, s]; query row i sits at global
+// position q_offset + i and key j at k_offset + j.
+extern "C" int kftpu_flash_attention_partial(
+    const void* q, const void* k, const void* v, float* o, float* m,
+    float* l, int b, int s, int h, int d, int dtype, const long long* strides,
+    float scale, int q_offset, int k_offset, void* stream) {
+  Params p = make_params(q, k, v, o, b, s, h, strides, scale, 1);
+  p.m = m;
+  p.l = l;
+  p.q_offset = q_offset;
+  p.k_offset = k_offset;
+  return launch<true>(p, d, dtype, stream);
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

@@ -1,26 +1,30 @@
-"""Fused flash attention, forward and backward: the Hopper kernels and
-their plain versions.
+"""Fused flash attention, forward and backward, and the ring hop's partial
+forward: the Hopper kernels and their plain versions.
 
 The port of ``kubeflow_tpu/ops/flash_attention.py``: the forward
 (``_fwd_kernel``) and the two backward kernels (``_bwd_dq_kernel``,
 ``_bwd_dkv_kernel``), joined by a ``torch.autograd.Function`` as the JAX
-package joins them by ``jax.custom_vjp``. The CUDA sources are
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``; their
-headers state each kernel's bound on an H100 and what the design does
-about it.
+package joins them by ``jax.custom_vjp``, and the ring hop's partial
+forward (``_partial_kernel``, :func:`flash_attention_partial`), whose
+backward is :func:`flash_attention_partial_grads` on the backward kernels.
+The CUDA sources are ``csrc/flash_attention_fwd.cu`` (the forward and the
+partial share its loop) and ``csrc/flash_attention_bwd.cu``; their headers
+state each kernel's bound on an H100 and what the design does about it.
 
 Dispatch is by the tensors' device. A CUDA tensor launches the kernel
 (built from the source at first use, see :mod:`._build`) or raises; it
 never falls back. A CPU tensor takes the plain PyTorch version beside
 each kernel (``flash_attention_reference``,
-``flash_attention_bwd_dq_reference``, ``flash_attention_bwd_dkv_reference``),
+``flash_attention_bwd_dq_reference``, ``flash_attention_bwd_dkv_reference``,
+``flash_attention_partial_reference``),
 which the tests hold the JAX package against and the card's kernels are
 compared with.
 
 Layout and shape contract follow the JAX wrapper: q, k, v are
 ``[batch, seq, heads, head_dim]`` of one dtype (bfloat16 or float32),
-the default scale is ``1/sqrt(head_dim)``, and a sequence longer than the
-JAX default block (1024) must be a multiple of it. lse and delta are f32
+the default scale is ``1/sqrt(head_dim)``, and a sequence longer than a
+block must be a multiple of it: ``block_q`` and ``block_k`` (the JAX
+default 1024) enter only that check. lse and delta are f32
 ``[batch * heads, seq]``. The kernels' own tiles are internal. The kernels
 take head dims 64 and 128; the plain versions take any.
 """
@@ -40,6 +44,7 @@ from kubeflow_tpu_torch.ops import _build
 LAUNCHES = 0          # the forward
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+PARTIAL_LAUNCHES = 0  # the ring hop's partial forward
 #: Backward calls whose dO the kernels could not read through its strides
 #: (an expanded gradient, say) and which copied it first.
 DO_COPIES = 0
@@ -48,19 +53,21 @@ SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_BIG = -1e30
-# The JAX wrapper's default blocks (DEFAULT_BLOCK_Q/K) fix which sequence
+# The JAX wrapper's blocks (default DEFAULT_BLOCK_Q/K) fix which sequence
 # lengths it accepts; the port keeps that contract.
 _JAX_BLOCK = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_seq(s: int) -> None:
-    block = min(_JAX_BLOCK, s)
-    if s % block:
-        raise ValueError(f"seq {s} must divide by blocks {block}/{block}")
+def _check_seq(s_q: int, s_k: int, block_q: int, block_k: int) -> None:
+    bq, bk = min(block_q, s_q), min(block_k, s_k)
+    if s_q % bq or s_k % bk:
+        seq = s_q if s_q == s_k else f"{s_q}/{s_k}"
+        raise ValueError(f"seq {seq} must divide by blocks {bq}/{bk}")
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, block_q: int = _JAX_BLOCK,
+           block_k: int = _JAX_BLOCK) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"q, k, v must share one [b, s, h, d] shape: "
@@ -71,7 +78,7 @@ def _check(q, k, v) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k, v on different devices: "
                          f"{q.device}, {k.device}, {v.device}")
-    _check_seq(q.shape[1])
+    _check_seq(q.shape[1], q.shape[1], block_q, block_k)
 
 
 def _default_scale(scale, q) -> float:
@@ -146,6 +153,11 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.kftpu_flash_attention_partial.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.kftpu_flash_attention_partial.restype = ctypes.c_int
         lib.kftpu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.kftpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -175,10 +187,11 @@ def _launch(q, k, v, causal: bool, scale: float):
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        scale: float | None = None):
+                        scale: float | None = None,
+                        block_q: int = _JAX_BLOCK, block_k: int = _JAX_BLOCK):
     """``(o [b, s, h, d], lse [b*h, s] f32)`` of softmax attention; the
     kernel on CUDA tensors, the plain version on CPU tensors."""
-    _check(q, k, v)
+    _check(q, k, v, block_q, block_k)
     scale = _default_scale(scale, q)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale)
@@ -193,31 +206,37 @@ class _FlashAttention(torch.autograd.Function):
     backward runs :func:`flash_attention_bwd` on them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     block_q=block_q, block_k=block_k)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, _default_scale(scale, q)
+        ctx.blocks = dict(block_q=block_q, block_k=block_k)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         **ctx.blocks)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None):
+                    scale: float | None = None, block_q: int = _JAX_BLOCK,
+                    block_k: int = _JAX_BLOCK):
     """Fused attention. q/k/v ``[batch, seq, heads, head_dim]``; returns
-    o in the same layout and q's dtype, differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    o in the same layout and q's dtype, differentiable in q, k and v.
+    ``block_q``/``block_k`` are the JAX wrapper's blocks: they decide
+    which sequence lengths are accepted, not the kernels' tiles."""
+    return _FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)
 
 
 # ---------------------------------------------------------------- backward
 
 
-def _check_bwd(q, k, v, o, lse, do, delta) -> None:
+def _check_bwd(q, k, v, o, lse, do, delta, block_q, block_k) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or do.shape != q.shape or (o is not None and o.shape != q.shape) \
             or (k.shape[0], k.shape[2], k.shape[3]) \
@@ -244,8 +263,7 @@ def _check_bwd(q, k, v, o, lse, do, delta) -> None:
            if t is not None):
         raise ValueError("flash attention's backward takes tensors on one "
                          "device")
-    _check_seq(s_q)
-    _check_seq(k.shape[1])
+    _check_seq(s_q, k.shape[1], block_q, block_k)
 
 
 def _bwd_probs_and_ds(q, k, v, lse, do, delta, causal, scale, q_offset,
@@ -412,11 +430,13 @@ def _launch_dkv(q, k, v, lse, do, delta, causal, scale, q_offset, k_offset):
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
                            scale: float | None = None, q_offset: int = 0,
-                           k_offset: int = 0, delta=None):
+                           k_offset: int = 0, delta=None,
+                           block_q: int = _JAX_BLOCK,
+                           block_k: int = _JAX_BLOCK):
     """``(dq, delta)``: the dQ kernel on CUDA tensors (which computes
     delta from o and dO first when it is not given), the plain version on
     CPU tensors."""
-    _check_bwd(q, k, v, o, lse, do, delta)
+    _check_bwd(q, k, v, o, lse, do, delta, block_q, block_k)
     args = (_default_scale(scale, q), int(q_offset), int(k_offset))
     if q.device.type == "cuda":
         return _launch_dq(q, k, v, o, lse, do, delta, causal, *args)
@@ -429,10 +449,11 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
 
 def flash_attention_bwd_dkv(q, k, v, lse, do, delta, *, causal: bool = True,
                             scale: float | None = None, q_offset: int = 0,
-                            k_offset: int = 0):
+                            k_offset: int = 0, block_q: int = _JAX_BLOCK,
+                            block_k: int = _JAX_BLOCK):
     """``(dk, dv)``: the dK/dV kernel on CUDA tensors, the plain version
     on CPU tensors."""
-    _check_bwd(q, k, v, None, lse, do, delta)
+    _check_bwd(q, k, v, None, lse, do, delta, block_q, block_k)
     args = (_default_scale(scale, q), int(q_offset), int(k_offset))
     if q.device.type == "cuda":
         return _launch_dkv(q, k, v, lse, do, delta, causal, *args)
@@ -445,7 +466,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, delta, *, causal: bool = True,
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: float | None = None, q_offset: int = 0,
-                        k_offset: int = 0, delta=None):
+                        k_offset: int = 0, delta=None,
+                        block_q: int = _JAX_BLOCK, block_k: int = _JAX_BLOCK):
     """``(dq, dk, dv)`` of attention for the output gradient ``do``, from
     the forward's o and lse: the two kernels on CUDA tensors, the plain
     version on CPU tensors. Query row i sits at global position
@@ -453,14 +475,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ring hop's blocks); ``delta`` (f32 ``[b*h, s_q]``) replaces the one
     computed from o and dO when given."""
     global DO_COPIES
-    _check_bwd(q, k, v, o, lse, do, delta)
+    _check_bwd(q, k, v, o, lse, do, delta, block_q, block_k)
     if q.device.type == "cuda" and not _kernel_readable(do):
         # Autograd may hand over an expanded dO (zero strides, e.g. after
         # a .sum()); the kernels' 16-byte loads need real rows, so copy.
         do = do.contiguous()
         DO_COPIES += 1
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
-              k_offset=k_offset)
+              k_offset=k_offset, block_q=block_q, block_k=block_k)
     dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, delta=delta, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw)
     return dq, dk, dv
@@ -485,3 +507,72 @@ def flash_attention_partial_grads(q, k, v, do, lse, delta, q_offset,
     return flash_attention_bwd(q, k, v, None, fold_stat(lse), do,
                                causal=True, scale=scale, q_offset=q_offset,
                                k_offset=k_offset, delta=fold_stat(delta))
+
+
+# --------------------------------------------------- ring partial attention
+
+
+def flash_attention_partial_reference(q, k, v, q_offset: int, k_offset: int,
+                                      *, scale: float | None = None):
+    """The partial kernel's plain version: causal block attention at the
+    global positions ``q_offset + i`` (queries) and ``k_offset + j``
+    (keys), from f32 scores masked at -1e30, with P rounded to V's dtype
+    before PV. Returns ``(o_unnorm [b, s, h, d] f32, m [b, h, s] f32,
+    l [b, h, s] f32)``; a row that no key reaches is ``(0, -1e30, 0)``."""
+    b, s, h, d = q.shape
+    scale = _default_scale(scale, q)
+    qf = q.float().transpose(1, 2)                       # [b, h, s, d]
+    kf = k.float().transpose(1, 2)
+    scores = (qf @ kf.transpose(-1, -2)).mul_(scale)      # [b, h, s, s] f32
+    rows = torch.arange(s, device=q.device) + int(q_offset)
+    cols = torch.arange(s, device=q.device) + int(k_offset)
+    keep = cols[None, :] <= rows[:, None]
+    scores.masked_fill_(~keep, _NEG_BIG)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = scores.sub_(m).exp_().mul_(keep.any(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)
+    o = p.to(v.dtype).float() @ v.float().transpose(1, 2)
+    return o.transpose(1, 2).contiguous(), m.squeeze(-1), l
+
+
+def _launch_partial(q, k, v, q_offset: int, k_offset: int, scale: float):
+    global PARTIAL_LAUNCHES
+    b, s, h, d = q.shape
+    _check_kernel_shape(q)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_layout(name, t)
+    o = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with _on_device(q.device) as stream:
+        err = lib.kftpu_flash_attention_partial(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, s, h, d, _DTYPE_CODES[q.dtype],
+            _strides(q, k, v, o), scale, q_offset, k_offset, stream)
+    _raise_on(err, lib, "flash_attention_partial")
+    PARTIAL_LAUNCHES += 1
+    return o, m, l
+
+
+def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, *,
+                            scale: float | None = None,
+                            block_q: int = _JAX_BLOCK,
+                            block_k: int = _JAX_BLOCK):
+    """One ring hop's attention block, the forward half: the partial
+    kernel on CUDA tensors, the plain version on CPU tensors.
+
+    q/k/v ``[batch, s_block, heads, head_dim]`` of one shape;
+    ``q_offset``/``k_offset`` are the blocks' global sequence starts.
+    Returns ``(o_unnorm [b, s, h, d] f32, m [b, h, s] f32, l [b, h, s]
+    f32)``: the online-softmax carry terms that ring attention folds
+    across hops, m in the natural units of ``q.k * scale``. The matching
+    per-hop backward is :func:`flash_attention_partial_grads`."""
+    _check(q, k, v, block_q, block_k)
+    scale = _default_scale(scale, q)
+    if q.device.type == "cuda":
+        return _launch_partial(q, k, v, int(q_offset), int(k_offset), scale)
+    if q.device.type == "cpu":
+        return flash_attention_partial_reference(q, k, v, q_offset, k_offset,
+                                                 scale=scale)
+    raise ValueError(f"no flash attention for device {q.device}")

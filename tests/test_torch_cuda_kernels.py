@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the serving engine's and the train step's device paths
-through them.
+version, and the serving engine's, the train step's and the long-context
+ring's device paths through them.
 
 Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel
 has no CPU mode). The file imports neither JAX nor the JAX package, so on
@@ -13,6 +13,7 @@ import torch
 
 from kubeflow_tpu_torch.models import burnin
 from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.parallel import ring
 from kubeflow_tpu_torch.serving.engine import (
     EngineOptions,
     Request,
@@ -297,3 +298,104 @@ def test_train_step_on_the_card(cuda):
     # step's dO reaches the kernels with no copy.
     assert _counts() == tuple(c + 2 * cfg.n_layers for c in before)
     assert fa.DO_COPIES == copies
+
+
+# The ring hop's partial kernel. acc is f32 from bf16 P (rounded against
+# the running max in the kernel, the final max in the plain version): 1e-2
+# of the reference's largest magnitude in bf16, 1e-4 in f32 (summation
+# order only). m and l are f32 from f32 scores in both: m within 1e-4, l
+# within 1e-4 of its largest value.
+TOL_ACC = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+TOL_M = 1e-4
+TOL_L = 1e-4
+# (shape, q_offset, k_offset): a 4-shard ring's hops below, on and above
+# the diagonal, and offsets that are not multiples of the tile, where some
+# rows of a live tile see no key.
+PARTIAL_CASES = {
+    "below": ((2, 256, 4, 128), 256, 0),
+    "diagonal": ((2, 256, 4, 128), 256, 256),
+    "above": ((2, 256, 4, 128), 0, 256),
+    "unaligned": ((2, 192, 3, 128), 96, 160),
+    "ragged_diagonal": ((1, 100, 2, 128), 100, 100),
+}
+
+
+def _assert_partial_close(got, ref, dtype):
+    (o, m, l), (ro, rm, rl) = got, ref
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    assert o.shape == ro.shape and m.shape == rm.shape == l.shape
+    top = ro.abs().max().item()
+    assert (o - ro).abs().max().item() <= TOL_ACC[dtype] * max(top, 1e-30)
+    assert (m - rm).abs().max().item() <= TOL_M
+    assert (l - rl).abs().max().item() <= TOL_L * max(rl.max().item(), 1.0)
+    unseen = rm == -1e30                   # rows no key of the block reaches
+    assert torch.equal(unseen, m == -1e30)
+    assert bool((l[unseen] == 0).all())
+    assert bool((o.transpose(1, 2)[unseen] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(PARTIAL_CASES))
+def test_partial_kernel_matches_plain_version(cuda, case, d, dtype):
+    shape, q_off, k_off = PARTIAL_CASES[case]
+    q, k, v = _qkv(shape[:3] + (d,), dtype, cuda, seed=6)
+    before = fa.PARTIAL_LAUNCHES
+    got = fa.flash_attention_partial(q, k, v, q_off, k_off)
+    torch.cuda.synchronize()
+    assert fa.PARTIAL_LAUNCHES == before + 1
+    ref = fa.flash_attention_partial_reference(q, k, v, q_off, k_off)
+    _assert_partial_close(got, ref, dtype)
+    if case == "above":        # no key reaches any query: exactly nothing
+        o, m, l = got
+        assert bool((o == 0).all()) and bool((l == 0).all())
+        assert bool((m == -1e30).all())
+
+
+@pytest.mark.cuda
+def test_partial_kernel_reads_qkv_column_slices_through_their_strides(cuda):
+    b, s, h, d = 1, 512, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    sliced = fa.flash_attention_partial(q, k, v, 512, 512)
+    dense = fa.flash_attention_partial(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), 512, 512)
+    for a, c in zip(sliced, dense):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_ring_flash_on_one_card_matches_the_dense_ring(cuda):
+    """World size 1: one hop at offsets (0, 0) through the partial kernel
+    forward and the dQ and dK/dV kernels backward (delta given), against
+    autograd through the dense ("xla") ring on the same bf16 inputs."""
+    shape = (1, 1024, 4, 128)
+    q, k, v = _qkv(shape, torch.bfloat16, cuda, seed=9)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    do = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    axis = ring.Axis()
+    results = {}
+    for impl in ("flash", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (fa.LAUNCHES, fa.PARTIAL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
+                  fa.BWD_DKV_LAUNCHES)
+        out = ring.ring_attention_local(*leaves, axis, block_impl=impl)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        after = (fa.LAUNCHES, fa.PARTIAL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
+                 fa.BWD_DKV_LAUNCHES)
+        results[impl] = (out, grads, [a - b for a, b in zip(after, before)])
+    (out, grads, launches), (ref_out, ref_grads, _) = (results["flash"],
+                                                       results["xla"])
+    assert launches == [0, 1, 1, 1]
+    # The dense ring rounds logits to bf16, the kernels keep f32 scores.
+    assert (out.float() - ref_out.float()).abs().max().item() < 2e-2
+    for g, r in zip(grads, ref_grads):
+        g, r = g.float(), r.float()
+        rel = ((g - r).norm() / r.norm()).item()
+        cos = torch.nn.functional.cosine_similarity(
+            g.flatten(), r.flatten(), dim=0).item()
+        assert rel <= TOL_GRAD_REL_L2 and cos >= MIN_GRAD_COSINE, (rel, cos)

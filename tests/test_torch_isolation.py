@@ -42,7 +42,14 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
     assert "kubeflow_tpu_torch/ops/flash_attention.py" in names
     assert "kubeflow_tpu_torch/models/trainer.py" in names
     assert "kubeflow_tpu_torch/entry.py" in names
-    # The kernels' CUDA sources, which ops/flash_attention.py builds.
+    # The long-context slice.
+    assert {"kubeflow_tpu_torch/models/longctx.py",
+            "kubeflow_tpu_torch/models/tree.py",
+            "kubeflow_tpu_torch/parallel/ring.py",
+            "kubeflow_tpu_torch/parallel/ulysses.py",
+            "kubeflow_tpu_torch/telemetry/sections.py"} <= names
+    # The kernels' CUDA sources, which ops/flash_attention.py builds (the
+    # ring hop's partial kernel shares the forward's source).
     csrc = REPO / "kubeflow_tpu_torch" / "ops" / "csrc"
     assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu"} <= {
         p.name for p in csrc.glob("*.cu")}
@@ -64,7 +71,8 @@ def test_the_matcher_tells_the_packages_apart():
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys, kubeflow_tpu_torch.serving.engine, "
             "kubeflow_tpu_torch.serving.loadgen, kubeflow_tpu_torch.models, "
-            "kubeflow_tpu_torch.models.trainer, kubeflow_tpu_torch.entry; "
+            "kubeflow_tpu_torch.models.trainer, kubeflow_tpu_torch.entry, "
+            "kubeflow_tpu_torch.models.longctx; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
