@@ -12,13 +12,18 @@ last line. With no CUDA device it exits 1 and prints no result.
    for every float32 product (``allow_tf32 = False``), so float32
    comparisons are float32.
 2. build   — every ``.cu`` source of the package, one ``nvcc`` each, in
-   parallel; seconds and ptxas's register / spill lines.
+   parallel; seconds, ptxas's register / spill / performance lines, and
+   the forward library's wgmma, TMA-load and mma.sync instruction counts
+   (``cuobjdump``).
 3. kernels — the forward kernel against its plain PyTorch version at the
    shapes the serving and training paths give it (and the edge shapes the
-   port promises), tolerances enforced; at the decode shape the kernel,
-   the plain version and one PyTorch library call timed with CUDA events
-   (median of 30 batches of 10 back-to-back calls, after 5 warm-up
-   calls), and the kernel's device time read by ``torch.profiler`` too.
+   port promises, across the kernel's 128-row tiles), tolerances
+   enforced; at the decode shape and at the ulysses_flash path's 8192
+   tokens the kernel, the plain version and one PyTorch library call
+   timed with CUDA events (median of 30 batches of 10 back-to-back calls,
+   after 5 warm-up calls), the kernel's device time read by
+   ``torch.profiler`` too, its bound share and TFLOP/s, and the host cost
+   of the three TMA tensor maps a launch encodes.
 4. bwd_kernels — the dQ and the dK/dV kernels against their plain
    versions at the training shape, a multi-tile, a ragged, an f32 case
    and three ring-hop offsets; at the training shape a bitwise repeat,
@@ -54,9 +59,11 @@ last line. With no CUDA device it exits 1 and prints no result.
    version: the one-card hop of ``LONGCTX_MODEL`` ([1, 8192, 16, 128]
    bf16 at offsets (0, 0)), a 4-shard ring's hops below, on and above the
    diagonal (above: exactly acc = 0, l = 0, m = -1e30), an f32 head-dim-64
-   case, and q, k, v as column slices of one qkv tensor (bitwise equal to
-   the contiguous case); at the one-card hop timed as the kernels phase
-   times the forward, beside its bound and SDPA's causal forward.
+   case, the diagonal half-way into a 128-row tile, the decode shape, and
+   q, k, v as column slices of one qkv tensor (bitwise equal to the
+   contiguous case); at the one-card hop and the decode shape timed as the
+   kernels phase times the forward, beside its bound and SDPA's causal
+   forward.
 11. ring_hops — a 4-shard ring simulated in one process at full width:
    the 16 block pairs of [1, 8192, 16, 128] bf16 through the partial
    kernel and the fold, and the backward through the dQ and dK/dV kernels
@@ -73,19 +80,24 @@ last line. With no CUDA device it exits 1 and prints no result.
    forward launch. Then one step each of ``"ulysses_flash"`` (the forward,
    dQ and dK/dV kernels) and the dense ``"ring"``.
 
-Then the ``{"kernels": [...]}`` line, the card line, and the result line.
+Then the ``{"kernels": [...]}`` line (each kernel's times at the main
+path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``; the
+forward and the partial also ``at`` both timed shapes), the card line,
+and the result line.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from dataclasses import replace
 from functools import partial
+from pathlib import Path
 
 # H100 SXM published dense peaks (NVIDIA data sheet): the bound a kernel
 # is held against, with the card's power limit printed beside it.
@@ -108,7 +120,15 @@ KERNEL_CASES = [
     ("prefill_chunk", (1, PREFILL_CHUNK, 16, 128), "bfloat16", True),
     ("multi_tile", (2, 2048, 4, 128), "bfloat16", True),
     ("f32_full_d64", (2, 256, 4, 64), "float32", False),
+    # Across the kernel's 128-row Q and 128-key K/V tiles.
+    ("straddle_causal", (2, 192, 4, 128), "bfloat16", True),
+    ("straddle_full_d64", (1, 320, 2, 64), "bfloat16", False),
+    # The ulysses_flash path's shape: LONGCTX_MODEL's 8192 tokens, timed too.
+    ("long_context", (1, 8192, 16, 128), "bfloat16", True),
 ]
+# The kernels timed: the forward at both sequence lengths the main paths
+# give it.
+TIMED_KERNEL_CASES = ("decode", "long_context")
 # O: bf16 outputs may differ by one bf16 ulp at |O| < 2 (2**-7) from P
 # rounded against a running rather than the final max: 2e-2. f32: only
 # the summation order differs: 1e-4. lse is f32 from f32 scores in both.
@@ -176,7 +196,15 @@ PARTIAL_CASES = [
     ("hop_diagonal", (1, 2048, 16, 128), "bfloat16", 2048, 2048),
     ("hop_above", (1, 2048, 16, 128), "bfloat16", 0, 2048),
     ("f32_d64", (2, 256, 4, 64), "float32", 256, 256),
+    # The diagonal half-way into the kernel's 128-row tile: every row sees
+    # a key at (192, 64); rows 0-127 see none at (64, 192).
+    ("straddle_192_64", (2, 256, 4, 128), "bfloat16", 192, 64),
+    ("straddle_64_192", (2, 256, 4, 128), "bfloat16", 64, 192),
+    # The serving decode shape at offsets (0, 0), timed: the shared loop at
+    # the forward's shorter length.
+    ("decode_shape", (MAX_BATCH, 1024, 16, 128), "bfloat16", 0, 0),
 ]
+TIMED_PARTIAL_CASES = ("one_card_hop", "decode_shape")
 # The partial kernel against its plain version. acc, as a fraction of the
 # plain acc's largest magnitude: bf16 P is rounded against the running max
 # in the kernel and the final max in the plain version, so an element may
@@ -208,6 +236,23 @@ KERNEL_CATEGORIES = (
     ("reductions (norms, softmax, loss, embedding grad)",
      ("reduce", "softmax", "nll_loss", "norm", "embedding", "index")),
 )
+
+
+def sass_counts(library) -> dict | str:
+    """How many wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+    instructions the library's SASS holds, by ``cuobjdump``; "not
+    measured" where the toolkit has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return "not measured"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = []
+    for line in sass.splitlines():
+        words = [w for w in line.split()[1:] if not w.startswith("@")]
+        if line.strip().startswith("/*") and words:
+            ops.append(words[0].split(".")[0])  # the opcode, predicate aside
+    return {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
 def emit(obj) -> None:
@@ -288,10 +333,23 @@ def attention_bound_ms(shape, dtype: str, causal: bool) -> tuple:
     nbytes = 4 * b * s * h * d * elt + b * h * s * 4
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * pairs * d
+    return _bound(nbytes, flops, dtype)
+
+
+def _bound(nbytes: int, flops: int, dtype: str) -> tuple:
+    """(least ms, what bounds it, the operations) for moving ``nbytes``
+    and doing ``flops`` at the card's published peaks."""
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_SEC, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def _rates(row: dict, prefix: str = "") -> None:
+    """Add the bound share and TFLOP/s of a timed row's ``ms``."""
+    ms, bound = row[f"{prefix}ms"], row[f"{prefix}bound_ms"]
+    row[f"{prefix}bound_share"] = bound / ms
+    row[f"{prefix}tflops"] = row[f"{prefix}flops"] / (ms / 1e3) / 1e12
 
 
 def phase_kernels(torch, fa) -> dict:
@@ -313,26 +371,34 @@ def phase_kernels(torch, fa) -> dict:
                "dtype": dtype, "causal": causal, "max_err_o": err_o,
                "max_err_lse": err_lse, "tol_o": TOL_O[dtype],
                "tol_lse": TOL_LSE, "ok": ok}
-        if name == "decode":
+        if name in TIMED_KERNEL_CASES:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["ms"] = time_ms(
                 lambda: fa.flash_attention_fwd(q, k, v, causal=causal), torch)
             row["profiler_ms"] = profiled_ms(
                 lambda: fa.flash_attention_fwd(q, k, v, causal=causal), torch)
+            # The plain version moves ~20 GB a call at 8192: fewer runs.
             row["plain_ms"] = time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, causal=causal),
-                torch)
+                torch, **({} if name == "decode"
+                          else dict(warmup=1, runs=5, batch=2)))
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=causal),
                 torch)
-            row["bound_ms"], row["bound_by"] = attention_bound_ms(
-                shape, dtype, causal)
+            row["bound_ms"], row["bound_by"], row["flops"] = \
+                attention_bound_ms(shape, dtype, causal)
+            _rates(row)
+            # The host cost of the three TMA tensor maps each launch encodes.
+            row["tensor_map_encode_us"] = fa.tensor_map_encode_ns(q, k, v) / 1e3
+            del qt, kt, vt
         emit(row)
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"at {name}: {row}")
         out[name] = row
+        del q, k, v, o, lse, ro, rlse
+        torch.cuda.empty_cache()
     return out
 
 
@@ -348,10 +414,7 @@ def bwd_bound_ms(shape, dtype: str, causal: bool, kernel: str) -> tuple:
     nbytes = 6 * b * s * h * d * elt + 2 * b * h * s * 4
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = (3 if kernel == "dq" else 4) * 2 * b * h * pairs * d
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_SEC, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, dtype)
 
 
 def _max_err(got, ref) -> tuple:
@@ -441,8 +504,10 @@ def phase_bwd_kernels(torch, fa) -> dict:
                 row[f"{key}_ms"] = time_ms(run, torch)
                 row[f"{key}_profiler_ms"] = profiled_ms(run, torch)
                 row[f"{key}_plain_ms"] = time_ms(plain, torch)
-                row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = \
-                    bwd_bound_ms(shape, dtype, causal, key)
+                (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
+                 row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal,
+                                                     key)
+                _rates(row, f"{key}_")
             # One PyTorch call for the same gradients: SDPA's backward
             # (dq, dk and dv together), timed only, never on the port's path.
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -859,10 +924,7 @@ def partial_bound_ms(shape, dtype: str, q_offset: int, k_offset: int):
     nbytes = 3 * b * s * h * d * elt + b * s * h * d * 4 + 2 * b * h * s * 4
     pairs = sum(max(0, min(s, q_offset + i - k_offset + 1)) for i in range(s))
     flops = 4 * b * h * pairs * d
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_SEC, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, dtype)
 
 
 def _partial_errors(got, ref) -> dict:
@@ -916,7 +978,7 @@ def phase_partial_kernels(torch, fa) -> dict:
             ok = row["ok"] = (ok and sq.stride(1) == 3 * h * d
                               and row["strided_bitwise_equal"])
             del qkv, sq, sk, sv, strided
-        if name == "one_card_hop":
+        if name in TIMED_PARTIAL_CASES:
             def run():
                 return fa.flash_attention_partial(q, k, v, q_off, k_off)
 
@@ -927,14 +989,16 @@ def phase_partial_kernels(torch, fa) -> dict:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["ms"] = time_ms(run, torch)
             row["profiler_ms"] = profiled_ms(run, torch)
-            # The plain version moves ~20 GB a call at this shape: fewer runs.
-            row["plain_ms"] = time_ms(plain, torch, warmup=1, runs=5, batch=2)
+            # The plain version moves ~20 GB a call at 8192: fewer runs.
+            row["plain_ms"] = time_ms(plain, torch, warmup=1, runs=5,
+                                      batch=2)
             # SDPA computes the same causal products and normalizes.
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True), torch)
-            row["bound_ms"], row["bound_by"] = partial_bound_ms(
-                shape, dtype, q_off, k_off)
+            row["bound_ms"], row["bound_by"], row["flops"] = \
+                partial_bound_ms(shape, dtype, q_off, k_off)
+            _rates(row)
             del qt, kt, vt
         emit(row)
         if not ok:
@@ -1180,10 +1244,11 @@ def main() -> int:
     compiled = _build.build()
     emit({"phase": "build", "sources": _build.sources(), "compiled": compiled,
           "build_sec": time.perf_counter() - t0,
+          "forward_sass": sass_counts(_build.library_path(fa.SOURCE)),
           "ptxas": [line.strip() for log in _build.BUILD_LOG.values()
                     for line in log.splitlines()
                     if "registers" in line or "spill" in line
-                    or "entry function" in line]})
+                    or "entry function" in line or "C75" in line]})
 
     kernels = phase_kernels(torch, fa)
     bwd_rows = phase_bwd_kernels(torch, fa)
@@ -1205,6 +1270,8 @@ def main() -> int:
 
     decode = kernels["decode"]
     hop = partial["one_card_hop"]
+    timed = ("ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "bound_share", "tflops")
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -1214,10 +1281,10 @@ def main() -> int:
          "max_abs_err": max(row["max_err_o"] for row in kernels.values()),
          "max_err_o": max(row["max_err_o"] for row in kernels.values()),
          "max_err_lse": max(row["max_err_lse"] for row in kernels.values()),
-         "ms": decode["ms"], "profiler_ms": decode["profiler_ms"],
-         "plain_ms": decode["plain_ms"],
-         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-         "library_ms": decode["library_ms"]},
+         **{key: decode[key] for key in timed},
+         "at": {name: {key: kernels[name][key] for key in timed}
+                for name in TIMED_KERNEL_CASES},
+         "tensor_map_encode_us": decode["tensor_map_encode_us"]},
         *({"name": f"flash_attention_bwd_{key}", "route": "cuda",
            "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
            "replaces": f"kubeflow_tpu/ops/flash_attention.py:{line}",
@@ -1231,6 +1298,8 @@ def main() -> int:
            "plain_ms": bwd[f"{key}_plain_ms"],
            "bound_ms": bwd[f"{key}_bound_ms"],
            "bound_by": bwd[f"{key}_bound_by"],
+           "bound_share": bwd[f"{key}_bound_share"],
+           "tflops": bwd[f"{key}_tflops"],
            "library_ms": bwd["library_ms"],
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)"}
@@ -1245,10 +1314,9 @@ def main() -> int:
          "max_rel_err_acc": max(row["rel_err_acc"]
                                 for row in partial.values()),
          "max_err_m": max(row["max_err_m"] for row in partial.values()),
-         "ms": hop["ms"], "profiler_ms": hop["profiler_ms"],
-         "plain_ms": hop["plain_ms"],
-         "bound_ms": hop["bound_ms"], "bound_by": hop["bound_by"],
-         "library_ms": hop["library_ms"],
+         **{key: hop[key] for key in timed},
+         "at": {name: {key: partial[name][key] for key in timed}
+                for name in TIMED_PARTIAL_CASES},
          "library_call": "F.scaled_dot_product_attention(is_causal=True): "
                          "the same products, normalized"}]})
     print(card, flush=True)

@@ -5,7 +5,9 @@ so ``nvcc`` compiles it in seconds without PyTorch's headers. The shared
 library lands in ``<repo>/build/kubeflow_tpu_torch/`` under a name keyed
 by a hash of the source and the flags: an edited source builds anew, an
 unchanged one is loaded as it is. :func:`build` starts one ``nvcc`` per
-source, all at once, and waits for them together.
+source, all at once, and waits for them together. A source may also be
+built from another directory (an older checkout's, to compare two kernels
+in one process); other bytes make another library.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: nvcc's output (ptxas registers, shared memory, spills) per source built
 #: by this process.
 BUILD_LOG: dict[str, str] = {}
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, str], ctypes.CDLL] = {}  # by (name, csrc)
 
 
 def _nvcc() -> str:
@@ -40,9 +42,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    src = CSRC / source
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    """Where the library built from ``<csrc>/<source>`` lives."""
+    src = Path(csrc) / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
@@ -51,21 +53,26 @@ def sources() -> list[str]:
     return sorted(p.name for p in CSRC.glob("*.cu"))
 
 
-def build(names: list[str] | None = None) -> list[str]:
-    """Compile each named source (default: all) that has no library yet,
-    one ``nvcc`` each, started together. Returns the names it compiled.
-    A failed compile raises with nvcc's output."""
+def build(items=None) -> list[str]:
+    """Compile each source (default: all of ``csrc/``) that has no library
+    yet, one ``nvcc`` each, started together. An item is a source name or
+    a ``(name, csrc_dir)`` pair. Returns what it compiled: the names, or
+    the paths of sources outside ``csrc/`` (also the keys of
+    :data:`BUILD_LOG`). A failed compile raises with nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
-    for name in names or sources():
-        out = library_path(name)
-        if out.exists():
-            continue
+    for item in sources() if items is None else items:
+        name, csrc = (item, CSRC) if isinstance(item, str) else item
+        csrc = Path(csrc)
+        out = library_path(name, csrc)
+        if out.exists() or any(out == r[3] for r in running):
+            continue  # built, or being built from the same bytes
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((name, proc, tmp, out))
+        running.append((name if csrc == CSRC else str(csrc / name), proc,
+                        tmp, out))
     failed = []
     for name, proc, tmp, out in running:
         log, _ = proc.communicate()
@@ -79,10 +86,11 @@ def build(names: list[str] | None = None) -> list[str]:
     return [name for name, *_ in running]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>``, built first if need be."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of ``<csrc>/<name>``, built first if need be."""
+    key = (name, str(csrc))
+    lib = _LIBS.get(key)
+    if lib is None:  # hash the source once, not on every launch
+        build([key])
+        lib = _LIBS[key] = ctypes.CDLL(str(library_path(*key)))
     return lib

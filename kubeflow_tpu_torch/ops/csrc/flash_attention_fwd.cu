@@ -22,49 +22,83 @@
 // Bounds on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s):
 //  * forward at the serving decode shape [8, 1024, 16, 128] bf16, causal:
 //    34.4 GFLOP of causal QK^T and PV (35 us) against 134 MB of q, k, v and o
-//    moved once (40 us): bound by bytes at about 40 us; 8 launches a decode
-//    step.
+//    moved once (40 us): bound by bytes at about 40 us, though only just: at
+//    that size the kernel has to run the tensor cores near their peak too.
+//    8 launches a decode step and a train step.
 //  * partial at the long-context hop [1, 8192, 16, 128] bf16 at offsets
-//    (0, 0): 4 * 16 * 33,558,528 * 128 = 274.9 GFLOP (0.278 ms) against
-//    q, k, v read and the f32 acc, m and l written, 168.8 MB (0.050 ms): bound
-//    by operations at about 0.28 ms; one launch per layer and step on one
-//    card.
+//    (0, 0): 274.9 GFLOP (0.278 ms) against 168.8 MB (0.050 ms): bound by
+//    operations; one launch per layer and step on one card.
+// Both are tensor-core work. What held the mma.sync loop that this kernel
+// replaces at 16-19% of its bound was feeding the tensor cores: 16 rows a
+// warp made every warp read every K and V tile out of shared memory, so
+// shared-memory bandwidth set its pace, and its cp.async loads were issued
+// by the threads that do the math. What bounds this kernel on the card
+// (PERF.md, measured with ops/compare_fwd.py): the softmax. A score costs
+// one exp2 on the special-function unit, whose rate is about a 250th of the
+// tensor cores', so at head dim 128 the exp2s alone take about half as long
+// as the two products; they, the masks and the O rescale run between a
+// warpgroup's QK^T and its PV and overlap only the other warpgroup's
+// products. At the decode shape each CTA also pays its start (barriers,
+// the first loads) and its epilogue over only 1-8 K/V tiles.
 //
-// What the design does about it:
+// What the design does (bf16, head dims 64 and 128):
+//  * One CTA of three warpgroups per (b*h, 128-row Q tile). Warpgroup 0 is
+//    the producer: it gives up its registers (setmaxnreg) and one thread
+//    issues every load through TMA. Warpgroups 1 and 2 are consumers of 64
+//    Q rows each and take 240 registers a thread (ptxas gives them only if
+//    no trap sits on their path; see mbar_wait).
+//  * The launch order groups (batch, head) pairs by how many heads' K and V
+//    half the L2 holds, each group's Q tiles from the heaviest causal tile
+//    down: CTAs that run together share K/V in L2 (the decode shape reads
+//    K and V of 8 Q tiles a head), and the lightest tiles come last.
 //  * Q, K and V are read in the model's [b, s, h, d] layout through their
-//    strides (the q, k, v column slices of the fused qkv product), so no
-//    transpose or copy runs before the kernel, and the output is written in
-//    the same layout; only q, k, v and the outputs touch device memory.
-//  * bf16: one CTA of 4 warps per (b*h, 64-row Q tile); the K/V loop runs
-//    inside the CTA (replacing the TPU's sequential "arbitrary" grid axis and
-//    its VMEM scratch carry) and stops at the global diagonal, so the causal
-//    half of the products is never computed and a hop wholly above the
-//    diagonal launches CTAs that skip every tile. Both products run on the
-//    tensor cores through mma.sync m16n8k16 with f32 accumulation; the S
-//    accumulator fragments become P's A fragments in registers, so S and P
-//    never leave the SM. Tiles are 64x64 (the v5e's 1024x1024 VMEM blocks do
-//    not fit 227 KB of shared memory), rows padded by 8 elements so fragment
-//    loads and ldmatrix are free of bank conflicts. Heavy causal tiles start
-//    first. K/V tiles are double-buffered with cp.async (the next tile loads
-//    while this one is multiplied); softmax runs in base 2 (one exp2 per
-//    score) and masks only the diagonal and ragged tiles. There is no TMA,
-//    warp specialisation or wgmma yet, so the operations-bound partial runs
-//    well below the tensor cores' peak.
+//    strides (the q, k, v column slices of the fused qkv product): the host
+//    encodes one 4-D tensor map per tensor and launch (under 1 us for the
+//    three), dims (d, h, s, b) so the strides rise in the usual layouts,
+//    with a 128-byte swizzle; each TMA box is 64 columns by 128 rows (a 16
+//    KB panel), and rows past s arrive as zeros, which handles the ragged
+//    edge (the 32-token prefill chunk). No copy or transpose runs before
+//    the kernel.
+//  * K/V tiles of 128 keys flow through a ring of stages (2; 160 KB of
+//    shared memory with Q at head dim 128) with full and empty mbarriers; K
+//    and V have their own full barriers, so QK^T starts while V is in
+//    flight.
+//  * Both products run on wgmma: S = Q K^T as m64n128k16 with Q and K read
+//    from shared memory (K-major descriptors), O += P V as m64nDk16 with P
+//    from registers (the S accumulator layout is the A-fragment layout, so P
+//    is rounded to bf16 in place) and V read MN-major through the
+//    descriptor's transpose bit. One B tile feeds 64 rows of a warpgroup, a
+//    quarter of the shared-memory reads per product of the mma.sync loop.
+//  * Each consumer warpgroup runs a tile's QK^T, softmax and PV in turn, and
+//    the two warpgroups overlap one another. Two finer schedules measured
+//    slower on the card and are not kept (PERF.md): issuing the next tile's
+//    QK^T with this tile's PV so the softmax runs under both (ptxas then
+//    injects warpgroup arrives around the register operands), and making
+//    the two warpgroups take turns at issuing their products on named
+//    barriers. A third K/V stage gained nothing either.
+//  * The softmax runs in registers in base 2 (one exp2 a score, on the
+//    special-function unit with subnormals flushed) and masks only
+//    diagonal and ragged tiles, branch-free, with the live range taken from
+//    the global offsets. A hop wholly above the diagonal launches CTAs that
+//    load nothing and write "nothing".
 //  * f32 (not on the main paths): a warp per query row, FMA on the CUDA
 //    cores, keeping f32 products exact rather than rounding through TF32.
-//  * Ragged edges (s not a multiple of the tile, e.g. the 32-token prefill
-//    chunk) are zero-filled on load and masked; those rows are not written.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder: from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <atomic>
+#include <chrono>
 
 namespace {
 
 constexpr float kNegBig = -1e30f;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the f32 path
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -84,39 +118,133 @@ struct Params {
   // Global positions of query row 0 and key 0 for the causal mask (a ring
   // hop's blocks); 0 and 0 for the forward.
   int q_offset, k_offset;
+  int group;  // the bf16 kernels' launch order: (batch, head) pairs a group
 };
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kTile = 64;  // Q rows per CTA and K/V rows per loop step
+constexpr int kBlockM = 128;       // Q rows a CTA: two consumer warpgroups
+constexpr int kWgRows = 64;        // Q rows a consumer warpgroup
+constexpr int kBlockN = 128;       // keys a K/V tile
+constexpr int kPanelCols = 64;     // bf16 columns of a 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kPanelBytes = kBlockN * kRowBytes;  // one TMA box: 16 KB
+constexpr int kWgThreads = 128;
+constexpr int kHopperThreads = 3 * kWgThreads;
+constexpr int kConsumerWarps = 8;
+constexpr int kStages = 2;         // K/V tiles in flight
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert(kBlockM == kBlockN, "Q and K/V tiles share one TMA box");
 
 template <int D>
-struct Bf16Cfg {
-  static constexpr int kLd = D + 8;  // padded shared-memory row, elements
-  // Q, and two stages of K and V (the next tile loads during this one).
-  static constexpr int kSmem = 5 * kTile * kLd * 2;
+struct HopperCfg {
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // Q, K or V
+  // Shared memory: Q | K0 | V0 | K1 | V1 | ... | barriers, 1024-aligned
+  // (the 128-byte swizzle repeats every 8 rows of 128 bytes).
+  static constexpr int kBarOffset = (1 + 2 * kStages) * kTileBytes;
+  static constexpr int kBars = 1 + 3 * kStages;  // q, k full, v full, empty
+  static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
 };
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+// (No trap on a wait that never ends: a trap in the consumers' path keeps
+// ptxas from giving them the registers setmaxnreg raises, and the wgmma
+// pipeline is then serialized.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box (64 columns x 128 rows) of a [b, s, h, d] tensor into a
+// swizzled shared-memory panel; the map's dims are (d, h, s, b).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start,
+// leading and stride byte offsets in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 |
+         1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an asynchronous wgmma reads or writes: keep the compiler
+// from moving, reusing or reading them across the wait.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void hold(uint32_t (&r)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero (a
+// probability below 2^-126 adds nothing an f32 sum keeps).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -124,264 +252,402 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// wgmma.mma_async, bf16 in, f32 accumulate: A and B from shared memory
+// (ss) or A from registers (rs); B of the rs forms is MN-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// 16-byte asynchronous copy global -> shared; a source size of 0 writes
-// zeros (the ragged edge) without reading.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying rows [row0, row0 + kTile) of one head into shared memory,
-// 16 bytes a thread, zero-filling rows at or past s.
+// S = Q K^T for a warpgroup's 64 rows and a 128-key tile; both operands
+// K-major in 16 KB panels of 64 columns: a k-step of 16 columns moves 32
+// bytes along the swizzled row, four of them a panel.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int s) {
-  constexpr int kChunks = D / 8;
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
+                                         uint32_t k_addr) {
 #pragma unroll
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    const bool valid = row0 + r < s;
-    const __nv_bfloat16* g =
-        valid ? src + static_cast<long long>(row0 + r) * row_stride + cc * 8
-              : src;
-    cp_async16(dst + r * Bf16Cfg<D>::kLd + cc * 8, g, valid);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_ss_n128(s, smem_desc(q_addr + off, 16, 8 * kRowBytes),
+                  smem_desc(k_addr + off, 16, 8 * kRowBytes), kk > 0);
+  }
+}
+
+// O += P V: P as the register A operand, V [key][d] read MN-major: a k-step
+// of 16 keys is 16 rows of 128 bytes, the 64-column panels of d sit a
+// panel apart (the leading byte offset), 8-key groups 1 KB apart.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pf)[8][4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    const uint64_t b =
+        smem_desc(v_addr + kk * 16 * kRowBytes, kPanelBytes, 8 * kRowBytes);
+    if constexpr (D == 128) {
+      wgmma_rs_n128(o, pf[kk], b);
+    } else {
+      wgmma_rs_n64(o, pf[kk], b);
+    }
+  }
+}
+
+// One tile's online softmax for the thread's two rows (row and row + 8) of
+// the m64n128 accumulator: scale to log2 units, mask with -1e30 where
+// needed, update the running max and sum, and leave P = exp2(S' - m_new) in
+// s. corr is the factor the accumulator must be rescaled by.
+struct SoftmaxArgs {
+  int n0;          // the tile's first key
+  bool need_mask;  // the tile crosses the diagonal or the ragged edge
+  int row;         // the thread's first row (the second is row + 8)
+  int tq;          // the thread's column pair within an 8-column chunk
+};
+
+__device__ __forceinline__ void online_softmax(float (&s)[64],
+                                               float (&m_run)[2],
+                                               float (&l_run)[2],
+                                               float (&corr)[2],
+                                               const SoftmaxArgs& a,
+                                               const Params& p,
+                                               float scale2) {
+  float mx[2] = {m_run[0], m_run[1]};
+  // Row i keeps the keys before min(s, its last visible key + 1); as an
+  // offset from this thread's first column n0 + 2 tq.
+  int live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int end = p.causal ? min(p.s, p.q_offset + a.row + 8 * i -
+                                            p.k_offset + 1)
+                             : p.s;
+    live[i] = end - (a.n0 + a.tq * 2);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j * 4 + e] * scale2;
+      if (a.need_mask && j * 8 + (e & 1) >= live[e >> 1]) x = kNegBig;
+      s[j * 4 + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the 4 threads of a row
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    const float pj = ex2(s[j] - mx[(j >> 1) & 1]);
+    s[j] = pj;
+    rs[(j >> 1) & 1] += pj;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+    corr[i] = ex2(m_run[i] - mx[i]);
+    l_run[i] = l_run[i] * corr[i] + rs[i];
+    m_run[i] = mx[i];
+  }
+}
+
+// P rounded to bf16 as wgmma A fragments: the accumulator chunks 2kk and
+// 2kk + 1 (8 columns each) are exactly the m64k16 A layout of k-step kk.
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&pf)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pf[kk][r] = pack_bf16(s[kk * 8 + r * 2], s[kk * 8 + r * 2 + 1]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+// The shared-memory addresses and barriers of one CTA.
+template <int D>
+struct Smem {
+  uint32_t base, bars;
+  __device__ uint32_t q() const { return base; }
+  __device__ uint32_t k(int st) const {
+    return base + (1 + 2 * st) * HopperCfg<D>::kTileBytes;
+  }
+  __device__ uint32_t v(int st) const {
+    return base + (2 + 2 * st) * HopperCfg<D>::kTileBytes;
+  }
+  __device__ uint32_t q_full() const { return bars; }
+  __device__ uint32_t k_full(int st) const { return bars + 8 * (1 + st); }
+  __device__ uint32_t v_full(int st) const {
+    return bars + 8 * (1 + kStages + st);
+  }
+  __device__ uint32_t empty(int st) const {
+    return bars + 8 * (1 + 2 * kStages + st);
+  }
+};
+
+// The producer's one thread: Q once, then every K/V tile through the ring.
+template <int D>
+__device__ __forceinline__ void produce(const Smem<D>& sm,
+                                        const CUtensorMap& qmap,
+                                        const CUtensorMap& kmap,
+                                        const CUtensorMap& vmap, int m0,
+                                        int hi, int bi, int n_tiles) {
+  constexpr int kPanels = HopperCfg<D>::kPanels;
+  constexpr int kBytes = HopperCfg<D>::kTileBytes;
+  mbar_expect_tx(sm.q_full(), kBytes);
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn) {
+    tma_load(sm.q() + pn * kPanelBytes, qmap, sm.q_full(), pn * kPanelCols,
+             hi, m0, bi);
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    // The stage's previous tile was released (round 0 passes at once).
+    mbar_wait(sm.empty(st), ((j / kStages) & 1) ^ 1);
+    mbar_expect_tx(sm.k_full(st), kBytes);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      tma_load(sm.k(st) + pn * kPanelBytes, kmap, sm.k_full(st),
+               pn * kPanelCols, hi, j * kBlockN, bi);
+    }
+    mbar_expect_tx(sm.v_full(st), kBytes);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      tma_load(sm.v(st) + pn * kPanelBytes, vmap, sm.v_full(st),
+               pn * kPanelCols, hi, j * kBlockN, bi);
+    }
+  }
+}
+
+// A consumer warpgroup's loop over the K/V tiles: warpgroup `c` (0 or 1)
+// owns Q rows [m0w, m0w + 64) of the tile.
+template <int D>
+__device__ __forceinline__ void consume(const Smem<D>& sm, const Params& p,
+                                        int c, int m0w, int row, int tq,
+                                        int lane, int n_tiles,
+                                        float (&o)[D / 2], float (&m_run)[2],
+                                        float (&l_run)[2]) {
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t q_addr = sm.q() + c * kWgRows * kRowBytes;
+  float s[64];
+  uint32_t pf[8][4];
+  float corr[2];
+
+  mbar_wait(sm.q_full(), 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    const uint32_t ph = (j / kStages) & 1;
+    const int n0 = j * kBlockN;
+    const SoftmaxArgs args{n0,
+                           n0 + kBlockN > p.s ||
+                               (p.causal && p.k_offset + n0 + kBlockN - 1 >
+                                                p.q_offset + m0w),
+                           row, tq};
+    mbar_wait(sm.k_full(st), ph);
+    wgmma_fence();
+    issue_qk<D>(s, q_addr, sm.k(st));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(s);
+    online_softmax(s, m_run, l_run, corr, args, p, scale2);
+    rescale<D>(o, corr);
+    pack_p(s, pf);
+    mbar_wait(sm.v_full(st), ph);
+    wgmma_fence();
+    issue_pv<D>(o, pf, sm.v(st));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(o);
+    hold(pf);
+    if (lane == 0) mbar_arrive(sm.empty(st));  // one arrive a warp
   }
 }
 
 // The body of both bf16 kernels: kPartial selects the ring hop's epilogue.
 template <int D, bool kPartial>
-__device__ __forceinline__ void bf16_attention(const Params& p) {
-  constexpr int kLd = Bf16Cfg<D>::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* kv = qs + kTile * kLd;  // stage i: K at 2i, V at 2i + 1
+__device__ __forceinline__ void hopper_attention(const CUtensorMap& qmap,
+                                                 const CUtensorMap& kmap,
+                                                 const CUtensorMap& vmap,
+                                                 const Params& p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const Smem<D> sm{(raw + 1023) & ~1023u,
+                   ((raw + 1023) & ~1023u) + HopperCfg<D>::kBarOffset};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // heavy tiles first
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
-                           bi * p.q_sb + hi * p.q_sh;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) +
-                           bi * p.k_sb + hi * p.k_sh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) +
-                           bi * p.v_sb + hi * p.v_sh;
-
-  const int qo = p.q_offset, ko = p.k_offset;
+  // The launch order: (batch, head) pairs in groups of p.group, each
+  // group's Q tiles from the last (heaviest when causal) down, the group's
+  // heads side by side. CTAs that run together share a few heads' K and V
+  // in L2, and within a group the lightest tiles come last.
+  const int m_blocks = (p.s + kBlockM - 1) / kBlockM;
+  const int bhs = p.b * p.h;
+  const int per_group = p.group * m_blocks;
+  const int g = blockIdx.x / per_group, rem = blockIdx.x % per_group;
+  const int heads = min(p.group, bhs - g * p.group);
+  const int bh = g * p.group + rem % heads, bi = bh / p.h, hi = bh % p.h;
+  const int m0 = (m_blocks - 1 - rem / heads) * kBlockM;
   // Keys [0, n_end) reach some row of this tile: causal, the last row's
   // global position bounds them.
   const int n_end =
-      p.causal ? max(0, min(p.s, qo + min(m0 + kTile, p.s) - ko)) : p.s;
-  const int n_tiles = (n_end + kTile - 1) / kTile;
-  load_tile<D>(qs, q, p.q_ss, m0, p.s);
-  cp_async_commit();
-  if (n_tiles > 0) {
-    load_tile<D>(kv, k, p.k_ss, 0, p.s);
-    load_tile<D>(kv + kTile * kLd, v, p.v_ss, 0, p.s);
+      p.causal ? max(0, min(p.s, p.q_offset + min(m0 + kBlockM, p.s) -
+                                     p.k_offset))
+               : p.s;
+  const int n_tiles = (n_end + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(sm.k_full(st), 1);
+      mbar_init(sm.v_full(st), 1);
+      mbar_init(sm.empty(st), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-  cp_async_wait<1>();  // Q has landed; the first K/V tile may still fly
   __syncthreads();
 
-  // This warp's 16 Q rows as A fragments, held for the whole K/V loop.
-  const int r0 = warp * 16 + g;
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c0 = kk * 16 + t * 2;
-    qf[kk][0] = lds32(qs + r0 * kLd + c0);
-    qf[kk][1] = lds32(qs + (r0 + 8) * kLd + c0);
-    qf[kk][2] = lds32(qs + r0 * kLd + c0 + 8);
-    qf[kk][3] = lds32(qs + (r0 + 8) * kLd + c0 + 8);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  // Each thread owns two rows of the warp's 16: r0 and r0 + 8. The
-  // running max is kept in log2 units (scores scaled by scale * log2 e),
-  // so every exponential is one exp2.
-  float m_run[2] = {kNegBig, kNegBig};
-  float l_run[2] = {0.f, 0.f};
-  const int row[2] = {m0 + r0, m0 + r0 + 8};
-  const float scale2 = p.scale * kLog2e;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kTile;
-    if (j + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      __nv_bfloat16* next = kv + ((j + 1) & 1) * 2 * kTile * kLd;
-      load_tile<D>(next, k, p.k_ss, n0 + kTile, p.s);
-      load_tile<D>(next + kTile * kLd, v, p.v_ss, n0 + kTile, p.s);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed
-    __syncthreads();
-    const __nv_bfloat16* ks = kv + (j & 1) * 2 * kTile * kLd;
-    const __nv_bfloat16* vs = ks + kTile * kLd;
-
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of m16n8.
-    float sc[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kp = ks + (nt * 8 + g) * kLd + kk * 16 + t * 2;
-        mma_bf16(sc[nt], qf[kk], lds32(kp), lds32(kp + 8));
-      }
-    }
-
-    // Scale in f32, mask with -1e30 (only the diagonal and ragged tiles
-    // hold masked entries), running row max.
-    const bool need_mask =
-        n0 + kTile > p.s || (p.causal && ko + n0 + kTile - 1 > qo + m0);
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[nt][e] * scale2;
-        if (need_mask) {
-          const int col = n0 + nt * 8 + t * 2 + (e & 1);
-          if (col >= p.s || (p.causal && ko + col > qo + row[e >> 1])) {
-            x = kNegBig;
-          }
-        }
-        sc[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // the 4 threads of a row group
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-
-    // P = exp2(S' - m_new) = exp(S - m): row sums from f32 P, PV from P
-    // rounded to bf16.
-    // The m16n8 accumulator layout of S n-tiles 2j and 2j+1 is exactly the
-    // m16k16 A-fragment layout of P's k-step j.
-    float rs[2] = {0.f, 0.f};
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = exp2f(sc[nt][0] - mx[0]);
-      const float p1 = exp2f(sc[nt][1] - mx[0]);
-      const float p2 = exp2f(sc[nt][2] - mx[1]);
-      const float p3 = exp2f(sc[nt][3] - mx[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      corr[i] = exp2f(m_run[i] - mx[i]);
-      l_run[i] = l_run[i] * corr[i] + rs[i];
-      m_run[i] = mx[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
-
-    // acc += P V. ldmatrix.trans turns row-major V [key][d] into the
-    // k-major B fragments for two n-tiles (16 columns of d) at once.
-#pragma unroll
-    for (int kstep = 0; kstep < 4; ++kstep) {
-      const int key = kstep * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + key * kLd + dt * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[dt], pf[kstep], bv[0], bv[1]);
-        mma_bf16(acc[dt + 1], pf[kstep], bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before reuse
-  }
-
-  if constexpr (kPartial) {
-    float* o = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (row[i] >= p.s) continue;
-      // A row that saw a key has a real max: each row that sees any key of
-      // the block sees key 0, which is in the first tile.
-      const bool seen = m_run[i] != kNegBig;
-      float* orow = o + static_cast<long long>(row[i]) * p.o_ss;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        *reinterpret_cast<float2*>(orow + dt * 8 + t * 2) =
-            seen ? make_float2(acc[dt][i * 2], acc[dt][i * 2 + 1])
-                 : make_float2(0.f, 0.f);
-      }
-      if (t == 0) {
-        const long long at = static_cast<long long>(bh) * p.s + row[i];
-        p.m[at] = seen ? m_run[i] * kLn2 : kNegBig;  // log2 -> natural units
-        p.l[at] = seen ? l_run[i] : 0.f;
-      }
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      produce<D>(sm, qmap, kmap, vmap, m0, hi, bi, n_tiles);
     }
   } else {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + bi * p.o_sb +
-                       hi * p.o_sh;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int t = threadIdx.x - wg * kWgThreads;
+    const int lane = t & 31, tq = lane & 3;
+    const int m0w = m0 + c * kWgRows;
+    // The thread's rows of the m64 accumulators: row[0] and row[0] + 8.
+    const int row[2] = {m0w + (t >> 5) * 16 + (lane >> 2),
+                        m0w + (t >> 5) * 16 + (lane >> 2) + 8};
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (row[i] >= p.s) continue;
-      const float l = fmaxf(l_run[i], 1e-30f);
-      __nv_bfloat16* orow = o + static_cast<long long>(row[i]) * p.o_ss;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // The running max in log2 units (scores scaled by scale * log2 e).
+    float m_run[2] = {kNegBig, kNegBig};
+    float l_run[2] = {0.f, 0.f};
+    if (n_tiles > 0) {
+      consume<D>(sm, p, c, m0w, row[0], tq, lane, n_tiles, o, m_run, l_run);
+    }
+
+    // o[j * 4 + i * 2 + e]: row row[i], column j * 8 + tq * 2 + e.
+    if constexpr (kPartial) {
+      float* out = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + t * 2) =
-            pack_bf16(acc[dt][i * 2] / l, acc[dt][i * 2 + 1] / l);
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] >= p.s) continue;
+        // A row that saw a key has a real max: each row that sees any key
+        // of the block sees key 0, which is in the first tile.
+        const bool seen = m_run[i] != kNegBig;
+        float* orow = out + static_cast<long long>(row[i]) * p.o_ss;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<float2*>(orow + j * 8 + tq * 2) =
+              seen ? make_float2(o[j * 4 + i * 2], o[j * 4 + i * 2 + 1])
+                   : make_float2(0.f, 0.f);
+        }
+        if (tq == 0) {
+          const long long at = static_cast<long long>(bh) * p.s + row[i];
+          p.m[at] = seen ? m_run[i] * kLn2 : kNegBig;  // log2 -> natural
+          p.l[at] = seen ? l_run[i] : 0.f;
+        }
       }
-      if (t == 0) {
-        p.lse[static_cast<long long>(bh) * p.s + row[i]] =
-            m_run[i] * kLn2 + logf(l);
+    } else {
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + bi * p.o_sb +
+                           hi * p.o_sh;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] >= p.s) continue;
+        const float l = fmaxf(l_run[i], 1e-30f);
+        __nv_bfloat16* orow = out + static_cast<long long>(row[i]) * p.o_ss;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) = pack_bf16(
+              o[j * 4 + i * 2] / l, o[j * 4 + i * 2 + 1] / l);
+        }
+        if (tq == 0) {
+          p.lse[static_cast<long long>(bh) * p.s + row[i]] =
+              m_run[i] * kLn2 + logf(l);
+        }
       }
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) fwd_bf16_kernel(Params p) {
-  bf16_attention<D, false>(p);
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const Params p) {
+  hopper_attention<D, false>(qmap, kmap, vmap, p);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) partial_bf16_kernel(Params p) {
-  bf16_attention<D, true>(p);
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    partial_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const Params p) {
+  hopper_attention<D, true>(qmap, kmap, vmap, p);
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -479,28 +745,117 @@ __global__ void __launch_bounds__(kThreads) partial_f32_kernel(Params p) {
   f32_attention<D, true>(p);
 }
 
+
 constexpr int kMaxDevices = 64;
 
+// cuTensorMapEncodeTiled from the driver, reached through the runtime so the
+// library links without -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A failed encode returns kEncodeError + its CUresult.
+constexpr int kEncodeError = 100000;
+
+// The 4-D map of one bf16 [b, s, h, d] tensor (strides in elements, unit d
+// stride): dims (d, h, s, b), boxes of 64 columns x 1 head x 128 rows, a
+// 128-byte swizzle, rows past s read as zeros.
+int encode(CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
+           long long sb, long long ss, long long sh) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kPanelCols, 1, kBlockN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+int encode_qkv(CUtensorMap (&maps)[3], const Params& p, int d) {
+  int err = encode(&maps[0], p.q, p.b, p.s, p.h, d, p.q_sb, p.q_ss, p.q_sh);
+  if (err == 0) {
+    err = encode(&maps[1], p.k, p.b, p.s, p.h, d, p.k_sb, p.k_ss, p.k_sh);
+  }
+  if (err == 0) {
+    err = encode(&maps[2], p.v, p.b, p.s, p.h, d, p.v_sb, p.v_ss, p.v_sh);
+  }
+  return err;
+}
+
 template <int D, bool kPartial>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  constexpr int kSmem = Bf16Cfg<D>::kSmem;
-  void (*kernel)(Params) =
-      kPartial ? &partial_bf16_kernel<D> : &fwd_bf16_kernel<D>;
-  // Raise the kernel's dynamic shared-memory limit once per device (the
-  // attribute belongs to the device's context), not on every launch.
-  static std::atomic<bool> done[kMaxDevices];
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int kSmem = HopperCfg<D>::kSmem;
+  CUtensorMap maps[3];
+  const int enc = encode_qkv(maps, p, D);
+  if (enc != 0) return enc;
+  const void* kernel =
+      kPartial ? reinterpret_cast<const void*>(&partial_bf16_kernel<D>)
+               : reinterpret_cast<const void*>(&fwd_bf16_kernel<D>);
+  // Raise the kernel's dynamic shared-memory limit and read the L2 size
+  // once per device (the attribute belongs to the device's context), not on
+  // every launch; 0 means not yet.
+  static std::atomic<int> l2_bytes[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !done[dev].load(std::memory_order_acquire)) {
+  int l2 = dev < kMaxDevices ? l2_bytes[dev].load(std::memory_order_acquire)
+                             : 0;
+  if (l2 == 0) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmem);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    }
     if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+    if (dev < kMaxDevices) l2_bytes[dev].store(l2, std::memory_order_release);
   }
-  const dim3 grid((p.s + kTile - 1) / kTile, p.b * p.h);
-  kernel<<<grid, kThreads, kSmem, stream>>>(p);
+  // As many heads a launch group as half the L2 holds K and V of.
+  Params grouped = p;
+  const long long kv_bytes = 2LL * p.s * D * 2;
+  grouped.group = static_cast<int>(
+      max(1LL, min(static_cast<long long>(p.b) * p.h, l2 / 2 / kv_bytes)));
+  const int m_blocks = (p.s + kBlockM - 1) / kBlockM;
+  const dim3 grid(p.b * p.h * m_blocks);
+  if constexpr (kPartial) {
+    partial_bf16_kernel<D><<<grid, kHopperThreads, kSmem, stream>>>(
+        maps[0], maps[1], maps[2], grouped);
+  } else {
+    fwd_bf16_kernel<D><<<grid, kHopperThreads, kSmem, stream>>>(
+        maps[0], maps[1], maps[2], grouped);
+  }
   return cudaGetLastError();
 }
 
@@ -546,7 +901,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns a
-// cudaError_t (0 on success); the launch itself is asynchronous on `stream`.
+// cudaError_t (0 on success), or 100000 + the CUresult of a failed
+// tensor-map encode; the launch itself is asynchronous on `stream`.
 extern "C" int kftpu_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int b,
     int s, int h, int d, int dtype, long long q_sb, long long q_ss,
@@ -575,6 +931,31 @@ extern "C" int kftpu_flash_attention_partial(
   return launch<true>(p, d, dtype, stream);
 }
 
+// Host nanoseconds to encode the three tensor maps of one bf16 launch,
+// averaged over `iters` encodes of q, k, v as given (strides as for
+// kftpu_flash_attention_partial); a negative value is a failed encode.
+extern "C" double kftpu_flash_attention_encode_ns(
+    const void* q, const void* k, const void* v, int b, int s, int h, int d,
+    const long long* strides, int iters) {
+  const long long st[12] = {strides[0], strides[1], strides[2], strides[3],
+                            strides[4], strides[5], strides[6], strides[7],
+                            strides[8], 0, 0, 0};
+  const Params p = make_params(q, k, v, nullptr, b, s, h, st, 1.f, 1);
+  CUtensorMap maps[3];
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    if (encode_qkv(maps, p, d) != 0) return -1.0;
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / iters;
+}
+
 extern "C" const char* kftpu_cuda_error_string(int err) {
+  if (err >= kEncodeError) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - kEncodeError);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

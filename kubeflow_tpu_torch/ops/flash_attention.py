@@ -145,8 +145,11 @@ def _raise_on(err: int, lib, what: str) -> None:
                            + lib.kftpu_cuda_error_string(err).decode())
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _library(lib: ctypes.CDLL | None = None) -> ctypes.CDLL:
+    """The forward library, its entry points typed. ``lib`` replaces the
+    one built from ``csrc/`` (another build of the same C interface, to
+    time two kernels in one process)."""
+    lib = _build.load(SOURCE) if lib is None else lib
     fn = lib.kftpu_flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -163,7 +166,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(q, k, v, causal: bool, scale: float):
+def _launch(q, k, v, causal: bool, scale: float, lib=None):
     global LAUNCHES
     b, s, h, d = q.shape
     _check_kernel_shape(q)
@@ -171,7 +174,7 @@ def _launch(q, k, v, causal: bool, scale: float):
         _check_kernel_layout(name, t)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-    lib = _library()
+    lib = _library(lib)
     with _on_device(q.device) as stream:
         err = lib.kftpu_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -535,7 +538,8 @@ def flash_attention_partial_reference(q, k, v, q_offset: int, k_offset: int,
     return o.transpose(1, 2).contiguous(), m.squeeze(-1), l
 
 
-def _launch_partial(q, k, v, q_offset: int, k_offset: int, scale: float):
+def _launch_partial(q, k, v, q_offset: int, k_offset: int, scale: float,
+                    lib=None):
     global PARTIAL_LAUNCHES
     b, s, h, d = q.shape
     _check_kernel_shape(q)
@@ -544,7 +548,7 @@ def _launch_partial(q, k, v, q_offset: int, k_offset: int, scale: float):
     o = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _library()
+    lib = _library(lib)
     with _on_device(q.device) as stream:
         err = lib.kftpu_flash_attention_partial(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -576,3 +580,20 @@ def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, *,
         return flash_attention_partial_reference(q, k, v, q_offset, k_offset,
                                                  scale=scale)
     raise ValueError(f"no flash attention for device {q.device}")
+
+
+def tensor_map_encode_ns(q, k, v, iters: int = 1000) -> float:
+    """Host nanoseconds that one bf16 launch spends encoding the TMA
+    tensor maps of q, k and v (CUDA tensors), averaged over ``iters``."""
+    lib = _library()
+    fn = lib.kftpu_flash_attention_encode_ns
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int])
+        fn.restype = ctypes.c_double
+    b, s, h, d = q.shape
+    ns = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, h, d,
+            _strides(q, k, v), iters)
+    if ns < 0:
+        raise RuntimeError("tensor map encode failed")
+    return ns

@@ -48,6 +48,9 @@ def _qkv(shape, dtype, device, seed=0):
     ((2, 100, 3, 64), torch.bfloat16, False),      # ragged, full
     ((2, 256, 4, 64), torch.float32, False),
     ((1, 77, 2, 128), torch.float32, True),
+    # Across the 128-row Q tile and the 128-key K/V tile: 1.5 and 2.5 tiles.
+    ((2, 192, 4, 128), torch.bfloat16, True),
+    ((1, 320, 2, 64), torch.bfloat16, False),
 ])
 def test_kernel_matches_plain_version(cuda, shape, dtype, causal):
     q, k, v = _qkv(shape, dtype, cuda)
@@ -173,6 +176,15 @@ def test_kernel_reads_qkv_column_slices_through_their_strides(cuda):
                                       v.contiguous())
     torch.testing.assert_close(o, o2, rtol=0, atol=0)
     torch.testing.assert_close(lse, lse2, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_is_deterministic(cuda):
+    q, k, v = _qkv((2, 1024, 4, 128), torch.bfloat16, cuda, seed=11)
+    first = fa.flash_attention_fwd(q, k, v)
+    again = fa.flash_attention_fwd(q, k, v)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -310,13 +322,17 @@ TOL_M = 1e-4
 TOL_L = 1e-4
 # (shape, q_offset, k_offset): a 4-shard ring's hops below, on and above
 # the diagonal, and offsets that are not multiples of the tile, where some
-# rows of a live tile see no key.
+# rows of a live tile see no key. The straddle cases put the diagonal
+# half-way into a 128-row tile: at (192, 64) every row sees a key, at
+# (64, 192) rows 0-127 see none and rows 128-255 do.
 PARTIAL_CASES = {
     "below": ((2, 256, 4, 128), 256, 0),
     "diagonal": ((2, 256, 4, 128), 256, 256),
     "above": ((2, 256, 4, 128), 0, 256),
     "unaligned": ((2, 192, 3, 128), 96, 160),
     "ragged_diagonal": ((1, 100, 2, 128), 100, 100),
+    "straddle_192_64": ((2, 256, 4, 128), 192, 64),
+    "straddle_64_192": ((2, 256, 4, 128), 64, 192),
 }
 
 

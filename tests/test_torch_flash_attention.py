@@ -31,6 +31,10 @@ CASES = {
     "f32_d64": ((2, 256, 2, 64), "float32", True, 2e-5),
     "f32_s32": ((2, 32, 2, 128), "float32", True, 2e-5),
     "bf16_causal": ((2, 256, 2, 128), "bfloat16", True, 1e-2),
+    # Across the card kernel's 128-row Q and 128-key K/V tiles: 1.5 tiles
+    # causal, 2.5 tiles full at head dim 64.
+    "bf16_causal_s192": ((2, 192, 4, 128), "bfloat16", True, 1e-2),
+    "bf16_full_s320_d64": ((1, 320, 2, 64), "bfloat16", False, 1e-2),
 }
 LSE_TOL = 2e-5   # lse is f32 in both, from f32 scores
 

@@ -153,6 +153,57 @@ def test_rows_with_no_visible_key_agree_through_the_fold():
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+# Offsets that are multiples of 64 but not of 128 put the diagonal in the
+# middle of the card kernel's 128-row tile (test_torch_cuda_kernels.py
+# holds the kernel at the same offsets). Tolerance of the folded bf16 o:
+# one bf16 ulp of |o| < 2, as TOL_O on the card.
+MID_TILE_SHAPE = (2, 256, 4, 128)
+TOL_FOLD = {"float32": 2e-5, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_partial_matches_jax_with_the_diagonal_mid_tile(dtype):
+    """Queries at [192, 448) against keys at [64, 320): every row sees
+    key 0 of the block, so acc, m and l compare raw."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(MID_TILE_SHAPE, dtype, seed=7)
+    ref = jax_partial(jq, jk, jv, 192, 64)
+    got = fa.flash_attention_partial(tq, tk, tv, 192, 64)
+    assert bool((got[2] > 0).all())
+    _assert_partial_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_before_a_mid_tile_diagonal_agree_through_the_fold(dtype):
+    """Queries at [64, 320) against keys at [192, 448): rows 0-127 see no
+    key of the block (JAX keeps the masked count in l there, the port
+    writes (0, -1e30, 0)), rows 128-255 do and agree raw; folded after a
+    hop against keys at [0, 256), both give the same attention."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(MID_TILE_SHAPE, dtype, seed=8)
+    (jk2, jv2), (tk2, tv2) = _inputs(MID_TILE_SHAPE, dtype, n=2, seed=9)
+    port = [fa.flash_attention_partial(tq, tk, tv, 64, 0),
+            fa.flash_attention_partial(tq, tk2, tv2, 64, 192)]
+    ref = [tuple(torch.from_numpy(np.array(jnp.asarray(t, jnp.float32)))
+                 for t in hop)
+           for hop in (jax_partial(jq, jk, jv, 64, 0),
+                       jax_partial(jq, jk2, jv2, 64, 192))]
+    (o, m, l), (ro, rm, rl) = port[1], ref[1]
+    unseen, seen = slice(0, 128), slice(128, None)
+    assert bool((m[..., unseen] == -1e30).all())
+    assert bool((l[..., unseen] == 0).all()) and bool((o[:, unseen] == 0).all())
+    assert bool((rm[..., unseen] == -1e30).all())
+    assert bool((rl[..., unseen] == 256).all())    # JAX: the masked count
+    _assert_partial_close((o[:, seen], m[..., seen], l[..., seen]),
+                          (ro[:, seen], rm[..., seen], rl[..., seen]), dtype)
+    folded, ref_folded = None, None
+    for hop, ref_hop in zip(port, ref):
+        folded = fold_hop(folded, *hop)
+        ref_folded = fold_hop(ref_folded, *ref_hop)
+    for got, want in zip(finish(folded, tq.dtype),
+                         finish(ref_folded, tq.dtype)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=TOL_FOLD[dtype])
+
+
 def test_partial_shape_contract_raises_where_jax_raises():
     (jq, _, _), (tq, _, _) = _inputs((1, 1536, 1, 16), "float32")
     with pytest.raises(ValueError, match="divide"):
