@@ -13,7 +13,7 @@ last line. With no CUDA device it exits 1 and prints no result.
    comparisons are float32.
 2. build   — every ``.cu`` source of the package, one ``nvcc`` each, in
    parallel; seconds, ptxas's register / spill / performance lines, and
-   the forward library's wgmma, TMA-load and mma.sync instruction counts
+   each library's wgmma, TMA-load and mma.sync instruction counts
    (``cuobjdump``).
 3. kernels — the forward kernel against its plain PyTorch version at the
    shapes the serving and training paths give it (and the edge shapes the
@@ -25,12 +25,15 @@ last line. With no CUDA device it exits 1 and prints no result.
    ``torch.profiler`` too, its bound share and TFLOP/s, and the host cost
    of the three TMA tensor maps a launch encodes.
 4. bwd_kernels — the dQ and the dK/dV kernels against their plain
-   versions at the training shape, a multi-tile, a ragged, an f32 case
-   and three ring-hop offsets; at the training shape a bitwise repeat,
-   and q, k, v as column slices of one qkv tensor (as the model passes
-   them), bitwise equal to the contiguous case; there each kernel timed
-   as above beside its plain version, its bound, and one SDPA backward
-   (dq, dk, dv together) as the library yardstick.
+   versions at the training shape, a multi-tile, a ragged, an f32 case,
+   shapes across the kernels' tiles, ring-hop offsets (two straddling a
+   128-row tile) and the long-context step's one-card hop; at the
+   training shape a bitwise repeat, and q, k, v as column slices of one
+   qkv tensor (as the model passes them), bitwise equal to the contiguous
+   case; at the training shape and the one-card hop each kernel timed as
+   above beside its plain version, its bound, and one SDPA backward (dq,
+   dk, dv together) as the library yardstick, by CUDA events and by the
+   profiler's device time, with the SDPA backend the profiler saw.
 5. model   — the full-width burn-in serving config through ``forward``
    with ``attention="flash"`` and ``"xla"`` (plain dense) on the same
    seeded weights and tokens; logits within a stated bf16 tolerance; the
@@ -81,9 +84,8 @@ last line. With no CUDA device it exits 1 and prints no result.
    dQ and dK/dV kernels) and the dense ``"ring"``.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
-path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``; the
-forward and the partial also ``at`` both timed shapes), the card line,
-and the result line.
+path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, and
+``at`` both timed shapes), the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -98,6 +100,8 @@ import time
 from dataclasses import replace
 from functools import partial
 from pathlib import Path
+
+from kubeflow_tpu_torch.ops.compare import time_ms
 
 # H100 SXM published dense peaks (NVIDIA data sheet): the bound a kernel
 # is held against, with the card's power limit printed beside it.
@@ -143,19 +147,38 @@ TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS, TRAIN_PROFILED = 2, 4, 25, 3
 FIT_STEPS, FIT_ACCUM = 10, 2
 
-# Backward cases (name, [b, s, h, d], dtype, causal, q_offset, k_offset):
-# the train step's attention, several tiles past the JAX block, a ragged
-# full case at head dim 64, the f32 path, and three ring hops (the K
-# block below the diagonal, on it, above it: all-zero gradients).
+# Backward cases (name, [b, s, h, d], dtype, causal, q_offset, k_offset,
+# delta given): the train step's attention, several tiles past the JAX
+# block, a ragged full case at head dim 64, the f32 path, three ring hops
+# (the K block below the diagonal, on it, above it: all-zero gradients),
+# which are handed the final delta as a ring's backward is.
 BWD_CASES = [
-    ("train", (TRAIN_BATCH, 1024, 16, 128), "bfloat16", True, 0, 0),
-    ("multi_tile", (2, 2048, 4, 128), "bfloat16", True, 0, 0),
-    ("ragged_full_d64", (2, 100, 3, 64), "bfloat16", False, 0, 0),
-    ("f32_causal", (1, 77, 2, 128), "float32", True, 0, 0),
-    ("hop_below", (2, 256, 4, 128), "bfloat16", True, 256, 0),
-    ("hop_diagonal", (2, 256, 4, 128), "bfloat16", True, 256, 256),
-    ("hop_above", (2, 256, 4, 128), "bfloat16", True, 0, 256),
+    ("train", (TRAIN_BATCH, 1024, 16, 128), "bfloat16", True, 0, 0, False),
+    ("multi_tile", (2, 2048, 4, 128), "bfloat16", True, 0, 0, False),
+    ("ragged_full_d64", (2, 100, 3, 64), "bfloat16", False, 0, 0, False),
+    ("f32_causal", (1, 77, 2, 128), "float32", True, 0, 0, False),
+    ("hop_below", (2, 256, 4, 128), "bfloat16", True, 256, 0, True),
+    ("hop_diagonal", (2, 256, 4, 128), "bfloat16", True, 256, 256, True),
+    ("hop_above", (2, 256, 4, 128), "bfloat16", True, 0, 256, True),
+    # Across the kernels' tiles (128 owned rows, 64 streamed): 1.5 Q tiles
+    # and 3 key tiles; 2.5 tiles, full; lse and delta rows of 77 floats,
+    # whose pitch is no multiple of 16 bytes.
+    ("straddle_causal", (2, 192, 4, 128), "bfloat16", True, 0, 0, False),
+    ("straddle_full_d64", (1, 320, 2, 64), "bfloat16", False, 0, 0, False),
+    ("ragged_causal", (1, 77, 2, 128), "bfloat16", True, 0, 0, False),
+    # Hops whose diagonal falls half-way into a 128-row tile: every row
+    # sees a key at (192, 64); rows 0-127 see none at (64, 192) (dq 0).
+    ("hop_192_64", (2, 256, 4, 128), "bfloat16", True, 192, 64, True),
+    ("hop_64_192", (2, 256, 4, 128), "bfloat16", True, 64, 192, True),
+    # The long-context step's one hop on one card: LONGCTX_MODEL's 8192
+    # tokens at offsets (0, 0), delta given, as _RingFlash.backward calls
+    # the kernels.
+    ("one_card_hop", (1, 8192, 16, 128), "bfloat16", True, 0, 0, True),
 ]
+# The backward timed: at the train step's shape and the one-card hop.
+TIMED_BWD_CASES = ("train", "one_card_hop")
+# The rows of hop_64_192 that see no key of the block.
+UNSEEN_ROWS = {"hop_64_192": 128}
 # dQ, dK, dV against the plain version, as a fraction of the plain
 # version's largest magnitude. bf16: both round P and dS to bf16 at the
 # same points, an f32 value on a rounding boundary may round the other
@@ -267,29 +290,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, torch, *, warmup=5, runs=30, batch=10) -> float:
-    """Device time of one call of ``fn``: the median over ``runs`` of
-    ``batch`` calls enqueued back to back between two CUDA events,
-    divided by ``batch``, after ``warmup`` calls. Back to back, the
-    host enqueues the next call while the card runs this one, so the
-    wrapper's host time stays out of the reading while the card is the
-    slower of the two."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / batch)
-    return statistics.median(times)
-
-
 def _device_rows(prof, calls: int) -> list:
     """(device ms per call, kernel name, launches per call) of every
     device kernel a ``torch.profiler`` run saw, largest first. A range
@@ -308,10 +308,10 @@ def _device_rows(prof, calls: int) -> list:
     return rows
 
 
-def profiled_ms(fn, torch, *, runs=20) -> float | None:
-    """Device time per call of ``fn`` as ``torch.profiler`` reads it: the
-    kernels' own time, without host dispatch. None if the profiler saw
-    no device time."""
+def profiled(fn, torch, *, runs=20) -> tuple:
+    """Device time per call of ``fn`` as ``torch.profiler`` reads it (the
+    kernels' own time, without host dispatch; None if the profiler saw no
+    device time) and the device kernels' names, largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -321,7 +321,19 @@ def profiled_ms(fn, torch, *, runs=20) -> float | None:
             fn()
         torch.cuda.synchronize()
     rows = _device_rows(prof, runs)
-    return sum(r[0] for r in rows) if rows else None
+    return (sum(r[0] for r in rows) if rows else None,
+            [name for _, name, _ in rows])
+
+
+def sdpa_backend(kernels) -> str:
+    """Which of SDPA's backends ran, from its device kernels' names."""
+    names = " ".join(kernels).lower()
+    for backend, keys in (("cudnn", ("cudnn",)),
+                          ("flash", ("flash",)),
+                          ("efficient", ("cutlassb", "efficient", "fmha"))):
+        if any(key in names for key in keys):
+            return backend
+    return "math"
 
 
 def attention_bound_ms(shape, dtype: str, causal: bool) -> tuple:
@@ -374,18 +386,18 @@ def phase_kernels(torch, fa) -> dict:
         if name in TIMED_KERNEL_CASES:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["ms"] = time_ms(
-                lambda: fa.flash_attention_fwd(q, k, v, causal=causal), torch)
-            row["profiler_ms"] = profiled_ms(
-                lambda: fa.flash_attention_fwd(q, k, v, causal=causal), torch)
+                lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+            row["profiler_ms"] = profiled(
+                lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+                torch)[0]
             # The plain version moves ~20 GB a call at 8192: fewer runs.
             row["plain_ms"] = time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, causal=causal),
-                torch, **({} if name == "decode"
-                          else dict(warmup=1, runs=5, batch=2)))
+                **({} if name == "decode"
+                   else dict(warmup=1, runs=5, batch=2)))
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=causal),
-                torch)
+                                                       is_causal=causal))
             row["bound_ms"], row["bound_by"], row["flops"] = \
                 attention_bound_ms(shape, dtype, causal)
             _rates(row)
@@ -402,16 +414,19 @@ def phase_kernels(torch, fa) -> dict:
     return out
 
 
-def bwd_bound_ms(shape, dtype: str, causal: bool, kernel: str) -> tuple:
+def bwd_bound_ms(shape, dtype: str, causal: bool, kernel: str,
+                 delta_given: bool = False) -> tuple:
     """Least time for one backward kernel on these inputs. dQ reads q, k,
-    v, dO, o and lse and writes dq and delta (it computes delta); dK/dV
-    reads q, k, v, dO, lse and delta and writes dk and dv: six [b, s, h, d]
-    tensors and two f32 [b*h, s] rows each. Against the causal (or full)
-    products each needs: S, dP and dS K (dQ); S, dP, P^T dO and dS^T Q
-    (dK/dV)."""
+    v, dO and lse and writes dq, and either reads o and writes delta (it
+    computes delta) or reads the delta it is given; dK/dV reads q, k, v,
+    dO, lse and delta and writes dk and dv: six (or dQ with delta given,
+    five) [b, s, h, d] tensors and two f32 [b*h, s] rows each. Against the
+    causal (or full) products each needs: S, dP and dS K (dQ); S, dP,
+    P^T dO and dS^T Q (dK/dV)."""
     b, s, h, d = shape
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = 6 * b * s * h * d * elt + 2 * b * h * s * 4
+    tensors = 5 if kernel == "dq" and delta_given else 6
+    nbytes = tensors * b * s * h * d * elt + 2 * b * h * s * 4
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = (3 if kernel == "dq" else 4) * 2 * b * h * pairs * d
     return _bound(nbytes, flops, dtype)
@@ -424,42 +439,87 @@ def _max_err(got, ref) -> tuple:
     return err, (err / top if top else (0.0 if err == 0 else math.inf))
 
 
-def phase_bwd_kernels(torch, fa) -> dict:
+def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
+    """Time each backward kernel beside its plain version and its bound,
+    and SDPA's backward (dq, dk and dv together: one PyTorch call for the
+    same gradients, timed only, never on the port's path) by CUDA events
+    and by the profiler's device time, naming the backend that ran."""
     import torch.nn.functional as F
 
+    name, shape, dtype, causal, q_off, k_off, given = case
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    o_in, delta_in = (None, delta) if given else (o, None)
+    # The plain versions move ~20 GB a call at 8192 tokens: fewer runs.
+    plain_runs = {} if shape[1] <= 1024 else dict(warmup=1, runs=5, batch=2)
+    calls = {
+        "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, o_in, lse, do,
+                                                 delta=delta_in, **kw),
+               lambda: fa.flash_attention_bwd_dq_reference(
+                   q, k, v, o, lse, do, delta=delta_in, **kw)),
+        "dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
+                                                   **kw),
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, lse, do, delta, **kw))}
+    for key, (run, plain) in calls.items():
+        row[f"{key}_ms"] = time_ms(run)
+        row[f"{key}_profiler_ms"] = profiled(run, torch)[0]
+        row[f"{key}_plain_ms"] = time_ms(plain, **plain_runs)
+        (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
+         row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal, key, given)
+        _rates(row, f"{key}_")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    row["library_ms"] = time_ms(library)
+    row["library_profiler_ms"], kernels = profiled(library, torch)
+    row["library_backend"] = sdpa_backend(kernels)
+    row["library_kernels"] = [k[:80] for k in kernels[:4]]
+
+
+def phase_bwd_kernels(torch, fa) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     out = {}
-    for name, shape, dtype, causal, q_off, k_off in BWD_CASES:
+    for case in BWD_CASES:
+        name, shape, dtype, causal, q_off, k_off, given = case
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .to(getattr(torch, dtype)) for _ in range(4))
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        hop = bool(q_off or k_off)
         # A ring hop is handed the final delta; a full call computes it.
-        given = fa.attention_delta(o, do) if hop else None
+        given_delta = fa.attention_delta(o, do) if given else None
         kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
-        dq, delta = fa.flash_attention_bwd_dq(q, k, v, None if hop else o,
-                                              lse, do, delta=given, **kw)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, None if given else o,
+                                              lse, do, delta=given_delta,
+                                              **kw)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw)
         torch.cuda.synchronize()
         rdq, rdelta = fa.flash_attention_bwd_dq_reference(
-            q, k, v, o, lse, do, delta=given, **kw)
+            q, k, v, o, lse, do, delta=given_delta, **kw)
         rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, lse, do,
                                                         rdelta, **kw)
         errs = {key: _max_err(g, r) for key, g, r in (
             ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
         err_delta = (delta - rdelta).abs().max().item()
         zeros = all(bool((g == 0).all()) for g in (dq, dk, dv))
+        unseen = UNSEEN_ROWS.get(name, 0)
         ok = (all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
               and all(rel <= TOL_GRAD[dtype] for _, rel in errs.values())
               and err_delta <= TOL_DELTA
-              and (zeros if name == "hop_above" else not zeros))
+              and (zeros if name == "hop_above" else not zeros)
+              and bool((dq[:, :unseen] == 0).all()))
         row = {"phase": "bwd_kernels", "case": name, "shape": list(shape),
                "dtype": dtype, "causal": causal, "q_offset": q_off,
-               "k_offset": k_off,
+               "k_offset": k_off, "delta_given": given,
                **{f"max_err_{key}": e for key, (e, _) in errs.items()},
                **{f"rel_err_{key}": r for key, (_, r) in errs.items()},
                "max_err_delta": err_delta, "tol_rel": TOL_GRAD[dtype],
-               "all_zero": zeros, "ok": ok}
+               "all_zero": zeros, "unseen_rows_zero": unseen or None,
+               "ok": ok}
+        del rdelta
         if name == "train":
             again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
             row["bitwise_repeat"] = all(
@@ -484,46 +544,16 @@ def phase_bwd_kernels(torch, fa) -> dict:
                               and row["strided_rel_err"] <= TOL_GRAD[dtype]
                               and row["strided_bitwise_equal"])
             del qkv, sq, sk, sv, strided, again
-
-            def run_dq():
-                return fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
-
-            def run_dkv():
-                return fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
-
-            def plain_dq():
-                return fa.flash_attention_bwd_dq_reference(q, k, v, o, lse,
-                                                           do)
-
-            def plain_dkv():
-                return fa.flash_attention_bwd_dkv_reference(q, k, v, lse, do,
-                                                            delta)
-
-            for key, run, plain in (("dq", run_dq, plain_dq),
-                                    ("dkv", run_dkv, plain_dkv)):
-                row[f"{key}_ms"] = time_ms(run, torch)
-                row[f"{key}_profiler_ms"] = profiled_ms(run, torch)
-                row[f"{key}_plain_ms"] = time_ms(plain, torch)
-                (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
-                 row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal,
-                                                     key)
-                _rates(row, f"{key}_")
-            # One PyTorch call for the same gradients: SDPA's backward
-            # (dq, dk and dv together), timed only, never on the port's path.
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-            dot = do.transpose(1, 2)
-            row["library_ms"] = time_ms(
-                lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                            retain_graph=True), torch)
-            del qt, kt, vt, ot
+        del rdq, rdk, rdv
+        if name in TIMED_BWD_CASES:
+            _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta)
         emit(row)
         if not ok:
             raise AssertionError(f"backward kernels disagree with their "
                                  f"plain versions at {name}: {row}")
         out[name] = row
-    torch.cuda.empty_cache()
+        del q, k, v, do, o, lse, dq, dk, dv, delta
+        torch.cuda.empty_cache()
     return out
 
 
@@ -987,15 +1017,15 @@ def phase_partial_kernels(torch, fa) -> dict:
                                                             k_off)
 
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            row["ms"] = time_ms(run, torch)
-            row["profiler_ms"] = profiled_ms(run, torch)
+            row["ms"] = time_ms(run)
+            row["profiler_ms"] = profiled(run, torch)[0]
             # The plain version moves ~20 GB a call at 8192: fewer runs.
-            row["plain_ms"] = time_ms(plain, torch, warmup=1, runs=5,
+            row["plain_ms"] = time_ms(plain, warmup=1, runs=5,
                                       batch=2)
             # SDPA computes the same causal products and normalizes.
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True), torch)
+                                                       is_causal=True))
             row["bound_ms"], row["bound_by"], row["flops"] = \
                 partial_bound_ms(shape, dtype, q_off, k_off)
             _rates(row)
@@ -1244,7 +1274,8 @@ def main() -> int:
     compiled = _build.build()
     emit({"phase": "build", "sources": _build.sources(), "compiled": compiled,
           "build_sec": time.perf_counter() - t0,
-          "forward_sass": sass_counts(_build.library_path(fa.SOURCE)),
+          "sass": {src: sass_counts(_build.library_path(src))
+                   for src in (fa.SOURCE, fa.BWD_SOURCE)},
           "ptxas": [line.strip() for log in _build.BUILD_LOG.values()
                     for line in log.splitlines()
                     if "registers" in line or "spill" in line
@@ -1272,6 +1303,9 @@ def main() -> int:
     hop = partial["one_card_hop"]
     timed = ("ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "bound_share", "tflops")
+    kernel_timed = ("ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_share", "tflops")
+    library_timed = ("library_ms", "library_profiler_ms", "library_backend")
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -1294,13 +1328,12 @@ def main() -> int:
                               for row in bwd_rows.values() for out in outs),
            "max_rel_err": max(row[f"rel_err_{out}"]
                               for row in bwd_rows.values() for out in outs),
-           "ms": bwd[f"{key}_ms"], "profiler_ms": bwd[f"{key}_profiler_ms"],
-           "plain_ms": bwd[f"{key}_plain_ms"],
-           "bound_ms": bwd[f"{key}_bound_ms"],
-           "bound_by": bwd[f"{key}_bound_by"],
-           "bound_share": bwd[f"{key}_bound_share"],
-           "tflops": bwd[f"{key}_tflops"],
-           "library_ms": bwd["library_ms"],
+           **{k: bwd[f"{key}_{k}"] for k in kernel_timed},
+           **{k: bwd[k] for k in library_timed},
+           "at": {case: {**{k: bwd_rows[case][f"{key}_{k}"]
+                            for k in kernel_timed},
+                         **{k: bwd_rows[case][k] for k in library_timed}}
+                  for case in TIMED_BWD_CASES},
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)"}
           for key, line, outs in (("dq", 167, ("dq",)),

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` holds kernels behind a plain ``extern "C"`` launcher,
 so ``nvcc`` compiles it in seconds without PyTorch's headers. The shared
 library lands in ``<repo>/build/kubeflow_tpu_torch/`` under a name keyed
-by a hash of the source and the flags: an edited source builds anew, an
-unchanged one is loaded as it is. :func:`build` starts one ``nvcc`` per
+by a hash of the source, the headers beside it (``*.cuh``, which the
+sources include) and the flags: an edited source or header builds anew,
+an unchanged one is loaded as it is. :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for them together. A source may also be
 built from another directory (an older checkout's, to compare two kernels
 in one process); other bytes make another library.
@@ -45,7 +46,10 @@ def _nvcc() -> str:
 def library_path(source: str, csrc: Path = CSRC) -> Path:
     """Where the library built from ``<csrc>/<source>`` lives."""
     src = Path(csrc) / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(Path(csrc).glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

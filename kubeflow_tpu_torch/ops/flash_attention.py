@@ -8,8 +8,9 @@ package joins them by ``jax.custom_vjp``, and the ring hop's partial
 forward (``_partial_kernel``, :func:`flash_attention_partial`), whose
 backward is :func:`flash_attention_partial_grads` on the backward kernels.
 The CUDA sources are ``csrc/flash_attention_fwd.cu`` (the forward and the
-partial share its loop) and ``csrc/flash_attention_bwd.cu``; their headers
-state each kernel's bound on an H100 and what the design does about it.
+partial share its loop) and ``csrc/flash_attention_bwd.cu``, built on the
+Hopper helpers of ``csrc/hopper.cuh``; their headers state each kernel's
+bound on an H100 and what the design does about it.
 
 Dispatch is by the tensors' device. A CUDA tensor launches the kernel
 (built from the source at first use, see :mod:`._build`) or raises; it
@@ -294,7 +295,8 @@ def attention_delta(o, do) -> torch.Tensor:
     delta (a plain sum outside the TPU kernels; fused into the dQ kernel
     on the card)."""
     b, s, h, _ = o.shape
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, s).contiguous()  # at b = 1 the reshape is a strided view
 
 
 def flash_attention_bwd_dq_reference(q, k, v, o, lse, do, *,
@@ -344,8 +346,10 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *,
     return dq, dk, dv
 
 
-def _bwd_library() -> ctypes.CDLL:
-    lib = _build.load(BWD_SOURCE)
+def _bwd_library(lib: ctypes.CDLL | None = None) -> ctypes.CDLL:
+    """The backward library, its entry points typed; ``lib`` replaces
+    the one built from ``csrc/`` as in :func:`_library`."""
+    lib = _build.load(BWD_SOURCE) if lib is None else lib
     if lib.kftpu_flash_attention_bwd_dq.argtypes is None:
         strides = ctypes.POINTER(ctypes.c_longlong)
         lib.kftpu_flash_attention_bwd_dq.argtypes = (
@@ -383,7 +387,7 @@ def _check_stats_contiguous(lse, delta) -> None:
 
 
 def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
-               k_offset):
+               k_offset, lib=None):
     global BWD_DQ_LAUNCHES
     _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v), ("dO", do), ("o", o)):
@@ -396,7 +400,7 @@ def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
         delta = torch.empty((b * h, s_q), dtype=torch.float32,
                             device=q.device)
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
-    lib = _bwd_library()
+    lib = _bwd_library(lib)
     with _on_device(q.device) as stream:
         err = lib.kftpu_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(o), do.data_ptr(),
@@ -409,7 +413,8 @@ def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
     return dq, delta
 
 
-def _launch_dkv(q, k, v, lse, do, delta, causal, scale, q_offset, k_offset):
+def _launch_dkv(q, k, v, lse, do, delta, causal, scale, q_offset, k_offset,
+                lib=None):
     global BWD_DKV_LAUNCHES
     _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
@@ -418,7 +423,7 @@ def _launch_dkv(q, k, v, lse, do, delta, causal, scale, q_offset, k_offset):
     b, s_q, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    lib = _bwd_library()
+    lib = _bwd_library(lib)
     with _on_device(q.device) as stream:
         err = lib.kftpu_flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

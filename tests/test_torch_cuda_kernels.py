@@ -81,6 +81,16 @@ BWD_CASES = {
     "hop_below": ((2, 256, 4, 128), torch.bfloat16, True, 256, 0),
     "hop_diagonal": ((2, 256, 4, 128), torch.bfloat16, True, 256, 256),
     "hop_above": ((2, 256, 4, 128), torch.bfloat16, True, 0, 256),
+    # Across the kernels' tiles (128 owned rows, 64 streamed): 1.5 Q tiles
+    # and 3 key tiles; 2.5 tiles, full; an lse/delta row of 77 floats,
+    # whose pitch is no multiple of 16 bytes.
+    "straddle_causal": ((2, 192, 4, 128), torch.bfloat16, True, 0, 0),
+    "straddle_full_d64": ((1, 320, 2, 64), torch.bfloat16, False, 0, 0),
+    "ragged_causal": ((1, 77, 2, 128), torch.bfloat16, True, 0, 0),
+    # Hops whose diagonal falls half-way into a 128-row tile: every row
+    # sees a key at (192, 64); rows 0-127 see none at (64, 192).
+    "hop_192_64": ((2, 256, 4, 128), torch.bfloat16, True, 192, 64),
+    "hop_64_192": ((2, 256, 4, 128), torch.bfloat16, True, 64, 192),
 }
 
 
@@ -121,6 +131,8 @@ def test_backward_kernels_match_plain_version(cuda, case):
     _assert_grads_close(got, ref, dtype)
     if case == "hop_above":   # no key of the block reaches any query
         assert all(bool((g == 0).all()) for g in got)
+    if case == "hop_64_192":  # rows 0-127 see no key: their dq is zero
+        assert bool((got[0][:, :128] == 0).all())
 
 
 @pytest.mark.cuda

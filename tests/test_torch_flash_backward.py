@@ -41,8 +41,11 @@ CASES = {
     "bf16_causal": ((2, 128, 2, 128), "bfloat16", True),
 }
 # One ring hop of 128-row blocks: the K block below the diagonal, on it,
-# and above it (no key reaches any query: all three gradients are zero).
-HOPS = {"below": (128, 0), "diagonal": (128, 128), "above": (0, 128)}
+# and above it (no key reaches any query: all three gradients are zero);
+# and offsets whose diagonal crosses the middle of the block: at (64, 0)
+# every row sees a key, at (0, 64) rows 0-63 see none (their dq is zero).
+HOPS = {"below": (128, 0), "diagonal": (128, 128), "above": (0, 128),
+        "mid_below": (64, 0), "mid_above": (0, 64)}
 
 
 def _inputs(shape, dtype, n=4, seed=0):
@@ -95,6 +98,8 @@ def test_partial_grads_match_jax_at_each_hop(hop, dtype):
     _assert_close(got, ref, dtype)
     if hop == "above":
         assert all(bool((g == 0).all()) for g in got)
+    if hop == "mid_above":
+        assert bool((got[0][:, :64] == 0).all())
 
 
 def test_cpu_backward_is_the_function_running_the_plain_version(monkeypatch):
