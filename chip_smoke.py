@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and long-context training
-paths on one NVIDIA GPU and hold its kernels against their plain versions.
+"""Drive the PyTorch port's serving, training, long-context training and
+MoE training paths on one NVIDIA GPU and hold its kernels against their
+plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -82,10 +83,29 @@ last line. With no CUDA device it exits 1 and prints no result.
    zero: one partial, one dQ and one dK/dV launch per layer and step, no
    forward launch. Then one step each of ``"ulysses_flash"`` (the forward,
    dQ and dK/dV kernels) and the dense ``"ring"``.
+14. head_dims (run after bwd_kernels) — the four kernels at head dims 16
+   and 32, bf16 and f32, causal and full, against their plain versions at
+   the tolerances above, one case also through qkv column slices (bitwise
+   equal); at a d = 32 training shape [8, 1024, 64, 32] the forward, dQ
+   and dK/dV timed beside their bounds, plain versions and SDPA.
+15. moe_grads — ``MOE_MODEL`` (bench.py's, uncut) at batch 8: the loss
+   of ``attention="flash"`` against the dense path, the share of tokens
+   whose top-1 expert differs between the two, and the gradients against
+   a dense arm routed as the flash arm was, within stated bounds.
+16. moe_default — ``MoEConfig()`` (head_dim 32) at ``attention="flash"``:
+   the loss and gradients against the dense path on the same routing,
+   then one train step.
+17. moe — the MoE main path, as bench.py's ``_family_bench`` runs it on
+   one chip: ``moe.make_train_step`` at ``MOE_MODEL``, batch 8,
+   ``mesh=None``, 2 warm-up steps, 40 steps in 4 chunks of 10 each ending
+   in a host sync, 3 profiled steps with the router, seat table,
+   dispatch, expert GEMMs and combine booked apart; launches counted from
+   zero: one forward, one dQ and one dK/dV launch per layer and step.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
-path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, and
-``at`` both timed shapes), the card line, and the result line.
+path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
+every timed shape, the d = 32 one included, and ``launches_by_path``
+with ``moe``), the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -97,6 +117,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from functools import partial
 from pathlib import Path
@@ -244,6 +265,48 @@ RING_SHARDS = 4
 # value) before the f32 sum, where the one-shot kernels round once: 2e-2
 # of the largest magnitude.
 TOL_RING_GRAD = 2e-2
+
+# Narrow heads, as the JAX package's config defaults give them (d_model 128
+# over 4 heads: 32) and bench.py's MC_LONGCTX_MODEL (16): (name, [b, s, h,
+# d], dtype, causal), each through the forward, dQ and dK/dV, and (causal)
+# the partial at a hop below and on the diagonal, at the tolerances above
+# (TOL_O, TOL_LSE, TOL_GRAD, TOL_PARTIAL_*). Causal cases span 2.5 of the
+# kernels' 128-row tiles; full cases are ragged.
+HEAD_DIM_CASES = [
+    (f"d{d}_{dtype}_{'causal' if causal else 'full'}",
+     (2, 320, 4, d) if causal else (1, 200, 3, d), dtype, causal)
+    for d in (16, 32) for dtype in ("bfloat16", "float32")
+    for causal in (True, False)]
+# The case whose q, k, v are also read as column slices of one qkv tensor,
+# as burnin._attention hands them over (heads d elements apart).
+HEAD_DIM_STRIDED = "d32_bfloat16_causal"
+# Timed: a d = 32 training shape (b*h = 512 heads of 1024 tokens).
+HEAD_DIM_TIMED = ("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0,
+                  False)
+
+# The MoE config: bench.py's MOE_MODEL uncut (bench.py:616-620; top-2 of 8
+# experts at capacity factor 1.0, flash attention at head_dim 128), batch
+# 8 on one card (mesh=None: _family_bench's 1x1 mesh), bf16.
+MOE_MODEL = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=4,
+                 d_ff=8192, seq_len=1025, n_experts=8, router_top_k=2,
+                 attention="flash", capacity_factor=1.0, dtype="bfloat16")
+MOE_BATCH = 8
+MOE_WARMUP, MOE_CHUNKS, MOE_CHUNK_STEPS, MOE_PROFILED = 2, 4, 10, 3
+# Flash vs dense MoE gradients. Routing is discontinuous: a token whose top
+# choices are within a bf16 ulp flips expert when attention rounds
+# elsewhere, and its gradient changes wholesale; measured with the plain
+# versions on the CPU (bf16, d_model 512, 8 experts, top-2, cf 1.0, 4
+# layers): 0.4-1% of top-1 choices flip a layer, and the free arms'
+# gradient cosines fall to 0.86 (non-expert) and 0.94 (expert leaves)
+# with the loss 5e-4 apart. So the loss is held on the free arms, and the
+# gradients on a dense arm that takes the flash arm's routing (measured
+# there: cosine >= 0.99985 on every leaf): non-expert leaves at
+# MIN_GRAD_COSINE, expert leaves at MIN_EXPERT_GRAD_COSINE (fixed before
+# the first chip run), every leaf at TOL_GRAD_REL_L2.
+MIN_EXPERT_GRAD_COSINE = 0.995
+# MoEConfig() as the JAX package defines it (head_dim 32) at
+# attention="flash": one train step, batch 8.
+MOE_DEFAULT_BATCH = 8
 
 
 # Device kernels by what they do, for the profiled steps' breakdown: the
@@ -557,6 +620,112 @@ def phase_bwd_kernels(torch, fa) -> dict:
     return out
 
 
+def phase_head_dims(torch, fa) -> dict:
+    """The four kernels at head dims 16 and 32 against their plain
+    versions; one case also through qkv column slices (bitwise equal to
+    the contiguous case); the forward, dQ and dK/dV timed at a d = 32
+    training shape beside their bounds, their plain versions and SDPA."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "partial": 0.0}
+    for name, shape, dtype, causal in HEAD_DIM_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        before = _launch_counts(fa)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+        grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal=causal)
+        ref = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                               causal=causal)
+        hops = {}
+        if causal:  # a hop below the diagonal and one on it
+            for q_off, k_off in ((shape[1], 0), (0, 0)):
+                hops[f"partial_{q_off}_{k_off}"] = _partial_errors(
+                    fa.flash_attention_partial(q, k, v, q_off, k_off),
+                    fa.flash_attention_partial_reference(q, k, v, q_off,
+                                                         k_off))
+        torch.cuda.synchronize()
+        launches = {key: n - before[key]
+                    for key, n in _launch_counts(fa).items()}
+        errs = {key: _max_err(g, r)
+                for key, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+        err_o = (o.float() - ro.float()).abs().max().item()
+        err_lse = (lse - rlse).abs().max().item()
+        ok = (all(bool(torch.isfinite(t).all()) for t in (o, *grads))
+              and err_o <= TOL_O[dtype] and err_lse <= TOL_LSE
+              and all(rel <= TOL_GRAD[dtype] for _, rel in errs.values())
+              and all(e["rel_err_acc"] <= TOL_PARTIAL_ACC[dtype]
+                      and e["max_err_m"] <= TOL_PARTIAL_M
+                      and e["rel_err_l"] <= TOL_PARTIAL_L
+                      for e in hops.values())
+              and launches == {"fwd": 1, "dq": 1, "dkv": 1,
+                               "partial": len(hops)})
+        row = {"phase": "head_dims", "case": name, "shape": list(shape),
+               "dtype": dtype, "causal": causal, "max_err_o": err_o,
+               "max_err_lse": err_lse,
+               **{f"max_err_{key}": e for key, (e, _) in errs.items()},
+               **{f"rel_err_{key}": r for key, (_, r) in errs.items()},
+               **hops, "launches": launches, "tol_o": TOL_O[dtype],
+               "tol_lse": TOL_LSE, "tol_rel": TOL_GRAD[dtype], "ok": ok}
+        if name == HEAD_DIM_STRIDED:
+            b, s, h, d = shape
+            qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
+            sq, sk, sv = (t.reshape(b, s, h, d)
+                          for t in qkv.split(h * d, dim=-1))
+            outs = [(fa.flash_attention_fwd(sq, sk, sv),
+                     fa.flash_attention_fwd(q, k, v)),
+                    (fa.flash_attention_bwd(sq, sk, sv, ro, rlse, do),
+                     fa.flash_attention_bwd(q, k, v, ro, rlse, do)),
+                    (fa.flash_attention_partial(sq, sk, sv, s, 0),
+                     fa.flash_attention_partial(q, k, v, s, 0))]
+            same = all(torch.equal(a, c) for got, want in outs
+                       for a, c in zip(got, want))
+            row["strided_head_stride"] = sq.stride(2)
+            row["strided_bitwise_equal"] = same
+            ok = row["ok"] = ok and same and sq.stride(2) == d
+            del qkv, sq, sk, sv, outs
+        emit(row)
+        if not ok:
+            raise AssertionError(f"head-dim case {name} failed: {row}")
+        worst["fwd"] = max(worst["fwd"], err_o)
+        worst["dq"] = max(worst["dq"], errs["dq"][0])
+        worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        worst["partial"] = max([worst["partial"]]
+                               + [e["max_err_acc"] for e in hops.values()])
+        del q, k, v, do, o, lse, ro, rlse, grads, ref
+    torch.cuda.empty_cache()
+
+    case = HEAD_DIM_TIMED
+    name, shape, dtype, causal = case[:4]
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(getattr(torch, dtype)) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa.attention_delta(o, do)
+    row = {"phase": "head_dims_timed", "case": name, "shape": list(shape),
+           "dtype": dtype, "causal": causal}
+
+    def run():
+        return fa.flash_attention_fwd(q, k, v, causal=causal)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row["fwd_ms"] = time_ms(run)
+    row["fwd_profiler_ms"] = profiled(run, torch)[0]
+    row["fwd_plain_ms"] = time_ms(
+        lambda: fa.flash_attention_reference(q, k, v, causal=causal),
+        warmup=1, runs=5, batch=2)
+    row["fwd_library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    row["fwd_bound_ms"], row["fwd_bound_by"], row["fwd_flops"] = \
+        attention_bound_ms(shape, dtype, causal)
+    _rates(row, "fwd_")
+    _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta)
+    emit(row)
+    del q, k, v, do, o, lse, delta, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "timed": row}
+
+
 def phase_model(torch, fa, burnin) -> None:
     cfg = burnin.BurninConfig(**MODEL)
     dense = replace(cfg, attention="xla")
@@ -598,9 +767,69 @@ def phase_model(torch, fa, burnin) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_steps(torch, fn, steps: int = 3) -> dict:
+def _stage_kernel_ms(prof, steps: int) -> dict:
+    """{(stage, kernel name): [device ms, launches] per step} of the
+    kernels run inside a ``kftpu.moe_<stage>`` range of parallel/moe.py,
+    forward and backward. A forward op belongs to the range around it; a
+    backward op (under an ``autograd::engine::evaluate_function`` event)
+    to the range of the forward op whose autograd node it runs, matched by
+    sequence number (the last forward op to hold a number is the one that
+    made its node)."""
+    prefix = "kftpu.moe_"
+
+    def stage_of(ev):
+        while ev is not None:
+            if ev.name.startswith(prefix) and ev.name[len(prefix):] in \
+                    MOE_STAGES:
+                return ev.name[len(prefix):]
+            ev = ev.cpu_parent
+        return None
+
+    def node_of(ev):
+        while ev is not None:
+            if ev.name.startswith("autograd::engine::evaluate_function"):
+                return ev
+            ev = ev.cpu_parent
+        return None
+
+    cpu = sorted((ev for ev in prof.events()
+                  if ev.device_type.name == "CPU"),
+                 key=lambda ev: ev.time_range.start)
+    by_seq = {}
+    for ev in cpu:
+        if ev.sequence_nr >= 0 and node_of(ev) is None:
+            by_seq[ev.sequence_nr] = stage_of(ev)
+    out = {}
+    for ev in cpu:
+        if not ev.kernels:
+            continue
+        node = node_of(ev)
+        stage = stage_of(ev) if node is None else by_seq.get(node.sequence_nr)
+        if stage is None:
+            continue
+        for kernel in ev.kernels:
+            total = out.setdefault((stage, kernel.name), [0.0, 0])
+            total[0] += kernel.duration / 1e3 / steps
+            total[1] += 1
+    return out
+
+
+# The MoE layer's stages (parallel/moe.py's profiler ranges) and the name
+# each takes in a breakdown; the expert FFN's GEMMs stand apart from its
+# GELU and weight casts.
+MOE_STAGES = {"router": "moe router (logits GEMM, softmax, top-k, seats)",
+              "seat_table": "moe seat table",
+              "dispatch": "moe dispatch (gather)",
+              "expert_ffn": "moe expert GELU and weight casts",
+              "combine": "moe combine (gather, gates)"}
+MOE_EXPERT_GEMMS = "moe expert GEMMs"
+
+
+def profile_steps(torch, fn, steps: int = 3, moe_stages: bool = False) -> dict:
     """Device time by kernel over ``steps`` calls of ``fn`` (one step
-    each), host clock around them ending in a device sync."""
+    each), host clock around them ending in a device sync. With
+    ``moe_stages``, the kernels of each MoE stage (forward and backward)
+    are booked to it before the rest go by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -612,22 +841,42 @@ def profile_steps(torch, fn, steps: int = 3) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = _device_rows(prof, steps)
     busy_ms = sum(r[0] for r in rows)
+    staged = _stage_kernel_ms(prof, steps) if moe_stages else {}
+    gemm_keys = dict(KERNEL_CATEGORIES)["GEMMs (cuBLAS)"]
     by_category = {}
-    for ms, name, calls in rows:
-        category = next((cat for cat, keys in KERNEL_CATEGORIES
-                         if any(key in name for key in keys)),
-                        "other elementwise")
+
+    def book(category, ms, calls):
         total = by_category.setdefault(category, [0.0, 0])
         total[0] += ms
         total[1] += calls
-    return {"wall_ms_per_step": wall_ms,
-            "device_busy_ms_per_step": busy_ms,
-            "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
-            "by_category": {cat: {"ms_per_step": round(ms, 4),
-                                  "calls_per_step": calls}
-                            for cat, (ms, calls) in by_category.items()},
-            "top_kernels": [{"name": k[:90], "ms_per_step": round(ms, 4),
-                             "calls_per_step": n} for ms, k, n in rows[:12]]}
+
+    for ms, name, calls in rows:
+        for (stage, kernel), (stage_ms, stage_calls) in staged.items():
+            if kernel != name:
+                continue
+            category = MOE_STAGES[stage]
+            if stage == "expert_ffn" and any(k in name for k in gemm_keys):
+                category = MOE_EXPERT_GEMMS
+            stage_ms = min(stage_ms, ms)
+            book(category, stage_ms, stage_calls // steps)
+            ms, calls = ms - stage_ms, max(0, calls - stage_calls // steps)
+        if ms <= 0:
+            continue
+        book(next((cat for cat, keys in KERNEL_CATEGORIES
+                   if any(key in name for key in keys)),
+                  "other elementwise"), ms, calls)
+    out = {"wall_ms_per_step": wall_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
+           "by_category": {cat: {"ms_per_step": round(ms, 4),
+                                 "calls_per_step": calls}
+                           for cat, (ms, calls) in sorted(
+                               by_category.items(), key=lambda x: -x[1][0])},
+           "top_kernels": [{"name": k[:90], "ms_per_step": round(ms, 4),
+                            "calls_per_step": n} for ms, k, n in rows[:12]]}
+    if moe_stages:
+        out["moe_stage_ms_per_step"] = sum(v[0] for v in staged.values())
+    return out
 
 
 def phase_serving(torch, fa, burnin, engine_mod, loadgen) -> dict:
@@ -1249,15 +1498,246 @@ def phase_longctx(torch, fa, longctx, card: str) -> dict:
     return by_path
 
 
+def moe_train_step_flops(cfg, batch: int) -> float:
+    """Analytic matmul FLOPs of one MoE train step, as bench.py's
+    moe_train_step_flops counts them: the dense products, the router, the
+    k routed experts a token is credited with (not the capacity-padded
+    seats), the causal half of attention, on the seq_len - 1 positions
+    the loss trains; forward + backward = 3x the forward."""
+    s = cfg.seq_len - 1
+    d, ff, v, k = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.router_top_k
+    per_token_layer = (2 * d * 3 * d + 2 * d * d + 2 * d * cfg.n_experts
+                       + k * (2 * d * ff + 2 * ff * d))
+    per_layer_attn = 2 * batch * s * s * d
+    fwd = (batch * s * (cfg.n_layers * per_token_layer + 2 * d * v)
+           + cfg.n_layers * per_layer_attn)
+    return 3.0 * fwd
+
+
+@contextmanager
+def recorded_routing(pmoe):
+    """Record the top-k choices of every MoE layer the block runs, in
+    order (a list of [T, k] index tensors)."""
+    top_k, calls = pmoe.top_k, []
+
+    def recording(probs, k):
+        values, idx = top_k(probs, k)
+        calls.append(idx)
+        return values, idx
+
+    pmoe.top_k = recording
+    try:
+        yield calls
+    finally:
+        pmoe.top_k = top_k
+
+
+@contextmanager
+def pinned_routing(pmoe, calls):
+    """Route every MoE layer the block runs by the recorded choices (the
+    gates still come from this arm's own probabilities): a comparison of
+    two attention paths without the routing flips between them."""
+    top_k, replay = pmoe.top_k, iter(calls)
+
+    def pinned(probs, k):
+        idx = next(replay)
+        return probs.gather(1, idx), idx
+
+    pmoe.top_k = pinned
+    try:
+        yield
+    finally:
+        pmoe.top_k = top_k
+
+
+def _moe_inputs(torch, moe, cfg, batch: int, seed: int):
+    params = moe.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
+                           device="cuda")
+    return params, tokens
+
+
+def _pinned_gaps(torch, params, grads, ref) -> dict:
+    """The gradient gaps of a flash arm against a dense arm on the same
+    routing: the least cosine of the non-expert and of the expert leaves,
+    the largest rel L2, and whether each is in its bound."""
+    leaves, worst, _ = _grad_gaps(torch, params, grads, ref)
+    plain = [x for x in leaves if "expert" not in x["leaf"]]
+    expert = [x for x in leaves if "expert" in x["leaf"]]
+    least = min(plain, key=lambda x: x["cosine"])
+    least_expert = min(expert, key=lambda x: x["cosine"])
+    return {"min_cosine": least["cosine"], "min_cosine_leaf": least["leaf"],
+            "min_expert_cosine": least_expert["cosine"],
+            "min_expert_cosine_leaf": least_expert["leaf"],
+            "worst_rel_l2": worst["rel_l2"],
+            "worst_rel_l2_leaf": worst["leaf"],
+            "ok": (all(x["finite"] for x in leaves)
+                   and least["cosine"] >= MIN_GRAD_COSINE
+                   and least_expert["cosine"] >= MIN_EXPERT_GRAD_COSINE
+                   and worst["rel_l2"] <= TOL_GRAD_REL_L2)}
+
+
+def phase_moe_grads(torch, fa, moe, pmoe, tree) -> None:
+    """MOE_MODEL at batch 8: the loss and gradients with attention="flash"
+    against the dense path. The free arms give the loss and the share of
+    tokens whose top-1 expert differs; the gradients are held on a dense
+    arm routed as the flash arm was (see MIN_EXPERT_GRAD_COSINE)."""
+    cfg = moe.MoEConfig(**MOE_MODEL)
+    dense = replace(cfg, attention="xla")
+    params, tokens = _moe_inputs(torch, moe, cfg, MOE_BATCH, seed=0)
+    before = _launch_counts(fa)
+    with recorded_routing(pmoe) as flash_routes:
+        loss, grads = tree.value_and_grad(moe.loss_fn, params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launch_counts(fa).items()}
+    with recorded_routing(pmoe) as dense_routes:
+        free_loss, free = tree.value_and_grad(moe.loss_fn, params, tokens,
+                                              dense)
+    flips = [float((a[:, 0] != b[:, 0]).float().mean())
+             for a, b in zip(flash_routes, dense_routes)]
+    _, free_worst, free_least = _grad_gaps(torch, params, grads, free)
+    del free
+    with pinned_routing(pmoe, flash_routes):
+        pinned_loss, pinned = tree.value_and_grad(moe.loss_fn, params,
+                                                  tokens, dense)
+    gaps = _pinned_gaps(torch, params, grads, pinned)
+    row = {"phase": "moe_grads", "config": MOE_MODEL, "batch": MOE_BATCH,
+           "loss_flash": float(loss), "loss_dense": float(free_loss),
+           "loss_diff": float(loss) - float(free_loss),
+           "loss_dense_pinned": float(pinned_loss),
+           "top1_flip_share_by_layer": flips,
+           "top1_flip_share": sum(flips) / len(flips),
+           "free_min_cosine": free_least["cosine"],
+           "free_min_cosine_leaf": free_least["leaf"],
+           "free_worst_rel_l2": free_worst["rel_l2"],
+           "pinned": gaps, "tol_loss": TOL_TRAIN_LOSS,
+           "min_cosine_bound": MIN_GRAD_COSINE,
+           "min_expert_cosine_bound": MIN_EXPERT_GRAD_COSINE,
+           "tol_rel_l2": TOL_GRAD_REL_L2, "launches": launches,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(row)
+    if not (math.isfinite(row["loss_flash"])
+            and abs(row["loss_diff"]) <= TOL_TRAIN_LOSS and gaps["ok"]
+            and launches == _burnin_counts(cfg.n_layers)):
+        raise AssertionError(f"flash and dense MoE gradients disagree: "
+                             f"{row}")
+    del params, grads, pinned
+    torch.cuda.empty_cache()
+
+
+def phase_moe_default(torch, fa, moe, pmoe, tree) -> dict:
+    """MoEConfig() as the JAX package defines it, at attention="flash"
+    (head_dim 32) on the card: its loss and gradients against the dense
+    path on the same routing, then one train step."""
+    cfg = moe.MoEConfig(attention="flash")
+    dense = replace(cfg, attention="xla")
+    params, tokens = _moe_inputs(torch, moe, cfg, MOE_DEFAULT_BATCH, seed=4)
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)              # ---- the path starts here
+    with recorded_routing(pmoe) as routes:
+        loss, grads = tree.value_and_grad(moe.loss_fn, params, tokens, cfg)
+    params, step_loss = moe.make_train_step(cfg)(params, tokens)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the path ends here
+    with pinned_routing(pmoe, routes):
+        ref_loss, ref = tree.value_and_grad(
+            moe.loss_fn, moe.init_params(cfg, seed=4, device="cuda"),
+            tokens, dense)
+    gaps = _pinned_gaps(torch, params, grads, ref)
+    row = {"phase": "moe_default", "config": "MoEConfig(attention='flash')",
+           "head_dim": cfg.head_dim, "batch": MOE_DEFAULT_BATCH,
+           "loss_flash": float(loss), "loss_dense_pinned": float(ref_loss),
+           "loss_diff": float(loss) - float(ref_loss),
+           "step_loss": float(step_loss), "pinned": gaps,
+           "params_finite": all(bool(torch.isfinite(t).all())
+                                for t in tree.leaves(params)),
+           "launches": launches,
+           "launches_expected": _burnin_counts(2 * cfg.n_layers)}
+    emit(row)
+    if not (abs(row["loss_diff"]) <= TOL_TRAIN_LOSS and gaps["ok"]
+            and row["step_loss"] == row["loss_flash"]
+            and row["params_finite"]
+            and launches == _burnin_counts(2 * cfg.n_layers)):
+        raise AssertionError(f"moe_default phase failed: {row}")
+    del params, grads, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(torch, fa, moe, card: str) -> dict:
+    """The MoE main path, as bench.py's _family_bench runs it on one chip:
+    ``moe.make_train_step`` at MOE_MODEL, batch 8, mesh=None, timed as
+    phase_train times its step, then 3 profiled steps with the MoE layer's
+    stages booked apart."""
+    cfg = moe.MoEConfig(**MOE_MODEL)
+    params, tokens = _moe_inputs(torch, moe, cfg, MOE_BATCH, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    step = moe.make_train_step(cfg)
+    t0 = time.perf_counter()
+    params, loss = step(params, tokens)
+    first_loss = float(loss)
+    for _ in range(MOE_WARMUP - 1):
+        params, loss = step(params, tokens)
+    float(loss)
+    warmup_sec = time.perf_counter() - t0
+    chunk_ms = []
+    t1 = time.perf_counter()
+    for _ in range(MOE_CHUNKS):
+        tc = time.perf_counter()
+        for _ in range(MOE_CHUNK_STEPS):
+            params, loss = step(params, tokens)
+        float(loss)
+        chunk_ms.append((time.perf_counter() - tc) * 1e3 / MOE_CHUNK_STEPS)
+    steps = MOE_CHUNKS * MOE_CHUNK_STEPS
+    step_ms = (time.perf_counter() - t1) * 1e3 / steps
+    last_loss = float(loss)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_steps(torch, lambda: step(params, tokens), MOE_PROFILED,
+                         moe_stages=True)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    run = MOE_WARMUP + steps + MOE_PROFILED
+    flops = moe_train_step_flops(cfg, MOE_BATCH)
+    tflops = flops / (step_ms / 1e3) / 1e12
+    spread = sorted(chunk_ms)
+    row = {"phase": "moe", "config": MOE_MODEL, "batch": MOE_BATCH,
+           "mesh": None, "card": card, "warmup_steps": MOE_WARMUP,
+           "warmup_sec": warmup_sec, "steps": steps, "step_ms": step_ms,
+           "chunk_step_ms": chunk_ms,
+           "step_spread_pct": 100.0 * (spread[-1] - spread[0])
+           / statistics.median(spread),
+           "flops_per_step": flops, "tflops": tflops,
+           "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
+           "tokens_per_sec": MOE_BATCH * (cfg.seq_len - 1) / (step_ms / 1e3),
+           "loss_first": first_loss, "loss_last": last_loss,
+           "launches": launches,
+           "launches_expected": _burnin_counts(cfg.n_layers * run),
+           "do_copies": fa.DO_COPIES,
+           "max_memory_allocated_bytes": peak, "profile": prof}
+    emit(row)
+    if not (math.isfinite(first_loss) and math.isfinite(last_loss)
+            and last_loss < first_loss
+            and launches == _burnin_counts(cfg.n_layers * run)):
+        raise AssertionError(f"moe phase failed: {row}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from kubeflow_tpu_torch.models import burnin, longctx, trainer, tree
+    from kubeflow_tpu_torch.models import burnin, longctx, moe, trainer, tree
     from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import moe as pmoe
     from kubeflow_tpu_torch.parallel import ring
     from kubeflow_tpu_torch.serving import engine as engine_mod
     from kubeflow_tpu_torch.serving import loadgen
@@ -1284,6 +1764,8 @@ def main() -> int:
     kernels = phase_kernels(torch, fa)
     bwd_rows = phase_bwd_kernels(torch, fa)
     bwd = bwd_rows["train"]
+    head_dims = phase_head_dims(torch, fa)
+    narrow, narrow_timed = head_dims["max_abs_err"], head_dims["timed"]
     phase_model(torch, fa, burnin)
     by_path = {"serving": {"fwd": phase_serving(
         torch, fa, burnin, engine_mod, loadgen)["launches"]}}
@@ -1294,6 +1776,9 @@ def main() -> int:
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)
     by_path.update(phase_longctx(torch, fa, longctx, card))
+    phase_moe_grads(torch, fa, moe, pmoe, tree)
+    by_path["moe_default"] = phase_moe_default(torch, fa, moe, pmoe, tree)
+    by_path["moe"] = phase_moe(torch, fa, moe, card)
 
     def launches(kernel):
         return {path: counts.get(kernel, 0)
@@ -1312,28 +1797,35 @@ def main() -> int:
          "replaces": "kubeflow_tpu/ops/flash_attention.py:67",
          "launches": sum(launches("fwd").values()),
          "launches_by_path": launches("fwd"),
-         "max_abs_err": max(row["max_err_o"] for row in kernels.values()),
+         "max_abs_err": max([row["max_err_o"] for row in kernels.values()]
+                            + [narrow["fwd"]]),
          "max_err_o": max(row["max_err_o"] for row in kernels.values()),
+         "max_err_o_head_dims_16_32": narrow["fwd"],
          "max_err_lse": max(row["max_err_lse"] for row in kernels.values()),
          **{key: decode[key] for key in timed},
-         "at": {name: {key: kernels[name][key] for key in timed}
-                for name in TIMED_KERNEL_CASES},
+         "at": {**{name: {key: kernels[name][key] for key in timed}
+                   for name in TIMED_KERNEL_CASES},
+                HEAD_DIM_TIMED[0]: {key: narrow_timed[f"fwd_{key}"]
+                                    for key in timed}},
          "tensor_map_encode_us": decode["tensor_map_encode_us"]},
         *({"name": f"flash_attention_bwd_{key}", "route": "cuda",
            "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
            "replaces": f"kubeflow_tpu/ops/flash_attention.py:{line}",
            "launches": sum(launches(key).values()),
            "launches_by_path": launches(key),
-           "max_abs_err": max(row[f"max_err_{out}"]
-                              for row in bwd_rows.values() for out in outs),
+           "max_abs_err": max([row[f"max_err_{out}"]
+                               for row in bwd_rows.values() for out in outs]
+                              + [narrow[key]]),
+           "max_abs_err_head_dims_16_32": narrow[key],
            "max_rel_err": max(row[f"rel_err_{out}"]
                               for row in bwd_rows.values() for out in outs),
            **{k: bwd[f"{key}_{k}"] for k in kernel_timed},
            **{k: bwd[k] for k in library_timed},
-           "at": {case: {**{k: bwd_rows[case][f"{key}_{k}"]
-                            for k in kernel_timed},
-                         **{k: bwd_rows[case][k] for k in library_timed}}
-                  for case in TIMED_BWD_CASES},
+           "at": {case: {**{k: row[f"{key}_{k}"] for k in kernel_timed},
+                         **{k: row[k] for k in library_timed}}
+                  for case, row in [*((c, bwd_rows[c])
+                                      for c in TIMED_BWD_CASES),
+                                    (HEAD_DIM_TIMED[0], narrow_timed)]},
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)"}
           for key, line, outs in (("dq", 167, ("dq",)),
@@ -1343,7 +1835,9 @@ def main() -> int:
          "replaces": "kubeflow_tpu/ops/flash_attention.py:375",
          "launches": sum(launches("partial").values()),
          "launches_by_path": launches("partial"),
-         "max_abs_err": max(row["max_err_acc"] for row in partial.values()),
+         "max_abs_err": max([row["max_err_acc"] for row in partial.values()]
+                            + [narrow["partial"]]),
+         "max_abs_err_head_dims_16_32": narrow["partial"],
          "max_rel_err_acc": max(row["rel_err_acc"]
                                 for row in partial.values()),
          "max_err_m": max(row["max_err_m"] for row in partial.values()),

@@ -11,7 +11,13 @@ imports nothing of it (and no JAX). Ported so far, slice by slice:
    the training harness (``models.trainer``: AdamW or SGD, warmup-cosine,
    global-norm clip, accumulation, ``fit``), whose attention gradient runs
    through two hand-written Hopper backward kernels, dQ and dK/dV, behind
-   a ``torch.autograd.Function`` over the forward kernel.
+   a ``torch.autograd.Function`` over the forward kernel;
+3. long-context training (``models.longctx``) over ring and Ulysses
+   sequence parallelism (``parallel.ring``, ``parallel.ulysses``), with a
+   hand-written ring-hop partial-attention kernel;
+4. mixture-of-experts training (``models.moe``) over expert parallelism
+   (``parallel.moe``, two all-to-alls), on a ``DeviceMesh`` from
+   ``parallel.mesh``.
 
 The kernels live in ``ops.flash_attention``, their CUDA sources in
 ``ops/csrc/``; ``entry.entry`` mirrors the JAX package's

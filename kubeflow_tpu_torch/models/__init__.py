@@ -1,6 +1,7 @@
 """The burn-in transformer on PyTorch (forward, loss, SGD train step),
-its long-context sequence-parallel variant (``longctx``), and the training
-harness (``trainer``)."""
+its long-context sequence-parallel variant (``longctx``), its
+mixture-of-experts variant (``moe``), and the training harness
+(``trainer``)."""
 
 from kubeflow_tpu_torch.models.burnin import (
     BurninConfig,
@@ -13,7 +14,8 @@ from kubeflow_tpu_torch.models.burnin import (
 )
 from kubeflow_tpu_torch.models.convert import params_from_jax
 from kubeflow_tpu_torch.models.longctx import LongContextConfig
+from kubeflow_tpu_torch.models.moe import MoEConfig
 
-__all__ = ["BurninConfig", "LongContextConfig", "forward", "init_params",
-           "loss_fn", "make_train_step", "map_params", "param_shapes",
-           "params_from_jax"]
+__all__ = ["BurninConfig", "LongContextConfig", "MoEConfig", "forward",
+           "init_params", "loss_fn", "make_train_step", "map_params",
+           "param_shapes", "params_from_jax"]

@@ -13,16 +13,21 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import resolve_device
-from kubeflow_tpu_torch.models.burnin import BurninConfig, param_shapes
+from kubeflow_tpu_torch.models import burnin, moe
 from kubeflow_tpu_torch.models.longctx import LongContextConfig
 
-_CONFIGS = (BurninConfig, LongContextConfig)
+# Each config's parameter tree (the long-context model's is the burn-in's).
+_CONFIGS = {burnin.BurninConfig: burnin.param_shapes,
+            LongContextConfig: burnin.param_shapes,
+            moe.MoEConfig: moe.param_shapes}
 
 
 def params_from_jax(tree, cfg, device=None) -> dict:
-    """The JAX pytree (numpy leaves) of a ``BurninConfig`` or
-    ``LongContextConfig`` model as f32 tensors on ``device``."""
-    if not isinstance(cfg, _CONFIGS):
+    """The JAX pytree (numpy leaves) of a ``BurninConfig``,
+    ``LongContextConfig`` or ``MoEConfig`` model as f32 tensors on
+    ``device`` (an MoE tree unsharded: ``moe.shard_params`` cuts it)."""
+    param_shapes = _CONFIGS.get(type(cfg))
+    if param_shapes is None:
         raise TypeError(f"no parameter tree for {type(cfg).__name__}; "
                         f"want one of {[c.__name__ for c in _CONFIGS]}")
     dev = resolve_device(device)

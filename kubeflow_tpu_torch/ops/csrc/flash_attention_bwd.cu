@@ -37,7 +37,8 @@
 // the loads were issued by the threads that do the math, and dK/dV's two
 // accumulators left registers for 32-row Q tiles only.
 //
-// What the design does (bf16, head dims 64 and 128):
+// What the design does (bf16, every head dim that is a multiple of 8 up to
+// 128, on tiles of 64 or 128 columns as the forward's):
 //  * One CTA of three warpgroups per (b*h, 128-row tile it owns): Q rows
 //    for dQ, keys for dK/dV. Warpgroup 0 is the producer: it gives up its
 //    registers (setmaxnreg) and one thread issues every tile load through
@@ -85,9 +86,13 @@
 //    the L2 holds the streamed tensors of, each group's tiles from the
 //    heaviest causal tile on (dQ: the last Q tile; dK/dV: the first key
 //    tile). Two kernels and no atomics, so the result is deterministic.
+//  * Head dims, as in the forward: D = 64 columns for d <= 64, 128 for
+//    64 < d <= 128; the tensor maps carry the true d, so every tile's
+//    columns past d arrive as zeros (S, dP and delta sum zeros there; dQ,
+//    dK and dV come out zero there) and the epilogues store d columns.
 //  * f32 (not on the training path): a warp per query row (dQ) or key row
 //    (dK/dV), FMA on the CUDA cores, keeping f32 products exact rather than
-//    rounding through TF32.
+//    rounding through TF32; lanes past d idle when d < 32.
 
 #include "hopper.cuh"
 
@@ -114,7 +119,7 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int b, s_q, s_k, h;
+  int b, s_q, s_k, h, d;  // d: the true head dim (the tiles may be wider)
   long long st[kTensors][3];
   float scale;
   int causal, q_offset, k_offset, compute_delta;
@@ -537,6 +542,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       bf16* orow = out + static_cast<long long>(row[i]) * p.st[kDQ][1];
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
+        if (j * 8 >= p.d) break;  // the tile's zero columns past d
         *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) =
             pack_bf16(dq[j * 4 + i * 2] * p.scale,
                       dq[j * 4 + i * 2 + 1] * p.scale);
@@ -748,6 +754,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       bf16* dvr = dv_out + static_cast<long long>(key[i]) * p.st[kDV][1];
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
+        if (j * 8 >= p.d) break;  // the tile's zero columns past d
         *reinterpret_cast<uint32_t*>(dkr + j * 8 + tq * 2) =
             pack_bf16(dk[j * 4 + i * 2] * p.scale,
                       dk[j * 4 + i * 2 + 1] * p.scale);
@@ -763,10 +770,11 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 constexpr int kRowsPerCta = kThreads / 32;
 
 // A warp per query row; lane j scores key n0 + j, then the warp
-// accumulates dQ over the 32 keys, D / 32 columns a lane.
+// accumulates dQ over the 32 keys: lane j owns columns j, j + 32, ...
+// below the true head dim p.d (D, 32, 64 or 128, is at least p.d).
 template <int D>
 __global__ void __launch_bounds__(kThreads) dq_f32_kernel(Params p) {
-  constexpr int kPer = D / 32;
+  constexpr int kPer = D / 32;  // columns a lane, at most
   __shared__ float qs[kRowsPerCta][D];
   __shared__ float dos[kRowsPerCta][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -780,7 +788,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(Params p) {
                       static_cast<long long>(row) * p.st[kDO][1];
   const float* k = head_of<float>(p.k, p, kK, bi, hi);
   const float* v = head_of<float>(p.v, p, kV, bi, hi);
-  for (int i = lane; i < D; i += 32) {
+  for (int i = lane; i < p.d; i += 32) {
     qs[warp][i] = q[i];
     dos[warp][i] = dout[i];
   }
@@ -792,7 +800,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(Params p) {
     const float* o = head_of<float>(p.o, p, kO, bi, hi) +
                      static_cast<long long>(row) * p.st[kO][1];
     float part = 0.f;
-    for (int i = lane; i < D; i += 32) part += dos[warp][i] * o[i];
+    for (int i = lane; i < p.d; i += 32) part += dos[warp][i] * o[i];
     delta = warp_sum(part);
     if (lane == 0) p.delta[srow] = delta;
   } else {
@@ -814,7 +822,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(Params p) {
       const float* vr = v + static_cast<long long>(key) * p.st[kV][1];
       float s = 0.f, dp = 0.f;
 #pragma unroll 8
-      for (int i = 0; i < D; ++i) {
+      for (int i = 0; i < p.d; ++i) {
         s = fmaf(qs[warp][i], kr[i], s);
         dp = fmaf(dos[warp][i], vr[i], dp);
       }
@@ -826,21 +834,23 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(Params p) {
       const float* kr = k + static_cast<long long>(n0 + j) * p.st[kK][1];
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
-        acc[i] = fmaf(dsj, kr[lane + 32 * i], acc[i]);
+        if (lane + 32 * i < p.d) acc[i] = fmaf(dsj, kr[lane + 32 * i], acc[i]);
       }
     }
   }
   float* dq = out_head_of<float>(p.dq, p, kDQ, bi, hi) +
               static_cast<long long>(row) * p.st[kDQ][1];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) dq[lane + 32 * i] = acc[i] * p.scale;
+  for (int i = 0; i < kPer; ++i) {
+    if (lane + 32 * i < p.d) dq[lane + 32 * i] = acc[i] * p.scale;
+  }
 }
 
 // A warp per key row; lane j takes query m0 + j, then the warp
-// accumulates dK and dV over the 32 queries.
+// accumulates dK and dV over the 32 queries, columns as dq_f32_kernel's.
 template <int D>
 __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
-  constexpr int kPer = D / 32;
+  constexpr int kPer = D / 32;  // columns a lane, at most
   __shared__ float ks[kRowsPerCta][D];
   __shared__ float vs[kRowsPerCta][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -852,7 +862,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
                     static_cast<long long>(key) * p.st[kK][1];
   const float* vr = head_of<float>(p.v, p, kV, bi, hi) +
                     static_cast<long long>(key) * p.st[kV][1];
-  for (int i = lane; i < D; i += 32) {
+  for (int i = lane; i < p.d; i += 32) {
     ks[warp][i] = kr[i];
     vs[warp][i] = vr[i];
   }
@@ -875,7 +885,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
       const float* drow = dout + static_cast<long long>(qi) * p.st[kDO][1];
       float s = 0.f, dp = 0.f;
 #pragma unroll 8
-      for (int i = 0; i < D; ++i) {
+      for (int i = 0; i < p.d; ++i) {
         s = fmaf(qrow[i], ks[warp][i], s);
         dp = fmaf(drow[i], vs[warp][i], dp);
       }
@@ -890,6 +900,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
       const float* drow = dout + static_cast<long long>(m0 + j) * p.st[kDO][1];
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
+        if (lane + 32 * i >= p.d) continue;
         dv[i] = fmaf(pj, drow[lane + 32 * i], dv[i]);
         dk[i] = fmaf(dsj, qrow[lane + 32 * i], dk[i]);
       }
@@ -901,6 +912,7 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
                   static_cast<long long>(key) * p.st[kDV][1];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
+    if (lane + 32 * i >= p.d) continue;
     dk_out[lane + 32 * i] = dk[i] * p.scale;
     dv_out[lane + 32 * i] = dv[i];
   }
@@ -909,20 +921,31 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
 
 // ------------------------------------------------------------------ launch
 
-// The map of tensor `which` at `s` rows, `box_rows` rows a box.
+// The map of tensor `which` at `s` rows and the true head dim p.d,
+// `box_rows` rows a box.
 int encode_tensor(CUtensorMap* map, const void* ptr, const Params& p,
-                  int which, int s, int d, int box_rows) {
-  return encode(map, ptr, p.b, s, p.h, d, p.st[which][0], p.st[which][1],
+                  int which, int s, int box_rows) {
+  return encode(map, ptr, p.b, s, p.h, p.d, p.st[which][0], p.st[which][1],
                 p.st[which][2], box_rows);
 }
 
 template <int D>
+int launch_dq_f32(const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.s_q + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
+  dq_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_f32(const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.s_k + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
+  dkv_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
 int launch_dq(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((p.s_q + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
-    dq_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
-    return cudaGetLastError();
-  }
+  if (dtype == 0) return launch_dq_f32<D>(p, stream);
   CUtensorMap maps[5] = {};  // q, k, v, o, dO; o only for delta
   const struct {
     const void* ptr;
@@ -935,7 +958,7 @@ int launch_dq(const Params& p, int dtype, cudaStream_t stream) {
   for (int i = 0; i < 5; ++i) {
     if (i == 3 && !p.compute_delta) continue;
     const int err = encode_tensor(&maps[i], tensors[i].ptr, p,
-                                  tensors[i].which, tensors[i].s, D,
+                                  tensors[i].which, tensors[i].s,
                                   tensors[i].box_rows);
     if (err != 0) return err;
   }
@@ -946,7 +969,7 @@ int launch_dq(const Params& p, int dtype, cudaStream_t stream) {
   if (err != 0) return err;
   Params grouped = p;  // K and V stream through every Q tile of a head
   grouped.group = heads_a_group(static_cast<long long>(p.b) * p.h,
-                                2LL * p.s_k * D * 2, l2);
+                                2LL * p.s_k * p.d * 2, l2);
   const dim3 grid(p.b * p.h * ((p.s_q + kOwnRows - 1) / kOwnRows));
   dq_bf16_kernel<D><<<grid, kHopperThreads, BwdCfg<D>::kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], grouped);
@@ -955,11 +978,7 @@ int launch_dq(const Params& p, int dtype, cudaStream_t stream) {
 
 template <int D>
 int launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((p.s_k + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
-    dkv_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
-    return cudaGetLastError();
-  }
+  if (dtype == 0) return launch_dkv_f32<D>(p, stream);
   CUtensorMap maps[4];
   const struct {
     const void* ptr;
@@ -970,7 +989,7 @@ int launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
                   {p.dout, kDO, p.s_q, kStreamRows}};
   for (int i = 0; i < 4; ++i) {
     const int err = encode_tensor(&maps[i], tensors[i].ptr, p,
-                                  tensors[i].which, tensors[i].s, D,
+                                  tensors[i].which, tensors[i].s,
                                   tensors[i].box_rows);
     if (err != 0) return err;
   }
@@ -981,16 +1000,25 @@ int launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
   if (err != 0) return err;
   Params grouped = p;  // Q and dO stream through every key tile of a head
   grouped.group = heads_a_group(static_cast<long long>(p.b) * p.h,
-                                2LL * p.s_q * D * 2, l2);
+                                2LL * p.s_q * p.d * 2, l2);
   const dim3 grid(p.b * p.h * ((p.s_k + kOwnRows - 1) / kOwnRows));
   dkv_bf16_kernel<D><<<grid, kHopperThreads, BwdCfg<D>::kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], grouped);
   return cudaGetLastError();
 }
 
+// The tile width for head dim d, a multiple of 8 up to 128 (bf16: 64 or
+// 128 columns; f32: 32, 64 or 128 lanes' columns); 0 for one the kernels
+// do not take.
+int tile_cols(int d, int dtype) {
+  if (d < 8 || d > 128 || d % 8 != 0 || (dtype != 0 && dtype != 1)) return 0;
+  if (dtype == 0 && d <= 32) return 32;
+  return d <= 64 ? 64 : 128;
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq,
-                   void* dk, void* dv, int b, int s_q, int s_k, int h,
+                   void* dk, void* dv, int b, int s_q, int s_k, int h, int d,
                    const long long* strides, float scale, int causal,
                    int q_offset, int k_offset, int compute_delta) {
   Params p{};
@@ -1008,6 +1036,7 @@ Params make_params(const void* q, const void* k, const void* v, const void* o,
   p.s_q = s_q;
   p.s_k = s_k;
   p.h = h;
+  p.d = d;
   for (int i = 0; i < kTensors; ++i) {
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[i * 3 + j];
   }
@@ -1035,15 +1064,16 @@ extern "C" int kftpu_flash_attention_bwd_dq(
     float scale, int causal, int q_offset, int k_offset, int compute_delta,
     void* stream) {
   const Params p = make_params(q, k, v, o, dout, lse, delta, dq, nullptr,
-                               nullptr, b, s_q, s_k, h, strides, scale, causal,
-                               q_offset, k_offset, compute_delta);
+                               nullptr, b, s_q, s_k, h, d, strides, scale,
+                               causal, q_offset, k_offset, compute_delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1) || s_q < 1 || s_k < 1) {
+  const int cols = tile_cols(d, dtype);
+  if (cols == 0 || s_q < 1 || s_k < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (d == 128) return launch_dq<128>(p, dtype, st);
-  if (d == 64) return launch_dq<64>(p, dtype, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (cols == 128) return launch_dq<128>(p, dtype, st);
+  if (cols == 64) return launch_dq<64>(p, dtype, st);
+  return launch_dq_f32<32>(p, st);
 }
 
 // dK and dV from the delta the dQ launch wrote (or the caller gave).
@@ -1054,14 +1084,15 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
     int causal, int q_offset, int k_offset, void* stream) {
   const Params p = make_params(
       q, k, v, nullptr, dout, lse, const_cast<float*>(delta), nullptr, dk, dv,
-      b, s_q, s_k, h, strides, scale, causal, q_offset, k_offset, 0);
+      b, s_q, s_k, h, d, strides, scale, causal, q_offset, k_offset, 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1) || s_q < 1 || s_k < 1) {
+  const int cols = tile_cols(d, dtype);
+  if (cols == 0 || s_q < 1 || s_k < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (d == 128) return launch_dkv<128>(p, dtype, st);
-  if (d == 64) return launch_dkv<64>(p, dtype, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (cols == 128) return launch_dkv<128>(p, dtype, st);
+  if (cols == 64) return launch_dkv<64>(p, dtype, st);
+  return launch_dkv_f32<32>(p, st);
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

@@ -41,7 +41,8 @@
 // products. At the decode shape each CTA also pays its start (barriers,
 // the first loads) and its epilogue over only 1-8 K/V tiles.
 //
-// What the design does (bf16, head dims 64 and 128):
+// What the design does (bf16, every head dim that is a multiple of 8 up to
+// 128: the tiles are 64 or 128 columns wide, see "Head dims" below):
 //  * One CTA of three warpgroups per (b*h, 128-row Q tile). Warpgroup 0 is
 //    the producer: it gives up its registers (setmaxnreg) and one thread
 //    issues every load through TMA. Warpgroups 1 and 2 are consumers of 64
@@ -81,8 +82,17 @@
 //    diagonal and ragged tiles, branch-free, with the live range taken from
 //    the global offsets. A hop wholly above the diagonal launches CTAs that
 //    load nothing and write "nothing".
+//  * Head dims. The tiles are D = 64 columns wide for d <= 64 and D = 128
+//    for 64 < d <= 128. The tensor maps carry the true d, so TMA fills a
+//    tile's columns past d with zeros: Q K^T sums zeros there, P V's columns
+//    past d come out zero, and the epilogue stores d columns only. The
+//    scale is 1/sqrt(d) of the true d (the caller's). d must be a multiple
+//    of 8: a TMA stride is a multiple of 16 bytes, and the heads of a qkv
+//    slice lie d elements apart. A narrow head does the wide tile's
+//    tensor-core work; at d = 16 and 32 the kernel moves few bytes for it.
 //  * f32 (not on the main paths): a warp per query row, FMA on the CUDA
-//    cores, keeping f32 products exact rather than rounding through TF32.
+//    cores, keeping f32 products exact rather than rounding through TF32;
+//    lanes past d idle when d < 32.
 
 #include <chrono>
 
@@ -105,7 +115,7 @@ struct Params {
   float* lse;   // the forward: [b*h, s]
   float* m;     // the partial: [b*h, s], natural units
   float* l;     // the partial: [b*h, s]
-  int b, s, h;
+  int b, s, h, d;  // d: the true head dim (the tiles may be wider)
   long long q_sb, q_ss, q_sh;  // strides in elements; the d stride is 1
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -434,6 +444,7 @@ __device__ __forceinline__ void hopper_attention(const CUtensorMap& qmap,
         float* orow = out + static_cast<long long>(row[i]) * p.o_ss;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
+          if (j * 8 >= p.d) break;  // the tile's zero columns past d
           *reinterpret_cast<float2*>(orow + j * 8 + tq * 2) =
               seen ? make_float2(o[j * 4 + i * 2], o[j * 4 + i * 2 + 1])
                    : make_float2(0.f, 0.f);
@@ -454,6 +465,7 @@ __device__ __forceinline__ void hopper_attention(const CUtensorMap& qmap,
         __nv_bfloat16* orow = out + static_cast<long long>(row[i]) * p.o_ss;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
+          if (j * 8 >= p.d) break;  // the tile's zero columns past d
           *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) = pack_bf16(
               o[j * 4 + i * 2] / l, o[j * 4 + i * 2 + 1] / l);
         }
@@ -488,9 +500,11 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 constexpr int kRowsPerCta = kThreads / 32;
 
 // The body of both f32 kernels: kPartial selects the ring hop's epilogue.
+// D (32, 64 or 128) is at least the true head dim p.d; lane j owns columns
+// j, j + 32, ... below p.d.
 template <int D, bool kPartial>
 __device__ __forceinline__ void f32_attention(const Params& p) {
-  constexpr int kPer = D / 32;  // output columns per lane
+  constexpr int kPer = D / 32;  // output columns per lane, at most
   __shared__ float qs[kRowsPerCta][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
@@ -501,7 +515,7 @@ __device__ __forceinline__ void f32_attention(const Params& p) {
                    hi * p.q_sh + static_cast<long long>(row) * p.q_ss;
   const float* k = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  for (int i = lane; i < D; i += 32) qs[warp][i] = q[i];
+  for (int i = lane; i < p.d; i += 32) qs[warp][i] = q[i];
   __syncwarp();
 
   float acc[kPer];
@@ -520,7 +534,7 @@ __device__ __forceinline__ void f32_attention(const Params& p) {
       const float* kr = k + static_cast<long long>(key) * p.k_ss;
       float dot = 0.f;
 #pragma unroll 8
-      for (int i = 0; i < D; ++i) dot = fmaf(qs[warp][i], kr[i], dot);
+      for (int i = 0; i < p.d; ++i) dot = fmaf(qs[warp][i], kr[i], dot);
       x = dot * p.scale;
     }
     float mx = x;
@@ -545,7 +559,9 @@ __device__ __forceinline__ void f32_attention(const Params& p) {
       const float pb = __shfl_sync(0xffffffffu, pj, j);
       const float* vr = v + static_cast<long long>(n0 + j) * p.v_ss;
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[i] = fmaf(pb, vr[lane + 32 * i], acc[i]);
+      for (int i = 0; i < kPer; ++i) {
+        if (lane + 32 * i < p.d) acc[i] = fmaf(pb, vr[lane + 32 * i], acc[i]);
+      }
     }
   }
 
@@ -555,7 +571,9 @@ __device__ __forceinline__ void f32_attention(const Params& p) {
   if constexpr (kPartial) {
     const bool seen = n_end > 0;  // key 0 reaches this row
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) o[lane + 32 * i] = seen ? acc[i] : 0.f;
+    for (int i = 0; i < kPer; ++i) {
+      if (lane + 32 * i < p.d) o[lane + 32 * i] = seen ? acc[i] : 0.f;
+    }
     if (lane == 0) {
       p.m[at] = seen ? m_run : kNegBig;
       p.l[at] = seen ? l_run : 0.f;
@@ -563,7 +581,9 @@ __device__ __forceinline__ void f32_attention(const Params& p) {
   } else {
     const float l = fmaxf(l_run, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) o[lane + 32 * i] = acc[i] / l;
+    for (int i = 0; i < kPer; ++i) {
+      if (lane + 32 * i < p.d) o[lane + 32 * i] = acc[i] / l;
+    }
     if (lane == 0) p.lse[at] = m_run + logf(l);
   }
 }
@@ -579,15 +599,16 @@ __global__ void __launch_bounds__(kThreads) partial_f32_kernel(Params p) {
 }
 
 
-int encode_qkv(CUtensorMap (&maps)[3], const Params& p, int d) {
-  int err = encode(&maps[0], p.q, p.b, p.s, p.h, d, p.q_sb, p.q_ss, p.q_sh,
+// The maps of q, k and v at their true head dim p.d.
+int encode_qkv(CUtensorMap (&maps)[3], const Params& p) {
+  int err = encode(&maps[0], p.q, p.b, p.s, p.h, p.d, p.q_sb, p.q_ss, p.q_sh,
                    kBlockN);
   if (err == 0) {
-    err = encode(&maps[1], p.k, p.b, p.s, p.h, d, p.k_sb, p.k_ss, p.k_sh,
+    err = encode(&maps[1], p.k, p.b, p.s, p.h, p.d, p.k_sb, p.k_ss, p.k_sh,
                  kBlockN);
   }
   if (err == 0) {
-    err = encode(&maps[2], p.v, p.b, p.s, p.h, d, p.v_sb, p.v_ss, p.v_sh,
+    err = encode(&maps[2], p.v, p.b, p.s, p.h, p.d, p.v_sb, p.v_ss, p.v_sh,
                  kBlockN);
   }
   return err;
@@ -597,7 +618,7 @@ template <int D, bool kPartial>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   constexpr int kSmem = HopperCfg<D>::kSmem;
   CUtensorMap maps[3];
-  const int enc = encode_qkv(maps, p, D);
+  const int enc = encode_qkv(maps, p);
   if (enc != 0) return enc;
   const void* kernel =
       kPartial ? reinterpret_cast<const void*>(&partial_bf16_kernel<D>)
@@ -608,7 +629,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   if (err != 0) return err;
   Params grouped = p;  // K and V stream through every Q tile of a head
   grouped.group = heads_a_group(static_cast<long long>(p.b) * p.h,
-                                2LL * p.s * D * 2, l2);
+                                2LL * p.s * p.d * 2, l2);
   const int m_blocks = (p.s + kBlockM - 1) / kBlockM;
   const dim3 grid(p.b * p.h * m_blocks);
   if constexpr (kPartial) {
@@ -630,14 +651,22 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Head dims: a multiple of 8 up to 128, on the narrowest tile that holds
+// it (bf16: 64 or 128 columns; f32: 32, 64 or 128 lanes' columns).
 template <bool kPartial>
-int launch(const Params& p, int d, int dtype, void* stream) {
+int launch(Params p, int d, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 128) return launch_bf16<128, kPartial>(p, st);
-  if (dtype == 1 && d == 64) return launch_bf16<64, kPartial>(p, st);
-  if (dtype == 0 && d == 128) return launch_f32<128, kPartial>(p, st);
-  if (dtype == 0 && d == 64) return launch_f32<64, kPartial>(p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 8 || d > 128 || d % 8 != 0 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.d = d;
+  if (dtype == 1) {
+    return d <= 64 ? launch_bf16<64, kPartial>(p, st)
+                   : launch_bf16<128, kPartial>(p, st);
+  }
+  if (d <= 32) return launch_f32<32, kPartial>(p, st);
+  return d <= 64 ? launch_f32<64, kPartial>(p, st)
+                 : launch_f32<128, kPartial>(p, st);
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
@@ -702,11 +731,12 @@ extern "C" double kftpu_flash_attention_encode_ns(
   const long long st[12] = {strides[0], strides[1], strides[2], strides[3],
                             strides[4], strides[5], strides[6], strides[7],
                             strides[8], 0, 0, 0};
-  const Params p = make_params(q, k, v, nullptr, b, s, h, st, 1.f, 1);
+  Params p = make_params(q, k, v, nullptr, b, s, h, st, 1.f, 1);
+  p.d = d;
   CUtensorMap maps[3];
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < iters; ++i) {
-    if (encode_qkv(maps, p, d) != 0) return -1.0;
+    if (encode_qkv(maps, p) != 0) return -1.0;
   }
   const auto t1 = std::chrono::steady_clock::now();
   return std::chrono::duration<double, std::nano>(t1 - t0).count() / iters;

@@ -241,7 +241,9 @@ constexpr int kEncodeError = 100000;
 
 // The 4-D map of one bf16 [b, s, h, d] tensor (strides in elements, unit d
 // stride): dims (d, h, s, b), boxes of 64 columns x 1 head x `box_rows`
-// rows, a 128-byte swizzle, rows past s read as zeros.
+// rows, a 128-byte swizzle, rows past s and columns past d read as zeros
+// (a head dim under a panel's 64 columns fills the rest of the panel with
+// zeros; the strides must be multiples of 16 bytes, so d of 8).
 inline int encode(CUtensorMap* map, const void* ptr, int b, int s, int h,
                   int d, long long sb, long long ss, long long sh,
                   int box_rows) {

@@ -27,7 +27,9 @@ the default scale is ``1/sqrt(head_dim)``, and a sequence longer than a
 block must be a multiple of it: ``block_q`` and ``block_k`` (the JAX
 default 1024) enter only that check. lse and delta are f32
 ``[batch * heads, seq]``. The kernels' own tiles are internal. The kernels
-take head dims 64 and 128; the plain versions take any.
+take every head dim that is a multiple of 8 up to 128 (``KERNEL_HEAD_DIMS``:
+a narrower head runs on a 64- or 128-column tile whose columns past it
+are zeros); the plain versions, like the JAX kernels, take any.
 """
 
 from __future__ import annotations
@@ -52,7 +54,10 @@ DO_COPIES = 0
 
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
-KERNEL_HEAD_DIMS = (64, 128)
+# TMA moves rows whose strides are multiples of 16 bytes, and the heads of
+# a qkv slice lie head_dim elements apart: multiples of 8, up to the
+# widest tile.
+KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
 _NEG_BIG = -1e30
 # The JAX wrapper's blocks (default DEFAULT_BLOCK_Q/K) fix which sequence
 # lengths it accepts; the port keeps that contract.
@@ -127,8 +132,8 @@ def _kernel_readable(t: torch.Tensor) -> bool:
 def _check_kernel_shape(q) -> None:
     b, _, h, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the CUDA kernel takes "
-                         f"{KERNEL_HEAD_DIMS}")
+        raise ValueError(f"head_dim {d}: the CUDA kernels take multiples "
+                         f"of 8 from 8 to 128")
     if b * h > 65535:
         raise ValueError(f"batch*heads {b * h} exceeds the kernel grid")
 

@@ -1,3 +1,4 @@
-"""Sequence parallelism for long contexts: ring attention (``ring``) and
-Ulysses all-to-all attention with its ring composition (``ulysses``), on
-``torch.distributed`` process groups."""
+"""Parallelism on ``torch.distributed`` process groups: the (data, model)
+mesh (``mesh``), sequence parallelism for long contexts (ring attention,
+``ring``; Ulysses all-to-all attention and its ring composition,
+``ulysses``), and expert parallelism (``moe``)."""

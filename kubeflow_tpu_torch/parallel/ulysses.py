@@ -53,34 +53,40 @@ def _largest_divisor_block(s: int, cap: int = 1024) -> int:
     )
 
 
-def _all_to_all(x, axis: Axis, scatter_dim: int, gather_dim: int):
+def _all_to_all(x, axis: Axis, scatter_dim: int, gather_dim: int,
+                section: str):
     """JAX's tiled ``all_to_all``: ``x`` split into P chunks along
     ``scatter_dim``, chunk j sent to index j, the received chunks
     concatenated along ``gather_dim`` in source order."""
     send = torch.stack(x.chunk(axis.size, dim=scatter_dim)).contiguous()
     recv = torch.empty_like(send)
-    sections.collective("ulysses_all_to_all", dist.all_to_all_single,
-                        recv, send, group=axis.group)
+    sections.collective(section, dist.all_to_all_single, recv, send,
+                        group=axis.group)
     return torch.cat(recv.unbind(0), dim=gather_dim)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, scatter_dim, gather_dim):
-        ctx.axis, ctx.dims = axis, (scatter_dim, gather_dim)
-        return _all_to_all(x, axis, scatter_dim, gather_dim)
+    def forward(ctx, x, axis, scatter_dim, gather_dim, section):
+        ctx.axis, ctx.dims, ctx.section = axis, (scatter_dim, gather_dim), \
+            section
+        return _all_to_all(x, axis, scatter_dim, gather_dim, section)
 
     @staticmethod
     def backward(ctx, grad):
         scatter_dim, gather_dim = ctx.dims
-        return (_all_to_all(grad, ctx.axis, gather_dim, scatter_dim),
-                None, None, None)
+        return (_all_to_all(grad, ctx.axis, gather_dim, scatter_dim,
+                            ctx.section), None, None, None, None)
 
 
-def _a2a(x, axis: Axis, scatter_dim: int, gather_dim: int):
+def all_to_all(x, axis: Axis, scatter_dim: int, gather_dim: int,
+               section: str = "ulysses_all_to_all"):
+    """JAX's tiled ``all_to_all`` over ``axis`` inside the registered
+    section ``section``, differentiable: its gradient is the inverse
+    exchange. An axis of size 1 returns ``x`` and runs no collective."""
     if axis.size == 1:
         return x
-    return _AllToAll.apply(x, axis, scatter_dim, gather_dim)
+    return _AllToAll.apply(x, axis, scatter_dim, gather_dim, section)
 
 
 def ulysses_attention_local(q, k, v, axis: Axis, block_impl: str = "xla"):
@@ -96,7 +102,7 @@ def ulysses_attention_local(q, k, v, axis: Axis, block_impl: str = "xla"):
         raise ValueError(
             f"ulysses needs heads % shards == 0, got {h} heads / {p} shards"
         )
-    q, k, v = (_a2a(t, axis, 2, 1) for t in (q, k, v))
+    q, k, v = (all_to_all(t, axis, 2, 1) for t in (q, k, v))
     if block_impl == "flash":
         block = _largest_divisor_block(s_local * p)
         out = flash_attention(q, k, v, block_q=block, block_k=block)
@@ -113,7 +119,7 @@ def ulysses_attention_local(q, k, v, axis: Axis, block_impl: str = "xla"):
         raise ValueError(
             f"unknown block_impl {block_impl!r} (want 'xla' or 'flash')"
         )
-    return _a2a(out, axis, 1, 2)
+    return all_to_all(out, axis, 1, 2)
 
 
 def ulysses_attention(q, k, v, mesh, axis_name: str = "seq",
@@ -140,10 +146,10 @@ def ring_ulysses_attention_local(q, k, v, ring_axis: Axis, uly_axis: Axis,
             f"got {h} heads / {p_uly} shards"
         )
     # [b, S/(Pr*Pu), H, d] -> [b, S/Pr, H/Pu, d]
-    q, k, v = (_a2a(t, uly_axis, 2, 1) for t in (q, k, v))
+    q, k, v = (all_to_all(t, uly_axis, 2, 1) for t in (q, k, v))
     out = ring_attention_local(q, k, v, ring_axis, block_impl)
     # [b, S/Pr, H/Pu, d] -> [b, S/(Pr*Pu), H, d]
-    return _a2a(out, uly_axis, 1, 2)
+    return all_to_all(out, uly_axis, 1, 2)
 
 
 def ring_ulysses_attention(q, k, v, mesh,

@@ -1,8 +1,8 @@
 """Registered named sections around the parallel stack's collectives.
 
 The counterpart of ``kubeflow_tpu/telemetry/sections.py``, trimmed to the
-sections the long-context slice runs. Every collective in
-``parallel/ring.py`` and ``parallel/ulysses.py`` goes through
+sections the ported slices run. Every collective in ``parallel/ring.py``,
+``parallel/ulysses.py`` and ``parallel/moe.py`` goes through
 :func:`collective`, which rejects a name that is not registered in
 ``SECTION_SPECS`` and runs the op inside
 ``torch.profiler.record_function("kftpu." + name)``, so a profiler trace
@@ -25,6 +25,10 @@ SECTION_SPECS = (
      "K/V + dK/dV accumulator send in the flash ring backward"),
     ("ulysses_all_to_all", "kubeflow_tpu_torch/parallel/ulysses",
      "heads<->sequence all_to_all (both directions of the exchange)"),
+    ("moe_dispatch_all_to_all", "kubeflow_tpu_torch/parallel/moe",
+     "token-slot all_to_all scattering tokens to their experts"),
+    ("moe_combine_all_to_all", "kubeflow_tpu_torch/parallel/moe",
+     "expert-output all_to_all returning tokens to their home shard"),
 )
 
 SECTION_NAMES = frozenset(spec[0] for spec in SECTION_SPECS)

@@ -201,9 +201,102 @@ def test_forward_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_head_dims_it_lacks(cuda):
-    q, k, v = _qkv((1, 64, 2, 32), torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_fwd(q, k, v)
+    # The kernels take multiples of 8 up to 128 (TMA's 16-byte strides
+    # between the heads of a qkv slice; the widest tile): 20 and 136 stay
+    # refused, in both dtypes, before anything launches.
+    before = (fa.LAUNCHES, fa.PARTIAL_LAUNCHES)
+    for d in (20, 136):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv((1, 64, 2, d), dtype, cuda)
+            with pytest.raises(ValueError, match="head_dim"):
+                fa.flash_attention_fwd(q, k, v)
+            with pytest.raises(ValueError, match="head_dim"):
+                fa.flash_attention_partial(q, k, v, 0, 0)
+    assert (fa.LAUNCHES, fa.PARTIAL_LAUNCHES) == before
+
+
+# Narrow heads, as the JAX package's default configs give them (d_model
+# 128 over 4 heads: 32; bench.py's MC_LONGCTX_MODEL: 16), and two more
+# multiples of 8 on each tile width, through all four kernels in both
+# dtypes, at the same tolerances as the wide heads.
+NARROW_CASES = {
+    "d16_causal": ((2, 256, 4, 16), True),
+    "d32_causal": ((2, 192, 4, 32), True),
+    "d32_full_ragged": ((2, 100, 3, 32), False),
+    "d16_full_ragged": ((1, 77, 2, 16), False),
+    "d8_causal": ((1, 128, 2, 8), True),
+    "d40_causal": ((1, 160, 2, 40), True),
+    "d96_causal": ((1, 256, 2, 96), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(NARROW_CASES))
+def test_narrow_heads_forward_and_backward_match_plain_version(cuda, case,
+                                                               dtype):
+    shape, causal = NARROW_CASES[case]
+    q, k, v, o_ref, lse_ref, do = _bwd_inputs(shape, dtype, cuda)
+    before = _counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert _counts() == tuple(c + 1 for c in before)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=0,
+                               atol=TOL_O[dtype])
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
+    ref = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                           causal=causal)
+    _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("case", ["below", "diagonal", "above",
+                                  "straddle_64_192"])
+def test_narrow_heads_partial_and_hop_backward_match_plain_version(
+        cuda, case, d, dtype):
+    shape, q_off, k_off = PARTIAL_CASES[case]
+    q, k, v, o, lse, do = _bwd_inputs(shape[:3] + (d,), dtype, cuda)
+    before = fa.PARTIAL_LAUNCHES
+    got = fa.flash_attention_partial(q, k, v, q_off, k_off)
+    delta = fa.attention_delta(o, do)
+    grads = fa.flash_attention_bwd(q, k, v, None, lse, do, q_offset=q_off,
+                                   k_offset=k_off, delta=delta)
+    torch.cuda.synchronize()
+    assert fa.PARTIAL_LAUNCHES == before + 1
+    _assert_partial_close(
+        got, fa.flash_attention_partial_reference(q, k, v, q_off, k_off),
+        dtype)
+    _assert_grads_close(grads, fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, q_offset=q_off, k_offset=k_off, delta=delta),
+        dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_narrow_heads_read_qkv_column_slices_through_their_strides(cuda, d):
+    """As ``burnin._attention`` hands them over: q, k, v are column slices
+    of one [b, s, 3*h*d] product, their heads d elements apart."""
+    b, s, h = 2, 256, 4
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, s, h, d), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dense = [t.contiguous() for t in (q, k, v)]
+    o2, lse2 = fa.flash_attention_fwd(*dense)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, c in zip(fa.flash_attention_bwd(q, k, v, o, lse, do),
+                    fa.flash_attention_bwd(*dense, o, lse, do)):
+        assert torch.equal(a, c)
+    for a, c in zip(fa.flash_attention_partial(q, k, v, 256, 256),
+                    fa.flash_attention_partial(*dense, 256, 256)):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda

@@ -48,6 +48,10 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/parallel/ring.py",
             "kubeflow_tpu_torch/parallel/ulysses.py",
             "kubeflow_tpu_torch/telemetry/sections.py"} <= names
+    # The MoE slice.
+    assert {"kubeflow_tpu_torch/models/moe.py",
+            "kubeflow_tpu_torch/parallel/moe.py",
+            "kubeflow_tpu_torch/parallel/mesh.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source).
     csrc = REPO / "kubeflow_tpu_torch" / "ops" / "csrc"
