@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, long-context training and
-MoE training paths on one NVIDIA GPU and hold its kernels against their
-plain versions.
+"""Drive the PyTorch port's serving, training, long-context training, MoE,
+vision and pipelined training paths on one NVIDIA GPU and hold its
+kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -26,7 +26,8 @@ last line. With no CUDA device it exits 1 and prints no result.
    ``torch.profiler`` too, its bound share and TFLOP/s, and the host cost
    of the three TMA tensor maps a launch encodes.
 4. bwd_kernels — the dQ and the dK/dV kernels against their plain
-   versions at the training shape, a multi-tile, a ragged, an f32 case,
+   versions at the training shape, the pipelined schedule's microbatch
+   (also a forward case), a multi-tile, a ragged, an f32 case,
    shapes across the kernels' tiles, ring-hop offsets (two straddling a
    128-row tile) and the long-context step's one-card hop; at the
    training shape a bitwise repeat, and q, k, v as column slices of one
@@ -84,10 +85,15 @@ last line. With no CUDA device it exits 1 and prints no result.
    forward launch. Then one step each of ``"ulysses_flash"`` (the forward,
    dQ and dK/dV kernels) and the dense ``"ring"``.
 14. head_dims (run after bwd_kernels) — the four kernels at head dims 16
-   and 32, bf16 and f32, causal and full, against their plain versions at
-   the tolerances above, one case also through qkv column slices (bitwise
-   equal); at a d = 32 training shape [8, 1024, 64, 32] the forward, dQ
-   and dK/dV timed beside their bounds, plain versions and SDPA.
+   and 32, at 20 and 36 (no multiple of 8: zero-padded onto the Hopper
+   kernels) and at 136, 192 and 256 (the wide kernels), bf16 and f32,
+   causal and full, against their plain versions at the tolerances above,
+   three cases also through qkv column slices (bitwise equal), and
+   b*h = 66560 ([1040, 64, 64, 16]) in both dtypes; at training shapes
+   of d = 32 [8, 1024, 64, 32], d = 20 [8, 1024, 64, 20] (with the
+   padding copies timed apart) and d = 256 [8, 1024, 16, 256] the
+   forward, dQ and dK/dV (at d = 256 also the partial) timed beside their
+   bounds, plain versions and SDPA.
 15. moe_grads — ``MOE_MODEL`` (bench.py's, uncut) at batch 8: the loss
    of ``attention="flash"`` against the dense path, the share of tokens
    whose top-1 expert differs between the two, and the gradients against
@@ -101,11 +107,31 @@ last line. With no CUDA device it exits 1 and prints no result.
    in a host sync, 3 profiled steps with the router, seat table,
    dispatch, expert GEMMs and combine booked apart; launches counted from
    zero: one forward, one dQ and one dK/dV launch per layer and step.
+18. vision — the vision main path, as bench.py's ``_family_bench`` runs
+   it: ``vision.make_train_step`` at ``VisionConfig()``, batch 256, bf16,
+   timed as moe; images/s, TFLOP/s and MFU from the port's analytic conv
+   count (``vision.forward_flops``); the bf16 logits against an f32
+   forward's on the same weights, and two f32 forwards with a fault
+   (conv kernels transposed, symmetric stride-2 padding) as controls that
+   must miss the bound; no attention kernel launches.
+19. pipelined_grads — ``PP_MODEL`` (bench.py's, uncut) at batch 8, one
+   card: the loss and every gradient leaf with ``attention="flash"``
+   against the dense path, then the ``force_schedule`` loss and every
+   gradient leaf against the fused path's, beside a control (the last
+   microbatch's tokens swapped for the first's) that must miss the bound.
+20. pipelined — the pipelined main path (fused: the microbatches as one
+   batch): ``pipelined.make_train_step`` at ``PP_MODEL``, batch 8,
+   ``mesh=None``, timed as moe; launches counted from zero: one forward,
+   one dQ and one dK/dV launch per layer and step.
+21. pipelined_schedule — the same through the GPipe ticks
+   (``force_schedule=True``): one launch of each kernel per layer,
+   microbatch and step.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
-every timed shape, the d = 32 one included, and ``launches_by_path``
-with ``moe``), the card line, and the result line.
+every timed shape, the d = 32 and d = 256 ones included, and
+``launches_by_path`` with ``moe``, ``vision``, ``pipelined`` and
+``pipelined_schedule``), the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -150,6 +176,8 @@ KERNEL_CASES = [
     ("straddle_full_d64", (1, 320, 2, 64), "bfloat16", False),
     # The ulysses_flash path's shape: LONGCTX_MODEL's 8192 tokens, timed too.
     ("long_context", (1, 8192, 16, 128), "bfloat16", True),
+    # The pipelined_schedule path's shape: a microbatch of 2 of PP_MODEL.
+    ("pp_micro", (2, 1024, 16, 128), "bfloat16", True),
 ]
 # The kernels timed: the forward at both sequence lengths the main paths
 # give it.
@@ -195,6 +223,8 @@ BWD_CASES = [
     # tokens at offsets (0, 0), delta given, as _RingFlash.backward calls
     # the kernels.
     ("one_card_hop", (1, 8192, 16, 128), "bfloat16", True, 0, 0, True),
+    # The pipelined_schedule path's: a microbatch of 2 of PP_MODEL.
+    ("pp_micro", (2, 1024, 16, 128), "bfloat16", True, 0, 0, False),
 ]
 # The backward timed: at the train step's shape and the one-card hop.
 TIMED_BWD_CASES = ("train", "one_card_hop")
@@ -266,23 +296,39 @@ RING_SHARDS = 4
 # of the largest magnitude.
 TOL_RING_GRAD = 2e-2
 
-# Narrow heads, as the JAX package's config defaults give them (d_model 128
-# over 4 heads: 32) and bench.py's MC_LONGCTX_MODEL (16): (name, [b, s, h,
+# Head dims beside the main paths' 128: narrow heads, as the JAX
+# package's config defaults give them (d_model 128 over 4 heads: 32) and
+# bench.py's MC_LONGCTX_MODEL (16); head dims no multiple of 8 (20, 36),
+# which the wrapper zero-pads onto the Hopper kernels; and heads above 128
+# (136, 192, Gemma's 256), which run the wide kernels. (name, [b, s, h,
 # d], dtype, causal), each through the forward, dQ and dK/dV, and (causal)
 # the partial at a hop below and on the diagonal, at the tolerances above
 # (TOL_O, TOL_LSE, TOL_GRAD, TOL_PARTIAL_*). Causal cases span 2.5 of the
-# kernels' 128-row tiles; full cases are ragged.
+# Hopper kernels' 128-row tiles (20 of the wide kernels' 16-row tiles);
+# full cases are ragged.
+HEAD_DIMS = (16, 32, 20, 36, 136, 192, 256)
 HEAD_DIM_CASES = [
     (f"d{d}_{dtype}_{'causal' if causal else 'full'}",
      (2, 320, 4, d) if causal else (1, 200, 3, d), dtype, causal)
-    for d in (16, 32) for dtype in ("bfloat16", "float32")
+    for d in HEAD_DIMS for dtype in ("bfloat16", "float32")
     for causal in (True, False)]
-# The case whose q, k, v are also read as column slices of one qkv tensor,
-# as burnin._attention hands them over (heads d elements apart).
-HEAD_DIM_STRIDED = "d32_bfloat16_causal"
-# Timed: a d = 32 training shape (b*h = 512 heads of 1024 tokens).
-HEAD_DIM_TIMED = ("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0,
-                  False)
+# The cases whose q, k, v are also read as column slices of one qkv
+# tensor, as the models hand them over (heads d elements apart).
+HEAD_DIM_STRIDED = ("d32_bfloat16_causal", "d20_bfloat16_causal",
+                    "d136_bfloat16_causal")
+# More (batch, head) pairs than a grid's y dimension holds: b*h = 66560,
+# each dtype through the four kernels.
+MANY_HEADS = ("bh66560", (1040, 64, 64, 16))
+# Timed: a d = 32 training shape (b*h = 512 heads of 1024 tokens), a
+# d = 20 one (zero-padded to 24: the copies timed apart) and a d = 256 one
+# ([8, 1024, 16, 256]: the wide kernels, also the partial); (case, kernel
+# runs as time_ms takes them: the wide kernels take tens of ms a call).
+HEAD_DIM_TIMED = [
+    (("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0, False), {}),
+    (("d20_train", (8, 1024, 64, 20), "bfloat16", True, 0, 0, False), {}),
+    (("d256_train", (8, 1024, 16, 256), "bfloat16", True, 0, 0, False),
+     dict(warmup=2, runs=10, batch=2)),
+]
 
 # The MoE config: bench.py's MOE_MODEL uncut (bench.py:616-620; top-2 of 8
 # experts at capacity factor 1.0, flash attention at head_dim 128), batch
@@ -308,13 +354,56 @@ MIN_EXPERT_GRAD_COSINE = 0.995
 # attention="flash": one train step, batch 8.
 MOE_DEFAULT_BATCH = 8
 
+# The pipelined config: bench.py's PP_MODEL uncut (bench.py:626-629; 4
+# microbatches, flash attention at head_dim 128), batch 8 on one card
+# (mesh=None: _family_bench's 1x1 mesh, one stage), bf16. The fused path
+# runs the microbatches as one batch; force_schedule runs the GPipe ticks
+# (4 at one stage), each on a microbatch of 2.
+PP_MODEL = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=4,
+                d_ff=8192, seq_len=1025, n_micro=4, attention="flash",
+                dtype="bfloat16")
+PP_BATCH = 8
+PP_WARMUP, PP_CHUNKS, PP_CHUNK_STEPS, PP_PROFILED = 2, 4, 10, 3
+# The force_schedule gradients against the fused path's, on the same
+# params and tokens: the same function, but each weight gradient is a sum
+# of 4 microbatches' bf16 products instead of one. Per leaf, rel L2:
+# measured 2.9e-3 at most with the plain versions on the CPU (bf16,
+# d_model 256, 2 layers); a control, the fused gradients with the last
+# microbatch's tokens swapped for the first's (what a schedule that fed
+# the wrong microbatch gives), sits at 0.54 or more on every leaf. Bound
+# 2e-2, and the phase checks that the control lies above it. The losses
+# were bitwise equal on the card and the CPU (one bf16 GEMM row does not
+# depend on how many rows run beside it): bound 1e-4 of 8192 tokens'
+# mean nll, where a wrong microbatch moves it about 1e-2.
+TOL_SCHEDULE_GRAD_REL_L2 = 2e-2
+TOL_SCHEDULE_LOSS = 1e-4
+
+# The vision config: VisionConfig() (bench.py's, widths 128/256/512, 2
+# blocks a stage, 64x64 images, 1000 classes), bf16, at bench.py's
+# VISION_BATCH 256 (bench.py:634).
+VISION_BATCH = 256
+VISION_WARMUP, VISION_CHUNKS, VISION_CHUNK_STEPS, VISION_PROFILED = \
+    2, 4, 10, 3
+# The bf16 forward's logits against an f32 forward's on the same weights
+# and (bf16-rounded) images, as rel L2 over all logits: bf16 activations
+# through 13 convs and 14 norms. Measured with the plain CPU ops at batch
+# 16: 4.3e-3 and 4.5e-3 on two seeds. Two controls, f32 forwards with a
+# fault, measured there at 0.10 or more: every conv's kernel transposed
+# (kh and kw swapped, a layout fault) and XLA's "SAME" at stride 2 read
+# as padding=1 on both sides (0 before and 1 after is right). Bound 2e-2,
+# and the phase checks that both controls lie above it.
+TOL_VISION_LOGITS_REL_L2 = 2e-2
+
 
 # Device kernels by what they do, for the profiled steps' breakdown: the
 # first category whose key is in a kernel's name takes it.
 KERNEL_CATEGORIES = (
     ("attention kernels (this port)", ("fwd_bf16_kernel", "dq_bf16_kernel",
                                        "dkv_bf16_kernel",
-                                       "partial_bf16_kernel")),
+                                       "partial_bf16_kernel",
+                                       "wide_fwd_kernel", "wide_dq_kernel",
+                                       "wide_dkv_kernel")),
+    ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("casts and copies", ("copy",)),
     ("foreach passes (SGD, AdamW, clip norm, accumulation)",
@@ -502,14 +591,17 @@ def _max_err(got, ref) -> tuple:
     return err, (err / top if top else (0.0 if err == 0 else math.inf))
 
 
-def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
+def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta,
+              runs=None) -> None:
     """Time each backward kernel beside its plain version and its bound,
     and SDPA's backward (dq, dk and dv together: one PyTorch call for the
     same gradients, timed only, never on the port's path) by CUDA events
-    and by the profiler's device time, naming the backend that ran."""
+    and by the profiler's device time, naming the backend that ran.
+    ``runs`` (time_ms's keywords) times a slow kernel with fewer calls."""
     import torch.nn.functional as F
 
     name, shape, dtype, causal, q_off, k_off, given = case
+    runs = runs or {}
     kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
     o_in, delta_in = (None, delta) if given else (o, None)
     # The plain versions move ~20 GB a call at 8192 tokens: fewer runs.
@@ -524,8 +616,9 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, lse, do, delta, **kw))}
     for key, (run, plain) in calls.items():
-        row[f"{key}_ms"] = time_ms(run)
-        row[f"{key}_profiler_ms"] = profiled(run, torch)[0]
+        row[f"{key}_ms"] = time_ms(run, **runs)
+        row[f"{key}_profiler_ms"] = profiled(run, torch,
+                                             runs=runs.get("runs", 20))[0]
         row[f"{key}_plain_ms"] = time_ms(plain, **plain_runs)
         (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
          row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal, key, given)
@@ -620,55 +713,80 @@ def phase_bwd_kernels(torch, fa) -> dict:
     return out
 
 
+def _head_dim_case(torch, fa, q, k, v, do, causal) -> tuple:
+    """The four kernels on q, k, v (and dO) against their plain versions:
+    (max errors, whether within the tolerances, launches, outputs)."""
+    dtype = str(q.dtype).removeprefix("torch.")
+    before = _launch_counts(fa)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+    grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal=causal)
+    ref = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
+                                           causal=causal)
+    hops = {}
+    if causal:  # a hop below the diagonal and one on it
+        for q_off, k_off in ((q.shape[1], 0), (0, 0)):
+            hops[f"partial_{q_off}_{k_off}"] = _partial_errors(
+                fa.flash_attention_partial(q, k, v, q_off, k_off),
+                fa.flash_attention_partial_reference(q, k, v, q_off, k_off))
+    torch.cuda.synchronize()
+    launches = {key: n - before[key]
+                for key, n in _launch_counts(fa).items()}
+    errs = {key: _max_err(g, r)
+            for key, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    ok = (all(bool(torch.isfinite(t).all()) for t in (o, *grads))
+          and o.shape == q.shape and all(g.shape == q.shape for g in grads)
+          and err_o <= TOL_O[dtype] and err_lse <= TOL_LSE
+          and all(rel <= TOL_GRAD[dtype] for _, rel in errs.values())
+          and all(e["rel_err_acc"] <= TOL_PARTIAL_ACC[dtype]
+                  and e["max_err_m"] <= TOL_PARTIAL_M
+                  and e["rel_err_l"] <= TOL_PARTIAL_L
+                  for e in hops.values())
+          and launches == {"fwd": 1, "dq": 1, "dkv": 1,
+                           "partial": len(hops)})
+    row = {"max_err_o": err_o, "max_err_lse": err_lse,
+           **{f"max_err_{key}": e for key, (e, _) in errs.items()},
+           **{f"rel_err_{key}": r for key, (_, r) in errs.items()},
+           **hops, "launches": launches, "tol_o": TOL_O[dtype],
+           "tol_lse": TOL_LSE, "tol_rel": TOL_GRAD[dtype]}
+    return row, ok, (ro, rlse)
+
+
 def phase_head_dims(torch, fa) -> dict:
-    """The four kernels at head dims 16 and 32 against their plain
-    versions; one case also through qkv column slices (bitwise equal to
-    the contiguous case); the forward, dQ and dK/dV timed at a d = 32
-    training shape beside their bounds, their plain versions and SDPA."""
+    """The four kernels at head dims 16, 32, 20, 36, 136, 192 and 256
+    against their plain versions; three cases also through qkv column
+    slices (bitwise equal to the contiguous case); b*h = 66560 in both
+    dtypes; the forward, dQ and dK/dV timed at a d = 32 and a d = 256
+    training shape beside their bounds, their plain versions and SDPA (and
+    at d = 256 the partial too)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(97531)
+    if fa.wide_max_head_dim() != fa.WIDE_MAX_HEAD_DIM:
+        raise AssertionError(f"the wide library's head-dim cap "
+                             f"{fa.wide_max_head_dim()} is not the wrapper's "
+                             f"{fa.WIDE_MAX_HEAD_DIM}")
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "partial": 0.0}
+
+    def book(row):
+        worst["fwd"] = max(worst["fwd"], row["max_err_o"])
+        worst["dq"] = max(worst["dq"], row["max_err_dq"])
+        worst["dkv"] = max(worst["dkv"], row["max_err_dk"],
+                           row["max_err_dv"])
+        worst["partial"] = max([worst["partial"]] + [
+            e["max_err_acc"] for key, e in row.items()
+            if key.startswith("partial_")])
+
     for name, shape, dtype, causal in HEAD_DIM_CASES:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .to(getattr(torch, dtype)) for _ in range(4))
-        before = _launch_counts(fa)
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
-        grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal=causal)
-        ref = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
-                                               causal=causal)
-        hops = {}
-        if causal:  # a hop below the diagonal and one on it
-            for q_off, k_off in ((shape[1], 0), (0, 0)):
-                hops[f"partial_{q_off}_{k_off}"] = _partial_errors(
-                    fa.flash_attention_partial(q, k, v, q_off, k_off),
-                    fa.flash_attention_partial_reference(q, k, v, q_off,
-                                                         k_off))
-        torch.cuda.synchronize()
-        launches = {key: n - before[key]
-                    for key, n in _launch_counts(fa).items()}
-        errs = {key: _max_err(g, r)
-                for key, g, r in zip(("dq", "dk", "dv"), grads, ref)}
-        err_o = (o.float() - ro.float()).abs().max().item()
-        err_lse = (lse - rlse).abs().max().item()
-        ok = (all(bool(torch.isfinite(t).all()) for t in (o, *grads))
-              and err_o <= TOL_O[dtype] and err_lse <= TOL_LSE
-              and all(rel <= TOL_GRAD[dtype] for _, rel in errs.values())
-              and all(e["rel_err_acc"] <= TOL_PARTIAL_ACC[dtype]
-                      and e["max_err_m"] <= TOL_PARTIAL_M
-                      and e["rel_err_l"] <= TOL_PARTIAL_L
-                      for e in hops.values())
-              and launches == {"fwd": 1, "dq": 1, "dkv": 1,
-                               "partial": len(hops)})
+        found, ok, (ro, rlse) = _head_dim_case(torch, fa, q, k, v, do,
+                                               causal)
         row = {"phase": "head_dims", "case": name, "shape": list(shape),
-               "dtype": dtype, "causal": causal, "max_err_o": err_o,
-               "max_err_lse": err_lse,
-               **{f"max_err_{key}": e for key, (e, _) in errs.items()},
-               **{f"rel_err_{key}": r for key, (_, r) in errs.items()},
-               **hops, "launches": launches, "tol_o": TOL_O[dtype],
-               "tol_lse": TOL_LSE, "tol_rel": TOL_GRAD[dtype], "ok": ok}
-        if name == HEAD_DIM_STRIDED:
+               "dtype": dtype, "causal": causal, **found, "ok": ok}
+        if name in HEAD_DIM_STRIDED:
             b, s, h, d = shape
             qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
             sq, sk, sv = (t.reshape(b, s, h, d)
@@ -688,42 +806,78 @@ def phase_head_dims(torch, fa) -> dict:
         emit(row)
         if not ok:
             raise AssertionError(f"head-dim case {name} failed: {row}")
-        worst["fwd"] = max(worst["fwd"], err_o)
-        worst["dq"] = max(worst["dq"], errs["dq"][0])
-        worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
-        worst["partial"] = max([worst["partial"]]
-                               + [e["max_err_acc"] for e in hops.values()])
-        del q, k, v, do, o, lse, ro, rlse, grads, ref
+        book(row)
+        del q, k, v, do, ro, rlse
     torch.cuda.empty_cache()
 
-    case = HEAD_DIM_TIMED
-    name, shape, dtype, causal = case[:4]
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                   .to(getattr(torch, dtype)) for _ in range(4))
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    delta = fa.attention_delta(o, do)
-    row = {"phase": "head_dims_timed", "case": name, "shape": list(shape),
-           "dtype": dtype, "causal": causal}
+    name, shape = MANY_HEADS
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        found, ok, _ = _head_dim_case(torch, fa, q, k, v, do, True)
+        row = {"phase": "head_dims", "case": f"{name}_{dtype}",
+               "shape": list(shape), "batch_heads": shape[0] * shape[2],
+               "dtype": dtype, "causal": True, **found, "ok": ok}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"head-dim case {name} failed: {row}")
+        book(row)
+        del q, k, v, do, _
+        torch.cuda.empty_cache()
 
-    def run():
-        return fa.flash_attention_fwd(q, k, v, causal=causal)
+    timed = {}
+    for case, runs in HEAD_DIM_TIMED:
+        name, shape, dtype, causal = case[:4]
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = fa.attention_delta(o, do)
+        row = {"phase": "head_dims_timed", "case": name,
+               "shape": list(shape), "dtype": dtype, "causal": causal,
+               "kernels": "wide" if shape[3] > fa.TILE_MAX_HEAD_DIM
+               else "hopper"}
 
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    row["fwd_ms"] = time_ms(run)
-    row["fwd_profiler_ms"] = profiled(run, torch)[0]
-    row["fwd_plain_ms"] = time_ms(
-        lambda: fa.flash_attention_reference(q, k, v, causal=causal),
-        warmup=1, runs=5, batch=2)
-    row["fwd_library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-    row["fwd_bound_ms"], row["fwd_bound_by"], row["fwd_flops"] = \
-        attention_bound_ms(shape, dtype, causal)
-    _rates(row, "fwd_")
-    _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta)
-    emit(row)
-    del q, k, v, do, o, lse, delta, qt, kt, vt
-    torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "timed": row}
+        def run():
+            return fa.flash_attention_fwd(q, k, v, causal=causal)
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row["fwd_ms"] = time_ms(run, **runs)
+        row["fwd_profiler_ms"] = profiled(run, torch,
+                                          runs=runs.get("runs", 20))[0]
+        row["fwd_plain_ms"] = time_ms(
+            lambda: fa.flash_attention_reference(q, k, v, causal=causal),
+            warmup=1, runs=5, batch=2)
+        row["fwd_library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal))
+        row["fwd_bound_ms"], row["fwd_bound_by"], row["fwd_flops"] = \
+            attention_bound_ms(shape, dtype, causal)
+        _rates(row, "fwd_")
+        if shape[3] % 8:   # the padding copies inside those times
+            row["pad_copy_fwd_ms"] = time_ms(lambda: fa._pad_heads(q, k, v))
+            row["pad_copy_bwd_ms"] = time_ms(
+                lambda: fa._pad_heads(q, k, v, o, do))
+        if row["kernels"] == "wide":   # the partial at offsets (0, 0)
+
+            def hop():
+                return fa.flash_attention_partial(q, k, v, 0, 0)
+
+            row["partial_ms"] = time_ms(hop, **runs)
+            row["partial_profiler_ms"] = profiled(
+                hop, torch, runs=runs.get("runs", 20))[0]
+            row["partial_plain_ms"] = time_ms(
+                lambda: fa.flash_attention_partial_reference(q, k, v, 0, 0),
+                warmup=1, runs=5, batch=2)
+            row["partial_library_ms"] = row["fwd_library_ms"]
+            (row["partial_bound_ms"], row["partial_bound_by"],
+             row["partial_flops"]) = partial_bound_ms(shape, dtype, 0, 0)
+            _rates(row, "partial_")
+        _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta, runs)
+        emit(row)
+        timed[name] = row
+        del q, k, v, do, o, lse, delta, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "timed": timed}
 
 
 def phase_model(torch, fa, burnin) -> None:
@@ -877,6 +1031,38 @@ def profile_steps(torch, fn, steps: int = 3, moe_stages: bool = False) -> dict:
     if moe_stages:
         out["moe_stage_ms_per_step"] = sum(v[0] for v in staged.values())
     return out
+
+
+def _timed_steps(torch, step, warmup: int, chunks: int,
+                 chunk_steps: int) -> dict:
+    """bench.py's timing of a train step ``step() -> loss``: ``warmup``
+    steps (the first loss kept), then ``chunks`` chunks of
+    ``chunk_steps`` steps queued back to back, each ending in a host sync
+    on the loss (which depends on every step before it)."""
+    t0 = time.perf_counter()
+    loss = step()
+    first_loss = float(loss)
+    for _ in range(warmup - 1):
+        loss = step()
+    float(loss)
+    warmup_sec = time.perf_counter() - t0
+    chunk_ms = []
+    t1 = time.perf_counter()
+    for _ in range(chunks):
+        tc = time.perf_counter()
+        for _ in range(chunk_steps):
+            loss = step()
+        float(loss)
+        chunk_ms.append((time.perf_counter() - tc) * 1e3 / chunk_steps)
+    steps = chunks * chunk_steps
+    spread = sorted(chunk_ms)
+    return {"warmup_steps": warmup, "warmup_sec": warmup_sec,
+            "steps": steps,
+            "step_ms": (time.perf_counter() - t1) * 1e3 / steps,
+            "chunk_step_ms": chunk_ms,
+            "step_spread_pct": 100.0 * (spread[-1] - spread[0])
+            / statistics.median(spread),
+            "loss_first": first_loss, "loss_last": float(loss)}
 
 
 def phase_serving(torch, fa, burnin, engine_mod, loadgen) -> dict:
@@ -1086,47 +1272,24 @@ def phase_train(torch, fa, burnin, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts(fa)              # ---- the main path starts here
     step = burnin.make_train_step(cfg)
-    t0 = time.perf_counter()
-    params, loss = step(params, tokens)
-    first_loss = float(loss)
-    for _ in range(TRAIN_WARMUP - 1):
-        params, loss = step(params, tokens)
-    float(loss)
-    warmup_sec = time.perf_counter() - t0
-    # bench.py's timing: chunks of steps queued back to back, each ending
-    # in a host sync on the loss (which depends on every step before it).
-    chunk_ms = []
-    t1 = time.perf_counter()
-    for _ in range(TRAIN_CHUNKS):
-        tc = time.perf_counter()
-        for _ in range(TRAIN_CHUNK_STEPS):
-            params, loss = step(params, tokens)
-        float(loss)
-        chunk_ms.append((time.perf_counter() - tc) * 1e3 / TRAIN_CHUNK_STEPS)
-    steps = TRAIN_CHUNKS * TRAIN_CHUNK_STEPS
-    step_ms = (time.perf_counter() - t1) * 1e3 / steps
-    last_loss = float(loss)
+    timing = _timed_steps(torch, lambda: step(params, tokens)[1],
+                          TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS)
+    first_loss, last_loss = timing["loss_first"], timing["loss_last"]
     prof = profile_steps(torch, lambda: step(params, tokens),
                          TRAIN_PROFILED)
     torch.cuda.synchronize()
     launches = _launch_counts(fa)        # ---- the main path ends here
     copies = fa.DO_COPIES
-    run = TRAIN_WARMUP + steps + TRAIN_PROFILED
+    run = TRAIN_WARMUP + timing["steps"] + TRAIN_PROFILED
     flops = train_step_flops(cfg, TRAIN_BATCH)
-    tflops = flops / (step_ms / 1e3) / 1e12
-    spread = sorted(chunk_ms)
+    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
     row = {"phase": "train", "config": TRAIN_MODEL, "batch": TRAIN_BATCH,
-           "card": card, "warmup_steps": TRAIN_WARMUP,
-           "warmup_sec": warmup_sec, "steps": steps,
-           "step_ms": step_ms, "chunk_step_ms": chunk_ms,
-           "step_spread_pct": 100.0 * (spread[-1] - spread[0])
-           / statistics.median(spread),
+           "card": card, **timing,
            "flops_per_step": flops, "tflops": tflops,
            "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
            "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
            "tokens_per_sec": TRAIN_BATCH * (cfg.seq_len - 1)
-           / (step_ms / 1e3),
-           "loss_first": first_loss, "loss_last": last_loss,
+           / (timing["step_ms"] / 1e3),
            "launches": launches, "launches_expected": cfg.n_layers * run,
            "do_copies": copies,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -1424,45 +1587,24 @@ def phase_longctx(torch, fa, longctx, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts(fa)              # ---- the main path starts here
     step = longctx.make_train_step(cfg)
-    t0 = time.perf_counter()
-    params, loss = step(params, tokens)
-    first_loss = float(loss)
-    for _ in range(LONGCTX_WARMUP - 1):
-        params, loss = step(params, tokens)
-    float(loss)
-    warmup_sec = time.perf_counter() - t0
-    chunk_ms = []
-    t1 = time.perf_counter()
-    for _ in range(LONGCTX_CHUNKS):
-        tc = time.perf_counter()
-        for _ in range(LONGCTX_CHUNK_STEPS):
-            params, loss = step(params, tokens)
-        float(loss)
-        chunk_ms.append((time.perf_counter() - tc) * 1e3
-                        / LONGCTX_CHUNK_STEPS)
-    steps = LONGCTX_CHUNKS * LONGCTX_CHUNK_STEPS
-    step_ms = (time.perf_counter() - t1) * 1e3 / steps
-    last_loss = float(loss)
+    timing = _timed_steps(torch, lambda: step(params, tokens)[1],
+                          LONGCTX_WARMUP, LONGCTX_CHUNKS, LONGCTX_CHUNK_STEPS)
+    first_loss, last_loss = timing["loss_first"], timing["loss_last"]
     prof = profile_steps(torch, lambda: step(params, tokens),
                          LONGCTX_PROFILED)
     torch.cuda.synchronize()
     launches = _launch_counts(fa)        # ---- the main path ends here
     peak = torch.cuda.max_memory_allocated()
-    run = LONGCTX_WARMUP + steps + LONGCTX_PROFILED
+    run = LONGCTX_WARMUP + timing["steps"] + LONGCTX_PROFILED
     flops = longctx_train_step_flops(cfg, LONGCTX_BATCH)
-    tflops = flops / (step_ms / 1e3) / 1e12
-    spread = sorted(chunk_ms)
+    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
     row = {"phase": "longctx", "config": LONGCTX_MODEL,
-           "batch": LONGCTX_BATCH, "mesh": None, "card": card,
-           "warmup_steps": LONGCTX_WARMUP, "warmup_sec": warmup_sec,
-           "steps": steps, "step_ms": step_ms, "chunk_step_ms": chunk_ms,
-           "step_spread_pct": 100.0 * (spread[-1] - spread[0])
-           / statistics.median(spread),
+           "batch": LONGCTX_BATCH, "mesh": None, "card": card, **timing,
            "flops_per_step": flops, "tflops": tflops,
            "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
            "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
-           "tokens_per_sec": LONGCTX_BATCH * cfg.seq_len / (step_ms / 1e3),
-           "loss_first": first_loss, "loss_last": last_loss,
+           "tokens_per_sec": LONGCTX_BATCH * cfg.seq_len
+           / (timing["step_ms"] / 1e3),
            "launches": launches,
            "launches_expected": _ring_flash_counts(cfg.n_layers * run),
            "do_copies": fa.DO_COPIES,
@@ -1676,44 +1818,24 @@ def phase_moe(torch, fa, moe, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts(fa)              # ---- the main path starts here
     step = moe.make_train_step(cfg)
-    t0 = time.perf_counter()
-    params, loss = step(params, tokens)
-    first_loss = float(loss)
-    for _ in range(MOE_WARMUP - 1):
-        params, loss = step(params, tokens)
-    float(loss)
-    warmup_sec = time.perf_counter() - t0
-    chunk_ms = []
-    t1 = time.perf_counter()
-    for _ in range(MOE_CHUNKS):
-        tc = time.perf_counter()
-        for _ in range(MOE_CHUNK_STEPS):
-            params, loss = step(params, tokens)
-        float(loss)
-        chunk_ms.append((time.perf_counter() - tc) * 1e3 / MOE_CHUNK_STEPS)
-    steps = MOE_CHUNKS * MOE_CHUNK_STEPS
-    step_ms = (time.perf_counter() - t1) * 1e3 / steps
-    last_loss = float(loss)
+    timing = _timed_steps(torch, lambda: step(params, tokens)[1],
+                          MOE_WARMUP, MOE_CHUNKS, MOE_CHUNK_STEPS)
+    first_loss, last_loss = timing["loss_first"], timing["loss_last"]
     peak = torch.cuda.max_memory_allocated()
     prof = profile_steps(torch, lambda: step(params, tokens), MOE_PROFILED,
                          moe_stages=True)
     torch.cuda.synchronize()
     launches = _launch_counts(fa)        # ---- the main path ends here
-    run = MOE_WARMUP + steps + MOE_PROFILED
+    run = MOE_WARMUP + timing["steps"] + MOE_PROFILED
     flops = moe_train_step_flops(cfg, MOE_BATCH)
-    tflops = flops / (step_ms / 1e3) / 1e12
-    spread = sorted(chunk_ms)
+    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
     row = {"phase": "moe", "config": MOE_MODEL, "batch": MOE_BATCH,
-           "mesh": None, "card": card, "warmup_steps": MOE_WARMUP,
-           "warmup_sec": warmup_sec, "steps": steps, "step_ms": step_ms,
-           "chunk_step_ms": chunk_ms,
-           "step_spread_pct": 100.0 * (spread[-1] - spread[0])
-           / statistics.median(spread),
+           "mesh": None, "card": card, **timing,
            "flops_per_step": flops, "tflops": tflops,
            "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
            "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
-           "tokens_per_sec": MOE_BATCH * (cfg.seq_len - 1) / (step_ms / 1e3),
-           "loss_first": first_loss, "loss_last": last_loss,
+           "tokens_per_sec": MOE_BATCH * (cfg.seq_len - 1)
+           / (timing["step_ms"] / 1e3),
            "launches": launches,
            "launches_expected": _burnin_counts(cfg.n_layers * run),
            "do_copies": fa.DO_COPIES,
@@ -1728,13 +1850,209 @@ def phase_moe(torch, fa, moe, card: str) -> dict:
     return launches
 
 
+def _pp_inputs(torch, pipelined, cfg, seed: int):
+    params = pipelined.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (PP_BATCH, cfg.seq_len),
+                           generator=gen, device="cuda")
+    return params, tokens
+
+
+def phase_pipelined_grads(torch, fa, pipelined, tree) -> None:
+    """PP_MODEL at batch 8, one card: the loss and every gradient leaf of
+    attention="flash" against the dense path on the same seeded params
+    and tokens; then the loss and every gradient leaf of the
+    force_schedule path against the fused path's, beside a control: the
+    fused gradients with the last microbatch's tokens swapped for the
+    first's."""
+    cfg = pipelined.PipelinedConfig(**PP_MODEL)
+    params, tokens = _pp_inputs(torch, pipelined, cfg, seed=0)
+    before = _launch_counts(fa)
+    loss, grads = tree.value_and_grad(pipelined.loss_fn, params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launch_counts(fa).items()}
+    ref_loss, ref = tree.value_and_grad(pipelined.loss_fn, params, tokens,
+                                        replace(cfg, attention="xla"))
+    leaves, worst, least = _grad_gaps(torch, params, grads, ref)
+    del ref
+    schedule_loss, schedule = tree.value_and_grad(
+        partial(pipelined.loss_fn, force_schedule=True), params, tokens, cfg)
+    schedule_leaves, schedule_worst, _ = _grad_gaps(torch, params, schedule,
+                                                    grads)
+    del schedule
+    micro = PP_BATCH // cfg.n_micro
+    swapped = tokens.clone()
+    swapped[-micro:] = tokens[:micro]
+    _, control = tree.value_and_grad(pipelined.loss_fn, params, swapped, cfg)
+    control_leaves, _, _ = _grad_gaps(torch, params, control, grads)
+    control_least = min(x["rel_l2"] for x in control_leaves)
+    del grads, control
+    row = {"phase": "pipelined_grads", "config": PP_MODEL,
+           "batch": PP_BATCH, "mesh": None, "loss_flash": float(loss),
+           "loss_dense": float(ref_loss),
+           "loss_diff": float(loss) - float(ref_loss),
+           "worst_rel_l2": worst["rel_l2"], "worst_rel_l2_leaf": worst["leaf"],
+           "min_cosine": least["cosine"], "min_cosine_leaf": least["leaf"],
+           "loss_schedule": float(schedule_loss),
+           "schedule_loss_diff": float(schedule_loss) - float(loss),
+           "schedule_worst_rel_l2": schedule_worst["rel_l2"],
+           "schedule_worst_rel_l2_leaf": schedule_worst["leaf"],
+           "control_least_rel_l2": control_least,
+           "tol_loss": TOL_TRAIN_LOSS, "tol_rel_l2": TOL_GRAD_REL_L2,
+           "min_cosine_bound": MIN_GRAD_COSINE,
+           "tol_schedule_loss": TOL_SCHEDULE_LOSS,
+           "tol_schedule_rel_l2": TOL_SCHEDULE_GRAD_REL_L2,
+           "launches": launches, "leaves": leaves,
+           "schedule_leaves": schedule_leaves}
+    emit(row)
+    if not (all(x["finite"] for x in leaves + schedule_leaves)
+            and abs(row["loss_diff"]) <= TOL_TRAIN_LOSS
+            and worst["rel_l2"] <= TOL_GRAD_REL_L2
+            and least["cosine"] >= MIN_GRAD_COSINE
+            and abs(row["schedule_loss_diff"]) <= TOL_SCHEDULE_LOSS
+            and schedule_worst["rel_l2"] <= TOL_SCHEDULE_GRAD_REL_L2
+            and control_least > TOL_SCHEDULE_GRAD_REL_L2
+            and launches == _burnin_counts(cfg.n_layers)):
+        raise AssertionError(f"pipelined_grads phase failed: {row}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_pipelined(torch, fa, pipelined, card: str,
+                    force_schedule: bool) -> dict:
+    """A pipelined main path, as bench.py's _family_bench runs it on one
+    chip: ``pipelined.make_train_step`` at PP_MODEL, batch 8, mesh=None,
+    fused (``force_schedule=False``) or through the GPipe ticks; timed as
+    phase_moe times its step, then 3 profiled steps."""
+    name = "pipelined_schedule" if force_schedule else "pipelined"
+    cfg = pipelined.PipelinedConfig(**PP_MODEL)
+    params, tokens = _pp_inputs(torch, pipelined, cfg, seed=7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    step = pipelined.make_train_step(cfg, force_schedule=force_schedule)
+    timing = _timed_steps(torch, lambda: step(params, tokens)[1], PP_WARMUP,
+                          PP_CHUNKS, PP_CHUNK_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_steps(torch, lambda: step(params, tokens), PP_PROFILED)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    run = PP_WARMUP + timing["steps"] + PP_PROFILED
+    per_step = cfg.n_layers * (cfg.n_micro if force_schedule else 1)
+    flops = train_step_flops(cfg, PP_BATCH)
+    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
+    row = {"phase": name, "config": PP_MODEL, "batch": PP_BATCH,
+           "mesh": None, "force_schedule": force_schedule, "card": card,
+           **timing, "flops_per_step": flops, "tflops": tflops,
+           "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
+           "tokens_per_sec": PP_BATCH * (cfg.seq_len - 1)
+           / (timing["step_ms"] / 1e3),
+           "launches": launches,
+           "launches_expected": _burnin_counts(per_step * run),
+           "do_copies": fa.DO_COPIES,
+           "max_memory_allocated_bytes": peak, "profile": prof}
+    emit(row)
+    if not (math.isfinite(timing["loss_first"])
+            and math.isfinite(timing["loss_last"])
+            and timing["loss_last"] < timing["loss_first"]
+            and fa.DO_COPIES == 0
+            and launches == _burnin_counts(per_step * run)):
+        raise AssertionError(f"{name} phase failed: {row}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _vision_logit_gaps(torch, vision, tree, cfg, params, images) -> dict:
+    """Rel L2 (and largest gap over the largest logit) of the bf16
+    forward's logits against an f32 forward's, and of two f32 forwards
+    with a fault (a control each) against the same."""
+    f32 = replace(cfg, dtype="float32")
+
+    def gaps(logits):
+        return ((logits - ref).norm() / ref.norm()).item(), (
+            (logits - ref).abs().max() / ref.abs().max()).item()
+
+    with torch.no_grad():
+        ref = vision.forward(params, images, f32)
+        bf16_l2, bf16_max = gaps(vision.forward(params, images, cfg))
+        swapped = tree.map_params(
+            lambda p: p.transpose(0, 1) if p.dim() == 4 else p, params)
+        controls = {"conv_kernels_transposed": gaps(
+            vision.forward(swapped, images, f32))[0]}
+        same_pads = vision._same_pads
+        vision._same_pads = lambda size, k, stride: (k // 2, k // 2)
+        try:
+            controls["symmetric_padding"] = gaps(
+                vision.forward(params, images, f32))[0]
+        finally:
+            vision._same_pads = same_pads
+    return {"bf16_rel_l2": bf16_l2, "bf16_max_gap_over_max_logit": bf16_max,
+            "control_rel_l2": controls}
+
+
+def phase_vision(torch, fa, vision, tree, card: str) -> dict:
+    """The vision main path, as bench.py's _family_bench runs it:
+    ``vision.make_train_step`` at VisionConfig(), batch 256, bf16; the
+    bf16 logits against an f32 forward's on the same weights, beside two
+    f32 forwards with a fault (see TOL_VISION_LOGITS_REL_L2); timed as
+    phase_moe times its step, then 3 profiled steps; TFLOP/s from the
+    port's analytic conv count. The path runs no attention kernel."""
+    cfg = vision.VisionConfig()
+    params = vision.init_params(cfg, seed=9, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    images = torch.randn(
+        (VISION_BATCH, cfg.image_size, cfg.image_size, cfg.channels),
+        generator=gen, device="cuda").to(torch.bfloat16)
+    labels = torch.randint(0, cfg.num_classes, (VISION_BATCH,),
+                           generator=gen, device="cuda")
+    batch = (images, labels)
+    logit_gaps = _vision_logit_gaps(torch, vision, tree, cfg, params, images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    step = vision.make_train_step(cfg)
+    timing = _timed_steps(torch, lambda: step(params, batch)[1],
+                          VISION_WARMUP, VISION_CHUNKS, VISION_CHUNK_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_steps(torch, lambda: step(params, batch), VISION_PROFILED)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    flops = 3.0 * vision.forward_flops(cfg) * VISION_BATCH
+    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
+    row = {"phase": "vision", "config": "VisionConfig()",
+           "batch": VISION_BATCH, "dtype": cfg.dtype, "card": card,
+           **timing, **logit_gaps,
+           "tol_logits_rel_l2": TOL_VISION_LOGITS_REL_L2,
+           "images_per_sec": VISION_BATCH / (timing["step_ms"] / 1e3),
+           "forward_flops_per_image": vision.forward_flops(cfg),
+           "flops_per_step": flops, "flops_source": "analytic",
+           "tflops": tflops, "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12, "launches": launches,
+           "max_memory_allocated_bytes": peak, "profile": prof}
+    emit(row)
+    if not (math.isfinite(timing["loss_first"])
+            and math.isfinite(timing["loss_last"])
+            and timing["loss_last"] < timing["loss_first"]
+            and logit_gaps["bf16_rel_l2"] <= TOL_VISION_LOGITS_REL_L2
+            and min(logit_gaps["control_rel_l2"].values())
+            > TOL_VISION_LOGITS_REL_L2
+            and launches == _burnin_counts(0)):
+        raise AssertionError(f"vision phase failed: {row}")
+    del params, images, labels, batch   # free the card for the next family
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from kubeflow_tpu_torch.models import burnin, longctx, moe, trainer, tree
+    from kubeflow_tpu_torch.models import (burnin, longctx, moe, pipelined,
+                                           trainer, tree, vision)
     from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.parallel import moe as pmoe
@@ -1755,7 +2073,7 @@ def main() -> int:
     emit({"phase": "build", "sources": _build.sources(), "compiled": compiled,
           "build_sec": time.perf_counter() - t0,
           "sass": {src: sass_counts(_build.library_path(src))
-                   for src in (fa.SOURCE, fa.BWD_SOURCE)},
+                   for src in (fa.SOURCE, fa.BWD_SOURCE, fa.WIDE_SOURCE)},
           "ptxas": [line.strip() for log in _build.BUILD_LOG.values()
                     for line in log.splitlines()
                     if "registers" in line or "spill" in line
@@ -1765,7 +2083,7 @@ def main() -> int:
     bwd_rows = phase_bwd_kernels(torch, fa)
     bwd = bwd_rows["train"]
     head_dims = phase_head_dims(torch, fa)
-    narrow, narrow_timed = head_dims["max_abs_err"], head_dims["timed"]
+    other_dims, dims_timed = head_dims["max_abs_err"], head_dims["timed"]
     phase_model(torch, fa, burnin)
     by_path = {"serving": {"fwd": phase_serving(
         torch, fa, burnin, engine_mod, loadgen)["launches"]}}
@@ -1779,6 +2097,11 @@ def main() -> int:
     phase_moe_grads(torch, fa, moe, pmoe, tree)
     by_path["moe_default"] = phase_moe_default(torch, fa, moe, pmoe, tree)
     by_path["moe"] = phase_moe(torch, fa, moe, card)
+    by_path["vision"] = phase_vision(torch, fa, vision, tree, card)
+    phase_pipelined_grads(torch, fa, pipelined, tree)
+    by_path["pipelined"] = phase_pipelined(torch, fa, pipelined, card, False)
+    by_path["pipelined_schedule"] = phase_pipelined(torch, fa, pipelined,
+                                                    card, True)
 
     def launches(kernel):
         return {path: counts.get(kernel, 0)
@@ -1798,15 +2121,15 @@ def main() -> int:
          "launches": sum(launches("fwd").values()),
          "launches_by_path": launches("fwd"),
          "max_abs_err": max([row["max_err_o"] for row in kernels.values()]
-                            + [narrow["fwd"]]),
+                            + [other_dims["fwd"]]),
          "max_err_o": max(row["max_err_o"] for row in kernels.values()),
-         "max_err_o_head_dims_16_32": narrow["fwd"],
+         "max_err_o_other_head_dims": other_dims["fwd"],
          "max_err_lse": max(row["max_err_lse"] for row in kernels.values()),
          **{key: decode[key] for key in timed},
          "at": {**{name: {key: kernels[name][key] for key in timed}
                    for name in TIMED_KERNEL_CASES},
-                HEAD_DIM_TIMED[0]: {key: narrow_timed[f"fwd_{key}"]
-                                    for key in timed}},
+                **{name: {key: row[f"fwd_{key}"] for key in timed}
+                   for name, row in dims_timed.items()}},
          "tensor_map_encode_us": decode["tensor_map_encode_us"]},
         *({"name": f"flash_attention_bwd_{key}", "route": "cuda",
            "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
@@ -1815,8 +2138,8 @@ def main() -> int:
            "launches_by_path": launches(key),
            "max_abs_err": max([row[f"max_err_{out}"]
                                for row in bwd_rows.values() for out in outs]
-                              + [narrow[key]]),
-           "max_abs_err_head_dims_16_32": narrow[key],
+                              + [other_dims[key]]),
+           "max_abs_err_other_head_dims": other_dims[key],
            "max_rel_err": max(row[f"rel_err_{out}"]
                               for row in bwd_rows.values() for out in outs),
            **{k: bwd[f"{key}_{k}"] for k in kernel_timed},
@@ -1825,7 +2148,7 @@ def main() -> int:
                          **{k: row[k] for k in library_timed}}
                   for case, row in [*((c, bwd_rows[c])
                                       for c in TIMED_BWD_CASES),
-                                    (HEAD_DIM_TIMED[0], narrow_timed)]},
+                                    *dims_timed.items()]},
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)"}
           for key, line, outs in (("dq", 167, ("dq",)),
@@ -1836,14 +2159,17 @@ def main() -> int:
          "launches": sum(launches("partial").values()),
          "launches_by_path": launches("partial"),
          "max_abs_err": max([row["max_err_acc"] for row in partial.values()]
-                            + [narrow["partial"]]),
-         "max_abs_err_head_dims_16_32": narrow["partial"],
+                            + [other_dims["partial"]]),
+         "max_abs_err_other_head_dims": other_dims["partial"],
          "max_rel_err_acc": max(row["rel_err_acc"]
                                 for row in partial.values()),
          "max_err_m": max(row["max_err_m"] for row in partial.values()),
          **{key: hop[key] for key in timed},
-         "at": {name: {key: partial[name][key] for key in timed}
-                for name in TIMED_PARTIAL_CASES},
+         "at": {**{name: {key: partial[name][key] for key in timed}
+                   for name in TIMED_PARTIAL_CASES},
+                **{name: {key: row[f"partial_{key}"] for key in timed}
+                   for name, row in dims_timed.items()
+                   if "partial_ms" in row}},
          "library_call": "F.scaled_dot_product_attention(is_causal=True): "
                          "the same products, normalized"}]})
     print(card, flush=True)

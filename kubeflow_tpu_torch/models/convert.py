@@ -13,19 +13,23 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import resolve_device
-from kubeflow_tpu_torch.models import burnin, moe
+from kubeflow_tpu_torch.models import burnin, moe, pipelined, vision
 from kubeflow_tpu_torch.models.longctx import LongContextConfig
 
 # Each config's parameter tree (the long-context model's is the burn-in's).
 _CONFIGS = {burnin.BurninConfig: burnin.param_shapes,
             LongContextConfig: burnin.param_shapes,
-            moe.MoEConfig: moe.param_shapes}
+            moe.MoEConfig: moe.param_shapes,
+            pipelined.PipelinedConfig: pipelined.param_shapes,
+            vision.VisionConfig: vision.param_shapes}
 
 
 def params_from_jax(tree, cfg, device=None) -> dict:
     """The JAX pytree (numpy leaves) of a ``BurninConfig``,
-    ``LongContextConfig`` or ``MoEConfig`` model as f32 tensors on
-    ``device`` (an MoE tree unsharded: ``moe.shard_params`` cuts it)."""
+    ``LongContextConfig``, ``MoEConfig``, ``PipelinedConfig`` or
+    ``VisionConfig`` model as f32 tensors on ``device`` (an MoE or a
+    pipelined tree unsharded: their ``shard_params`` cut it; a vision
+    tree's conv weights HWIO, as the JAX package keeps them)."""
     param_shapes = _CONFIGS.get(type(cfg))
     if param_shapes is None:
         raise TypeError(f"no parameter tree for {type(cfg).__name__}; "

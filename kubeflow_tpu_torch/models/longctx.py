@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from kubeflow_tpu_torch.models import burnin
 from kubeflow_tpu_torch.models.burnin import _rmsnorm
 from kubeflow_tpu_torch.models.tree import leaves, value_and_grad
+from kubeflow_tpu_torch.parallel.mesh import world_size
 from kubeflow_tpu_torch.parallel.ring import Axis, ring_attention
 from kubeflow_tpu_torch.parallel.ulysses import (
     ring_ulysses_attention,
@@ -167,10 +168,7 @@ def make_train_step(cfg: LongContextConfig, mesh=None, lr: float = 1e-3,
     this process's loss share, summed over the world, and ``p - lr * g``
     on every leaf, in place (the counterpart of the JAX step's donated
     params). The loss returned is the global mean, on the device."""
-    world = 1 if mesh is None else mesh.size()
-    if world > 1 and world != dist.get_world_size():
-        raise ValueError(f"the mesh holds {world} processes of a world of "
-                         f"{dist.get_world_size()}")
+    world = world_size(mesh)
 
     def step(params, tokens):
         loss, grads = value_and_grad(loss_fn, params, tokens, cfg, mesh,

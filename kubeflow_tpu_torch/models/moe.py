@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.burnin import _attention, _rmsnorm
 from kubeflow_tpu_torch.models.tree import leaves, map_params, value_and_grad
-from kubeflow_tpu_torch.parallel.moe import moe_ffn, world_size
+from kubeflow_tpu_torch.parallel.mesh import world_size
+from kubeflow_tpu_torch.parallel.moe import moe_ffn
 from kubeflow_tpu_torch.parallel.ring import Axis
 
 __all__ = ["MoEConfig", "forward", "init_params", "loss_fn",

@@ -778,8 +778,10 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(Params p) {
   __shared__ float qs[kRowsPerCta][D];
   __shared__ float dos[kRowsPerCta][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int row = blockIdx.x * kRowsPerCta + warp;
+  // One grid dimension (x) over (b*h, row block): any batch * heads fits.
+  const int row_blocks = (p.s_q + kRowsPerCta - 1) / kRowsPerCta;
+  const int bh = blockIdx.x / row_blocks, bi = bh / p.h, hi = bh % p.h;
+  const int row = (blockIdx.x % row_blocks) * kRowsPerCta + warp;
   if (row >= p.s_q) return;
 
   const float* q = head_of<float>(p.q, p, kQ, bi, hi) +
@@ -854,8 +856,10 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
   __shared__ float ks[kRowsPerCta][D];
   __shared__ float vs[kRowsPerCta][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int key = blockIdx.x * kRowsPerCta + warp;
+  // One grid dimension (x) over (b*h, row block): any batch * heads fits.
+  const int row_blocks = (p.s_k + kRowsPerCta - 1) / kRowsPerCta;
+  const int bh = blockIdx.x / row_blocks, bi = bh / p.h, hi = bh % p.h;
+  const int key = (blockIdx.x % row_blocks) * kRowsPerCta + warp;
   if (key >= p.s_k) return;
 
   const float* kr = head_of<float>(p.k, p, kK, bi, hi) +
@@ -931,14 +935,14 @@ int encode_tensor(CUtensorMap* map, const void* ptr, const Params& p,
 
 template <int D>
 int launch_dq_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.s_q + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
+  const dim3 grid((p.s_q + kRowsPerCta - 1) / kRowsPerCta * p.b * p.h);
   dq_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.s_k + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
+  const dim3 grid((p.s_k + kRowsPerCta - 1) / kRowsPerCta * p.b * p.h);
   dkv_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }

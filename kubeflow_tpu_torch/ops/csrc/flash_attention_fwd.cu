@@ -507,8 +507,10 @@ __device__ __forceinline__ void f32_attention(const Params& p) {
   constexpr int kPer = D / 32;  // output columns per lane, at most
   __shared__ float qs[kRowsPerCta][D];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int row = blockIdx.x * kRowsPerCta + warp;
+  // One grid dimension (x) over (b*h, row block): any batch * heads fits.
+  const int row_blocks = (p.s + kRowsPerCta - 1) / kRowsPerCta;
+  const int bh = blockIdx.x / row_blocks, bi = bh / p.h, hi = bh % p.h;
+  const int row = (blockIdx.x % row_blocks) * kRowsPerCta + warp;
   if (row >= p.s) return;
 
   const float* q = static_cast<const float*>(p.q) + bi * p.q_sb +
@@ -646,13 +648,14 @@ template <int D, bool kPartial>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   void (*kernel)(Params) =
       kPartial ? &partial_f32_kernel<D> : &fwd_f32_kernel<D>;
-  const dim3 grid((p.s + kRowsPerCta - 1) / kRowsPerCta, p.b * p.h);
+  const dim3 grid((p.s + kRowsPerCta - 1) / kRowsPerCta * p.b * p.h);
   kernel<<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Head dims: a multiple of 8 up to 128, on the narrowest tile that holds
-// it (bf16: 64 or 128 columns; f32: 32, 64 or 128 lanes' columns).
+// it (bf16: 64 or 128 columns; f32: 32, 64 or 128 lanes' columns); wider
+// heads run flash_attention_wide.cu's kernels.
 template <bool kPartial>
 int launch(Params p, int d, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

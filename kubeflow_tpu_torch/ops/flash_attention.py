@@ -9,8 +9,10 @@ forward (``_partial_kernel``, :func:`flash_attention_partial`), whose
 backward is :func:`flash_attention_partial_grads` on the backward kernels.
 The CUDA sources are ``csrc/flash_attention_fwd.cu`` (the forward and the
 partial share its loop) and ``csrc/flash_attention_bwd.cu``, built on the
-Hopper helpers of ``csrc/hopper.cuh``; their headers state each kernel's
-bound on an H100 and what the design does about it.
+Hopper helpers of ``csrc/hopper.cuh``, for heads up to 128 columns, and
+``csrc/flash_attention_wide.cu``, the four kernels for wider heads; their
+headers state each kernel's bound on an H100 and what the design does
+about it.
 
 Dispatch is by the tensors' device. A CUDA tensor launches the kernel
 (built from the source at first use, see :mod:`._build`) or raises; it
@@ -26,10 +28,17 @@ Layout and shape contract follow the JAX wrapper: q, k, v are
 the default scale is ``1/sqrt(head_dim)``, and a sequence longer than a
 block must be a multiple of it: ``block_q`` and ``block_k`` (the JAX
 default 1024) enter only that check. lse and delta are f32
-``[batch * heads, seq]``. The kernels' own tiles are internal. The kernels
-take every head dim that is a multiple of 8 up to 128 (``KERNEL_HEAD_DIMS``:
-a narrower head runs on a 64- or 128-column tile whose columns past it
-are zeros); the plain versions, like the JAX kernels, take any.
+``[batch * heads, seq]``. The kernels' own tiles are internal.
+
+Head dims: the Hopper kernels take every multiple of 8 up to
+``TILE_MAX_HEAD_DIM`` (128; a narrower head runs on a 64- or 128-column
+tile whose columns past it are zeros), the wide kernels every multiple of
+8 above it up to ``WIDE_MAX_HEAD_DIM`` (824, what one CTA's shared memory
+holds). A head dim that is no multiple of 8 is copied into zero-padded
+``[b, s, h, round_up(d, 8)]`` tensors first (zero columns add exactly 0
+to every product and to delta; the scale stays ``1/sqrt(d)`` of the true
+d), and the outputs are sliced back to d. Any batch * heads is taken.
+The plain versions, like the JAX kernels, take any head dim.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from kubeflow_tpu_torch.ops import _build
 
@@ -54,10 +64,15 @@ DO_COPIES = 0
 
 SOURCE = "flash_attention_fwd.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
+WIDE_SOURCE = "flash_attention_wide.cu"
 # TMA moves rows whose strides are multiples of 16 bytes, and the heads of
-# a qkv slice lie head_dim elements apart: multiples of 8, up to the
-# widest tile.
-KERNEL_HEAD_DIMS = tuple(range(8, 129, 8))
+# a qkv slice lie head_dim elements apart: the kernels take multiples of 8
+# (others are padded to one), the Hopper ones up to their widest tile.
+TILE_MAX_HEAD_DIM = 128
+# The wide kernels' cap: dK/dV keeps K, V and two f32 accumulators of 16
+# rows at full width in shared memory, 256 d + 20,864 bytes of the 232,448
+# a CTA may have (csrc/flash_attention_wide.cu checks the same number).
+WIDE_MAX_HEAD_DIM = 824
 _NEG_BIG = -1e30
 # The JAX wrapper's blocks (default DEFAULT_BLOCK_Q/K) fix which sequence
 # lengths it accepts; the port keeps that contract.
@@ -129,13 +144,44 @@ def _kernel_readable(t: torch.Tensor) -> bool:
             and all(st % per16 == 0 for st in t.stride()[:3]))
 
 
+def _padded_dim(d: int) -> int:
+    return -(-d // 8) * 8
+
+
 def _check_kernel_shape(q) -> None:
-    b, _, h, d = q.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the CUDA kernels take multiples "
-                         f"of 8 from 8 to 128")
-    if b * h > 65535:
-        raise ValueError(f"batch*heads {b * h} exceeds the kernel grid")
+    d = q.shape[-1]
+    if _padded_dim(d) > WIDE_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the CUDA kernels take head dims up "
+                         f"to {WIDE_MAX_HEAD_DIM} (what one CTA's shared "
+                         f"memory holds in the wide dK/dV kernel)")
+
+
+def _pad_heads(*tensors):
+    """Each tensor (or None) copied into a contiguous one whose head dim
+    is padded with zero columns to the next multiple of 8."""
+    return [None if t is None
+            else F.pad(t, (0, _padded_dim(t.shape[-1]) - t.shape[-1]))
+            for t in tensors]
+
+
+def _on_kernel(launch, *args):
+    """``launch(*args)``, the kernel launcher, on CUDA tensors. A head dim
+    that is no multiple of 8 is zero-padded to the next one in every
+    ``[b, s, h, d]`` argument (q, k, v, o, dO), and the ``[b, s, h, d]``
+    outputs are sliced back to d: zero columns add exactly 0 to QK^T,
+    dO V^T and delta, and the caller's scale is that of the true d."""
+    d = args[0].shape[-1]
+    _check_kernel_shape(args[0])
+    if d % 8 == 0:
+        return launch(*args)
+    outs = launch(*(_pad_heads(a)[0]
+                    if isinstance(a, torch.Tensor) and a.dim() == 4 else a
+                    for a in args))
+    return tuple(t[..., :d] if t.dim() == 4 else t for t in outs)
+
+
+def _wide(q) -> bool:
+    return q.shape[-1] > TILE_MAX_HEAD_DIM
 
 
 @contextlib.contextmanager
@@ -172,6 +218,50 @@ def _library(lib: ctypes.CDLL | None = None) -> ctypes.CDLL:
     return lib
 
 
+def _wide_library() -> ctypes.CDLL:
+    """The wide-head library (head dims above ``TILE_MAX_HEAD_DIM``), its
+    entry points typed."""
+    lib = _build.load(WIDE_SOURCE)
+    if lib.kftpu_wide_fwd.argtypes is None:
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.kftpu_wide_fwd.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+        lib.kftpu_wide_bwd_dq.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+        lib.kftpu_wide_bwd_dkv.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        for fn in (lib.kftpu_wide_fwd, lib.kftpu_wide_bwd_dq,
+                   lib.kftpu_wide_bwd_dkv, lib.kftpu_wide_max_head_dim):
+            fn.restype = ctypes.c_int
+        lib.kftpu_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.kftpu_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def wide_max_head_dim() -> int:
+    """The wide kernels' cap as their library states it (builds it)."""
+    return _wide_library().kftpu_wide_max_head_dim()
+
+
+def _launch_wide_fwd(q, k, v, o, lse, m, l, causal, scale, q_offset,
+                     k_offset, what):
+    b, s, h, d = q.shape
+    lib = _wide_library()
+    with _on_device(q.device) as stream:
+        err = lib.kftpu_wide_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _ptr(lse), _ptr(m), _ptr(l), b, s, h, d, _DTYPE_CODES[q.dtype],
+            _strides(q, k, v, o, None, None, None, None), scale, int(causal),
+            q_offset, k_offset, int(m is not None), stream)
+    _raise_on(err, lib, what)
+
+
 def _launch(q, k, v, causal: bool, scale: float, lib=None):
     global LAUNCHES
     b, s, h, d = q.shape
@@ -180,6 +270,11 @@ def _launch(q, k, v, causal: bool, scale: float, lib=None):
         _check_kernel_layout(name, t)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    if _wide(q):
+        _launch_wide_fwd(q, k, v, o, lse, None, None, causal, scale, 0, 0,
+                         "flash_attention_fwd")
+        LAUNCHES += 1
+        return o, lse
     lib = _library(lib)
     with _on_device(q.device) as stream:
         err = lib.kftpu_flash_attention_fwd(
@@ -203,7 +298,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     _check(q, k, v, block_q, block_k)
     scale = _default_scale(scale, q)
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, scale)
+        return _on_kernel(_launch, q, k, v, causal, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     raise ValueError(f"no flash attention for device {q.device}")
@@ -405,9 +500,11 @@ def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
         delta = torch.empty((b * h, s_q), dtype=torch.float32,
                             device=q.device)
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
-    lib = _bwd_library(lib)
+    lib = _wide_library() if _wide(q) else _bwd_library(lib)
+    entry = (lib.kftpu_wide_bwd_dq if _wide(q)
+             else lib.kftpu_flash_attention_bwd_dq)
     with _on_device(q.device) as stream:
-        err = lib.kftpu_flash_attention_bwd_dq(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(o), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, s_q, k.shape[1], h, d, _DTYPE_CODES[q.dtype],
@@ -428,9 +525,11 @@ def _launch_dkv(q, k, v, lse, do, delta, causal, scale, q_offset, k_offset,
     b, s_q, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    lib = _bwd_library(lib)
+    lib = _wide_library() if _wide(q) else _bwd_library(lib)
+    entry = (lib.kftpu_wide_bwd_dkv if _wide(q)
+             else lib.kftpu_flash_attention_bwd_dkv)
     with _on_device(q.device) as stream:
-        err = lib.kftpu_flash_attention_bwd_dkv(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, s_q, k.shape[1], h, d, _DTYPE_CODES[q.dtype],
@@ -452,7 +551,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     _check_bwd(q, k, v, o, lse, do, delta, block_q, block_k)
     args = (_default_scale(scale, q), int(q_offset), int(k_offset))
     if q.device.type == "cuda":
-        return _launch_dq(q, k, v, o, lse, do, delta, causal, *args)
+        return _on_kernel(_launch_dq, q, k, v, o, lse, do, delta, causal,
+                          *args)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_reference(
             q, k, v, o, lse, do, causal=causal, scale=args[0],
@@ -469,7 +569,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, delta, *, causal: bool = True,
     _check_bwd(q, k, v, None, lse, do, delta, block_q, block_k)
     args = (_default_scale(scale, q), int(q_offset), int(k_offset))
     if q.device.type == "cuda":
-        return _launch_dkv(q, k, v, lse, do, delta, causal, *args)
+        return _on_kernel(_launch_dkv, q, k, v, lse, do, delta, causal,
+                          *args)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_reference(
             q, k, v, lse, do, delta, causal=causal, scale=args[0],
@@ -489,16 +590,25 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     computed from o and dO when given."""
     global DO_COPIES
     _check_bwd(q, k, v, o, lse, do, delta, block_q, block_k)
-    if q.device.type == "cuda" and not _kernel_readable(do):
+    # The scale of the true d, before any padding.
+    kw = dict(causal=causal, scale=_default_scale(scale, q),
+              q_offset=q_offset, k_offset=k_offset, block_q=block_q,
+              block_k=block_k)
+
+    def pair(q, k, v, o, lse, do, delta):
+        dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, delta=delta,
+                                           **kw)
+        return (dq, *flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw))
+
+    if q.device.type != "cuda":
+        return pair(q, k, v, o, lse, do, delta)
+    if q.shape[-1] % 8 == 0 and not _kernel_readable(do):
         # Autograd may hand over an expanded dO (zero strides, e.g. after
         # a .sum()); the kernels' 16-byte loads need real rows, so copy.
         do = do.contiguous()
         DO_COPIES += 1
-    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
-              k_offset=k_offset, block_q=block_q, block_k=block_k)
-    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, delta=delta, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw)
-    return dq, dk, dv
+    # Padded once for both kernels.
+    return _on_kernel(pair, q, k, v, o, lse, do, delta)
 
 
 def flash_attention_partial_grads(q, k, v, do, lse, delta, q_offset,
@@ -558,6 +668,11 @@ def _launch_partial(q, k, v, q_offset: int, k_offset: int, scale: float,
     o = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if _wide(q):
+        _launch_wide_fwd(q, k, v, o, None, m, l, True, scale, q_offset,
+                         k_offset, "flash_attention_partial")
+        PARTIAL_LAUNCHES += 1
+        return o, m, l
     lib = _library(lib)
     with _on_device(q.device) as stream:
         err = lib.kftpu_flash_attention_partial(
@@ -585,7 +700,8 @@ def flash_attention_partial(q, k, v, q_offset: int, k_offset: int, *,
     _check(q, k, v, block_q, block_k)
     scale = _default_scale(scale, q)
     if q.device.type == "cuda":
-        return _launch_partial(q, k, v, int(q_offset), int(k_offset), scale)
+        return _on_kernel(_launch_partial, q, k, v, int(q_offset),
+                          int(k_offset), scale)
     if q.device.type == "cpu":
         return flash_attention_partial_reference(q, k, v, q_offset, k_offset,
                                                  scale=scale)

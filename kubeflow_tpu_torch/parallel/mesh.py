@@ -5,7 +5,8 @@ The port of ``kubeflow_tpu/parallel/mesh.py``. ``MeshPlan`` and
 ``plan_mesh`` are its arithmetic, copied; ``make_mesh`` builds a
 ``torch.distributed.device_mesh.DeviceMesh`` with the same axis names
 over the processes of the current process group (one process a card),
-where the JAX package lays ``jax.devices()`` out as a ``Mesh``. The JAX
+where the JAX package lays ``jax.devices()`` out as a ``Mesh``;
+``world_size`` checks that a mesh spans that whole group. The JAX
 module's ``shard_map_compat`` has no counterpart: each process runs its
 own shard, and the collectives are explicit.
 """
@@ -61,3 +62,13 @@ def make_mesh(plan: MeshPlan | None = None,
     return DeviceMesh(device_type,
                       torch.arange(world).reshape(plan.data, plan.model),
                       mesh_dim_names=("data", "model"))
+
+
+def world_size(mesh) -> int:
+    """Processes in ``mesh`` (``None``: 1), which must be the whole world
+    of the default process group when more than one."""
+    size = 1 if mesh is None else mesh.size()
+    if size > 1 and size != dist.get_world_size():
+        raise ValueError(f"the mesh holds {size} processes of a world of "
+                         f"{dist.get_world_size()}")
+    return size

@@ -41,11 +41,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.parallel.mesh import world_size
 from kubeflow_tpu_torch.parallel.ring import Axis
 from kubeflow_tpu_torch.parallel.ulysses import all_to_all
 
 __all__ = ["load_balancing_loss", "moe_ffn", "moe_ffn_local",
-           "router_dispatch", "router_slots", "top_k", "world_size"]
+           "router_dispatch", "router_slots", "top_k"]
 
 
 def _stage(name: str):
@@ -257,16 +258,6 @@ class _WorldMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad
-
-
-def world_size(mesh) -> int:
-    """Processes in ``mesh`` (``None``: 1), which must be the whole world
-    of the default process group when more than one."""
-    size = 1 if mesh is None else mesh.size()
-    if size > 1 and size != dist.get_world_size():
-        raise ValueError(f"the mesh holds {size} processes of a world of "
-                         f"{dist.get_world_size()}")
-    return size
 
 
 def moe_ffn(x, router_w, expert_w1, expert_w2, mesh=None,

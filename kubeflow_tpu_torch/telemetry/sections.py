@@ -2,7 +2,8 @@
 
 The counterpart of ``kubeflow_tpu/telemetry/sections.py``, trimmed to the
 sections the ported slices run. Every collective in ``parallel/ring.py``,
-``parallel/ulysses.py`` and ``parallel/moe.py`` goes through
+``parallel/ulysses.py``, ``parallel/moe.py`` and ``parallel/pipeline.py``
+goes through
 :func:`collective`, which rejects a name that is not registered in
 ``SECTION_SPECS`` and runs the op inside
 ``torch.profiler.record_function("kftpu." + name)``, so a profiler trace
@@ -29,6 +30,9 @@ SECTION_SPECS = (
      "token-slot all_to_all scattering tokens to their experts"),
     ("moe_combine_all_to_all", "kubeflow_tpu_torch/parallel/moe",
      "expert-output all_to_all returning tokens to their home shard"),
+    ("pipeline_stage_hop", "kubeflow_tpu_torch/parallel/pipeline",
+     "activation send to the next pipeline stage (and its cotangent "
+     "back)"),
 )
 
 SECTION_NAMES = frozenset(spec[0] for spec in SECTION_SPECS)

@@ -201,11 +201,12 @@ def test_forward_kernel_is_deterministic(cuda):
 
 @pytest.mark.cuda
 def test_kernel_refuses_head_dims_it_lacks(cuda):
-    # The kernels take multiples of 8 up to 128 (TMA's 16-byte strides
-    # between the heads of a qkv slice; the widest tile): 20 and 136 stay
-    # refused, in both dtypes, before anything launches.
+    # The kernels take every head dim up to the wide kernels' cap (padded
+    # to a multiple of 8 where it is none): the cap + 8 stays refused, in
+    # both dtypes, before anything launches; the cap is the library's own.
+    assert fa.wide_max_head_dim() == fa.WIDE_MAX_HEAD_DIM
     before = (fa.LAUNCHES, fa.PARTIAL_LAUNCHES)
-    for d in (20, 136):
+    for d in (fa.WIDE_MAX_HEAD_DIM + 1, fa.WIDE_MAX_HEAD_DIM + 8):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv((1, 64, 2, d), dtype, cuda)
             with pytest.raises(ValueError, match="head_dim"):
@@ -213,6 +214,91 @@ def test_kernel_refuses_head_dims_it_lacks(cuda):
             with pytest.raises(ValueError, match="head_dim"):
                 fa.flash_attention_partial(q, k, v, 0, 0)
     assert (fa.LAUNCHES, fa.PARTIAL_LAUNCHES) == before
+
+
+# Every head dim the JAX kernels take: no multiple of 8 (20, 36: padded
+# with zero columns onto the Hopper kernels), above their 128-column tile
+# (136, 192, Gemma's 256: the wide kernels) and the wide kernels' cap,
+# through all four kernels at the tolerances above. Causal cases span 10
+# of the wide kernels' 16-row tiles and 5 of their 32-row streamed tiles;
+# full cases are ragged.
+ANY_HEAD_DIMS = (20, 36, 136, 192, 256, fa.WIDE_MAX_HEAD_DIM)
+
+
+def _any_head_dim_shape(d, causal):
+    if d == fa.WIDE_MAX_HEAD_DIM:
+        return (1, 64, 2, d) if causal else (1, 45, 1, d)
+    return (2, 160, 3, d) if causal else (1, 77, 2, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_any_head_dim_forward_and_backward_match_plain_version(cuda, d,
+                                                               causal,
+                                                               dtype):
+    _check_forward_and_backward(_any_head_dim_shape(d, causal), causal,
+                                dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+@pytest.mark.parametrize("case", ["below", "diagonal", "above",
+                                  "unaligned"])
+def test_any_head_dim_partial_and_hop_backward_match_plain_version(
+        cuda, case, d, dtype):
+    shape, q_off, k_off = PARTIAL_CASES[case]
+    shape = (1, 96, 2, d) if d == fa.WIDE_MAX_HEAD_DIM else shape[:3] + (d,)
+    _check_partial_and_hop_backward(shape, q_off * shape[1] // 256,
+                                    k_off * shape[1] // 256, dtype, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [20, 136])
+def test_any_head_dim_reads_qkv_column_slices(cuda, d):
+    """Heads d elements apart in one [b, s, 3*h*d] product, as the models
+    hand them over: the same bits as the contiguous case."""
+    b, s, h = 2, 96, 3
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, s, h, d), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    dense = [t.contiguous() for t in (q, k, v)]
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(*dense)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, c in zip(fa.flash_attention_bwd(q, k, v, o, lse, do),
+                    fa.flash_attention_bwd(*dense, o, lse, do)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_take_more_than_65535_batch_heads(cuda, dtype):
+    # b*h = 66560: past a grid's y and z limits, which the f32 kernels
+    # once put heads on.
+    shape = (1040, 64, 64, 16)
+    q, k, v, _, _, do = _bwd_inputs(shape, dtype, cuda)
+    before = _counts() + (fa.PARTIAL_LAUNCHES,)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    ro, rlse = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=0,
+                               atol=TOL_O[dtype])
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
+    del o, lse
+    _assert_grads_close(
+        fa.flash_attention_bwd(q, k, v, ro, rlse, do),
+        fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do), dtype)
+    _assert_partial_close(
+        fa.flash_attention_partial(q, k, v, 64, 0),
+        fa.flash_attention_partial_reference(q, k, v, 64, 0), dtype)
+    torch.cuda.synchronize()
+    assert _counts() + (fa.PARTIAL_LAUNCHES,) == tuple(
+        c + 1 for c in before)
 
 
 # Narrow heads, as the JAX package's default configs give them (d_model
@@ -236,19 +322,33 @@ NARROW_CASES = {
 def test_narrow_heads_forward_and_backward_match_plain_version(cuda, case,
                                                                dtype):
     shape, causal = NARROW_CASES[case]
-    q, k, v, o_ref, lse_ref, do = _bwd_inputs(shape, dtype, cuda)
+    _check_forward_and_backward(shape, causal, dtype, cuda)
+
+
+def _check_forward_and_backward(shape, causal, dtype, device):
+    """The forward and the backward (one launch each) against their plain
+    versions, and the two backward kernels alone as a ring hop calls them
+    (delta given)."""
+    q, k, v, _, _, do = _bwd_inputs(shape, dtype, device)
     before = _counts()
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
     got = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal=causal)
     torch.cuda.synchronize()
     assert _counts() == tuple(c + 1 for c in before)
+    assert o.shape == q.shape and all(g.shape == q.shape for g in got)
     torch.testing.assert_close(o.float(), ro.float(), rtol=0,
                                atol=TOL_O[dtype])
     torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
     ref = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do,
                                            causal=causal)
     _assert_grads_close(got, ref, dtype)
+    delta = fa.attention_delta(ro, do)
+    dq, _ = fa.flash_attention_bwd_dq(q, k, v, None, rlse, do,
+                                      causal=causal, delta=delta)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, rlse, do, delta,
+                                        causal=causal)
+    _assert_grads_close((dq, dk, dv), ref, dtype)
 
 
 @pytest.mark.cuda
@@ -259,7 +359,14 @@ def test_narrow_heads_forward_and_backward_match_plain_version(cuda, case,
 def test_narrow_heads_partial_and_hop_backward_match_plain_version(
         cuda, case, d, dtype):
     shape, q_off, k_off = PARTIAL_CASES[case]
-    q, k, v, o, lse, do = _bwd_inputs(shape[:3] + (d,), dtype, cuda)
+    _check_partial_and_hop_backward(shape[:3] + (d,), q_off, k_off, dtype,
+                                    cuda)
+
+
+def _check_partial_and_hop_backward(shape, q_off, k_off, dtype, device):
+    """The partial kernel at a hop's offsets and the backward kernels
+    there (the final delta given) against their plain versions."""
+    q, k, v, o, lse, do = _bwd_inputs(shape, dtype, device)
     before = fa.PARTIAL_LAUNCHES
     got = fa.flash_attention_partial(q, k, v, q_off, k_off)
     delta = fa.attention_delta(o, do)

@@ -5,7 +5,9 @@ Pallas kernel in interpret mode, as its own tests do. Both get the same
 numpy inputs. O is held against ``flash_attention`` and lse against
 ``_flash_fwd``'s ``lse[:, 0, :]`` (the TPU's sublane-replicated layout).
 The card's kernel is held against the plain version in
-``test_torch_cuda_kernels.py``.
+``test_torch_cuda_kernels.py``; here also the arithmetic the card's
+wrapper relies on for head dims that are no multiple of 8 (zero-padded
+heads) and the kernels' head-dim cap.
 """
 
 import jax.numpy as jnp
@@ -133,3 +135,91 @@ def test_plain_version_is_causal_and_floors_masked_rows():
     o2, _ = fa.flash_attention_fwd(tq, tk2, tv2)
     torch.testing.assert_close(o1[:, :-1], o2[:, :-1], rtol=0, atol=0)
     assert not torch.allclose(o1[:, -1], o2[:, -1])
+
+
+@pytest.mark.parametrize("d", [20, 36, 130])
+def test_zero_padded_heads_give_the_same_attention_and_gradients(d):
+    """What the card does with a head dim that is no multiple of 8: zero
+    columns up to the next multiple of 8, the scale of the true d, the
+    outputs sliced back. Zero columns add exactly 0 to every product and
+    to delta, so the plain versions agree on padded and unpadded heads
+    (f32, summation order only)."""
+    _, (q, k, v) = _inputs((1, 48, 2, d), "float32", seed=5)
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        q.shape).astype(np.float32))
+    pq, pk, pv, pdo = fa._pad_heads(q, k, v, do)
+    assert pq.shape[-1] == -(-d // 8) * 8 and pq.is_contiguous()
+    assert bool((pq[..., d:] == 0).all())
+    scale = 1.0 / d ** 0.5
+    o, lse = fa.flash_attention_reference(q, k, v)
+    po, plse = fa.flash_attention_reference(pq, pk, pv, scale=scale)
+    torch.testing.assert_close(po[..., :d], o, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(plse, lse, rtol=2e-6, atol=2e-6)
+    assert bool((po[..., d:] == 0).all())
+    grads = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    padded = fa.flash_attention_bwd_reference(
+        pq, pk, pv, *fa._pad_heads(o), lse, pdo, scale=scale)
+    for g, p in zip(grads, padded):
+        torch.testing.assert_close(p[..., :d], g, rtol=2e-6, atol=2e-6)
+        assert bool((p[..., d:] == 0).all())
+
+
+@pytest.mark.parametrize("d", [20, 36, 64])
+def test_on_kernel_pads_head_arguments_and_slices_head_outputs(d):
+    """``_on_kernel``, the one place where the CUDA wrappers pad: every
+    ``[b, s, h, d]`` argument reaches the launcher at the padded width and
+    every other argument as it was; ``[b, s, h, d]`` outputs come back at
+    d. The plain versions stand in for the launchers here (f32, summation
+    order only)."""
+    _, (q, k, v) = _inputs((1, 48, 2, d), "float32", seed=7)
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        q.shape).astype(np.float32))
+    width = -(-d // 8) * 8
+    scale = 1.0 / d ** 0.5
+    seen = []
+
+    def fwd(q, k, v, causal, scale):
+        seen.append(tuple(t.shape[-1] for t in (q, k, v)))
+        return fa.flash_attention_reference(q, k, v, causal=causal,
+                                            scale=scale)
+
+    def dq(q, k, v, o, lse, do, delta, causal, scale, q_offset, k_offset):
+        seen.append(tuple(t.shape[-1] for t in (q, k, v, o, do)))
+        assert lse.dim() == 2 and delta is None
+        return fa.flash_attention_bwd_dq_reference(
+            q, k, v, o, lse, do, causal=causal, scale=scale,
+            q_offset=q_offset, k_offset=k_offset)
+
+    def partial(q, k, v, q_offset, k_offset, scale):
+        seen.append(tuple(t.shape[-1] for t in (q, k, v)))
+        return fa.flash_attention_partial_reference(q, k, v, q_offset,
+                                                    k_offset, scale=scale)
+
+    o, lse = fa._on_kernel(fwd, q, k, v, True, scale)
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(o, ref_o, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-6, atol=2e-6)
+    dq_got, delta = fa._on_kernel(dq, q, k, v, o, lse, do, None, True,
+                                  scale, 0, 0)
+    ref_dq, ref_delta = fa.flash_attention_bwd_dq_reference(q, k, v, o, lse,
+                                                           do)
+    torch.testing.assert_close(dq_got, ref_dq, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(delta, ref_delta, rtol=2e-6, atol=2e-6)
+    acc, m, l = fa._on_kernel(partial, q, k, v, 48, 0, scale)
+    ref_acc, ref_m, ref_l = fa.flash_attention_partial_reference(q, k, v,
+                                                                 48, 0)
+    assert acc.shape == q.shape and m.shape == ref_m.shape
+    torch.testing.assert_close(acc, ref_acc, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(l, ref_l, rtol=2e-6, atol=2e-6)
+    assert seen == [(width,) * 3, (width,) * 5, (width,) * 3]
+
+
+def test_kernel_head_dim_cap():
+    """The CUDA kernels take head dims up to the wide kernels' cap, a head
+    dim that is no multiple of 8 counted at its padded width."""
+    for d in (8, 20, 128, 136, fa.WIDE_MAX_HEAD_DIM - 3,
+              fa.WIDE_MAX_HEAD_DIM):
+        fa._check_kernel_shape(torch.empty((1, 1, 1, d)))
+    for d in (fa.WIDE_MAX_HEAD_DIM + 1, fa.WIDE_MAX_HEAD_DIM + 8):
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            fa._check_kernel_shape(torch.empty((1, 1, 1, d)))

@@ -52,11 +52,16 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
     assert {"kubeflow_tpu_torch/models/moe.py",
             "kubeflow_tpu_torch/parallel/moe.py",
             "kubeflow_tpu_torch/parallel/mesh.py"} <= names
+    # The pipelined and vision slice.
+    assert {"kubeflow_tpu_torch/parallel/pipeline.py",
+            "kubeflow_tpu_torch/models/pipelined.py",
+            "kubeflow_tpu_torch/models/vision.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
-    # ring hop's partial kernel shares the forward's source).
+    # ring hop's partial kernel shares the forward's source; heads wider
+    # than 128 columns run the wide source's four kernels).
     csrc = REPO / "kubeflow_tpu_torch" / "ops" / "csrc"
-    assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu"} <= {
-        p.name for p in csrc.glob("*.cu")}
+    assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu",
+            "flash_attention_wide.cu"} <= {p.name for p in csrc.glob("*.cu")}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -76,7 +81,9 @@ def test_importing_the_engine_loads_no_jax():
     code = ("import sys, kubeflow_tpu_torch.serving.engine, "
             "kubeflow_tpu_torch.serving.loadgen, kubeflow_tpu_torch.models, "
             "kubeflow_tpu_torch.models.trainer, kubeflow_tpu_torch.entry, "
-            "kubeflow_tpu_torch.models.longctx; "
+            "kubeflow_tpu_torch.models.longctx, "
+            "kubeflow_tpu_torch.models.pipelined, "
+            "kubeflow_tpu_torch.models.vision; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
