@@ -27,7 +27,8 @@ last line. With no CUDA device it exits 1 and prints no result.
    of the three TMA tensor maps a launch encodes.
 4. bwd_kernels — the dQ and the dK/dV kernels against their plain
    versions at the training shape, the pipelined schedule's microbatch
-   (also a forward case), a multi-tile, a ragged, an f32 case,
+   and the wide_heads step's [8, 1024, 8, 256] (both also forward
+   cases), a multi-tile, a ragged, an f32 case,
    shapes across the kernels' tiles, ring-hop offsets (two straddling a
    128-row tile) and the long-context step's one-card hop; at the
    training shape a bitwise repeat, and q, k, v as column slices of one
@@ -85,15 +86,20 @@ last line. With no CUDA device it exits 1 and prints no result.
    forward launch. Then one step each of ``"ulysses_flash"`` (the forward,
    dQ and dK/dV kernels) and the dense ``"ring"``.
 14. head_dims (run after bwd_kernels) — the four kernels at head dims 16
-   and 32, at 20 and 36 (no multiple of 8: zero-padded onto the Hopper
-   kernels) and at 136, 192 and 256 (the wide kernels), bf16 and f32,
-   causal and full, against their plain versions at the tolerances above,
-   three cases also through qkv column slices (bitwise equal), and
-   b*h = 66560 ([1040, 64, 64, 16]) in both dtypes; at training shapes
-   of d = 32 [8, 1024, 64, 32], d = 20 [8, 1024, 64, 20] (with the
-   padding copies timed apart) and d = 256 [8, 1024, 16, 256] the
-   forward, dQ and dK/dV (at d = 256 also the partial) timed beside their
-   bounds, plain versions and SDPA.
+   and 32, at 20 and 36 (no multiple of 8: zero-padded onto the 128-column
+   kernels), at 136, 192, 200 and 256 (the wide library's wgmma kernels
+   in bf16) and at 264, 832 and 1024 (its simple kernels over 256-column
+   output slices), bf16 and f32, causal and full, against their plain
+   versions at the tolerances above, four cases also through qkv column
+   slices (bitwise equal), and b*h = 66560 ([1040, 64, 64, 16]) in both
+   dtypes; at d = 1024 the four column slices' outputs bitwise equal where the inputs' are
+   (each slice computes the softmax statistics, slice 0 writes them); a
+   bitwise repeat of the wgmma dK/dV at [8, 1024, 16, 256]; at training
+   shapes of d = 32 [8, 1024, 64, 32], d = 20 [8, 1024, 64, 20] (with the
+   padding copies timed apart) and d = 256 ([8, 1024, 16, 256], and the
+   wide_heads step's [8, 1024, 8, 256]) the forward, dQ and dK/dV (at
+   d = 256 also the partial) timed beside their bounds, plain versions
+   and SDPA.
 15. moe_grads — ``MOE_MODEL`` (bench.py's, uncut) at batch 8: the loss
    of ``attention="flash"`` against the dense path, the share of tokens
    whose top-1 expert differs between the two, and the gradients against
@@ -126,12 +132,19 @@ last line. With no CUDA device it exits 1 and prints no result.
 21. pipelined_schedule — the same through the GPipe ticks
    (``force_schedule=True``): one launch of each kernel per layer,
    microbatch and step.
+22. wide_heads — the training step at ``BENCH_MODEL``'s widths with 8
+   heads (head_dim 256: the wide library's kernels, the same GEMMs as
+   ``train``), batch 8, seq 1025: flash-vs-dense loss and every gradient
+   leaf at the ``train_grads`` bounds, then 2 warm-up steps, 10 timed (2
+   chunks of 5) and 3 profiled; launches counted from zero: one forward,
+   one dQ and one dK/dV per layer and step.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included, and
-``launches_by_path`` with ``moe``, ``vision``, ``pipelined`` and
-``pipelined_schedule``), the card line, and the result line.
+``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
+``pipelined_schedule`` and ``wide_heads``), the card line, and the result
+line.
 """
 
 from __future__ import annotations
@@ -178,6 +191,10 @@ KERNEL_CASES = [
     ("long_context", (1, 8192, 16, 128), "bfloat16", True),
     # The pipelined_schedule path's shape: a microbatch of 2 of PP_MODEL.
     ("pp_micro", (2, 1024, 16, 128), "bfloat16", True),
+    # The wide_heads path's: WIDE_MODEL's 8 heads of 256 at batch 8 (the
+    # wgmma forward over 64 (batch, head) pairs, in more than one launch
+    # group).
+    ("wide_heads", (8, 1024, 8, 256), "bfloat16", True),
 ]
 # The kernels timed: the forward at both sequence lengths the main paths
 # give it.
@@ -194,6 +211,11 @@ TRAIN_MODEL = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=8,
                    dtype="bfloat16")
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS, TRAIN_PROFILED = 2, 4, 25, 3
+# The wide-head step: BENCH_MODEL's widths with 8 heads (head_dim 256, as
+# Gemma's), batch 8: the same GEMMs as the train step, attention on the
+# wide library. Its gradients are held at the train_grads bounds.
+WIDE_MODEL = dict(TRAIN_MODEL, n_heads=8)
+WIDE_WARMUP, WIDE_CHUNKS, WIDE_CHUNK_STEPS, WIDE_PROFILED = 2, 2, 5, 3
 FIT_STEPS, FIT_ACCUM = 10, 2
 
 # Backward cases (name, [b, s, h, d], dtype, causal, q_offset, k_offset,
@@ -225,6 +247,10 @@ BWD_CASES = [
     ("one_card_hop", (1, 8192, 16, 128), "bfloat16", True, 0, 0, True),
     # The pipelined_schedule path's: a microbatch of 2 of PP_MODEL.
     ("pp_micro", (2, 1024, 16, 128), "bfloat16", True, 0, 0, False),
+    # The wide_heads path's: the simple dQ and the wgmma dK/dV at
+    # WIDE_MODEL's 8 heads of 256, in more than one launch group.
+    ("wide_heads", (TRAIN_BATCH, 1024, 8, 256), "bfloat16", True, 0, 0,
+     False),
 ]
 # The backward timed: at the train step's shape and the one-card hop.
 TIMED_BWD_CASES = ("train", "one_card_hop")
@@ -299,14 +325,16 @@ TOL_RING_GRAD = 2e-2
 # Head dims beside the main paths' 128: narrow heads, as the JAX
 # package's config defaults give them (d_model 128 over 4 heads: 32) and
 # bench.py's MC_LONGCTX_MODEL (16); head dims no multiple of 8 (20, 36),
-# which the wrapper zero-pads onto the Hopper kernels; and heads above 128
-# (136, 192, Gemma's 256), which run the wide kernels. (name, [b, s, h,
+# which the wrapper zero-pads onto the 128-column kernels; and heads above
+# 128, which run the wide library: 136 and 192 (bf16: the wgmma kernels at
+# 192 columns), 200 and Gemma's 256 (at 256), 264 (two 256-column output
+# slices of the simple kernels), 832 and 1024 (four). (name, [b, s, h,
 # d], dtype, causal), each through the forward, dQ and dK/dV, and (causal)
 # the partial at a hop below and on the diagonal, at the tolerances above
 # (TOL_O, TOL_LSE, TOL_GRAD, TOL_PARTIAL_*). Causal cases span 2.5 of the
-# Hopper kernels' 128-row tiles (20 of the wide kernels' 16-row tiles);
-# full cases are ragged.
-HEAD_DIMS = (16, 32, 20, 36, 136, 192, 256)
+# 128-row Q tiles (20 of the simple kernels' 16-row tiles); full cases
+# are ragged.
+HEAD_DIMS = (16, 32, 20, 36, 136, 192, 200, 256, 264, 832, 1024)
 HEAD_DIM_CASES = [
     (f"d{d}_{dtype}_{'causal' if causal else 'full'}",
      (2, 320, 4, d) if causal else (1, 200, 3, d), dtype, causal)
@@ -315,19 +343,29 @@ HEAD_DIM_CASES = [
 # The cases whose q, k, v are also read as column slices of one qkv
 # tensor, as the models hand them over (heads d elements apart).
 HEAD_DIM_STRIDED = ("d32_bfloat16_causal", "d20_bfloat16_causal",
-                    "d136_bfloat16_causal")
+                    "d136_bfloat16_causal", "d256_bfloat16_causal")
+# Four 256-column output slices whose inputs are equal: their outputs must
+# be bitwise equal (each slice computes the softmax statistics itself).
+SLICE_STATS = ("slices_d1024", (1, 320, 4, 1024))
+# The wgmma dK/dV's bitwise repeat at the wide training shape.
+WIDE_REPEAT = (8, 1024, 16, 256)
 # More (batch, head) pairs than a grid's y dimension holds: b*h = 66560,
 # each dtype through the four kernels.
 MANY_HEADS = ("bh66560", (1040, 64, 64, 16))
 # Timed: a d = 32 training shape (b*h = 512 heads of 1024 tokens), a
-# d = 20 one (zero-padded to 24: the copies timed apart) and a d = 256 one
-# ([8, 1024, 16, 256]: the wide kernels, also the partial); (case, kernel
-# runs as time_ms takes them: the wide kernels take tens of ms a call).
+# d = 20 one (zero-padded to 24: the copies timed apart) and two d = 256
+# ones (the wide library, also the partial): [8, 1024, 16, 256], and the
+# wide_heads step's [8, 1024, 8, 256]; (case, runs
+# as time_ms takes them by kernel: the simple dQ takes tens of ms a call,
+# the others time_ms's defaults).
 HEAD_DIM_TIMED = [
     (("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0, False), {}),
     (("d20_train", (8, 1024, 64, 20), "bfloat16", True, 0, 0, False), {}),
     (("d256_train", (8, 1024, 16, 256), "bfloat16", True, 0, 0, False),
-     dict(warmup=2, runs=10, batch=2)),
+     {"dq": dict(warmup=2, runs=10, batch=2)}),
+    # The shape the wide_heads step gives them: 8 heads of 256.
+    (("wide_heads", (8, 1024, 8, 256), "bfloat16", True, 0, 0, False),
+     {"dq": dict(warmup=2, runs=10, batch=2)}),
 ]
 
 # The MoE config: bench.py's MOE_MODEL uncut (bench.py:616-620; top-2 of 8
@@ -402,7 +440,10 @@ KERNEL_CATEGORIES = (
                                        "dkv_bf16_kernel",
                                        "partial_bf16_kernel",
                                        "wide_fwd_kernel", "wide_dq_kernel",
-                                       "wide_dkv_kernel")),
+                                       "wide_dkv_kernel",
+                                       "wide_fwd_bf16_kernel",
+                                       "wide_partial_bf16_kernel",
+                                       "wide_dkv_bf16_kernel")),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("casts and copies", ("copy",)),
@@ -597,7 +638,8 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta,
     and SDPA's backward (dq, dk and dv together: one PyTorch call for the
     same gradients, timed only, never on the port's path) by CUDA events
     and by the profiler's device time, naming the backend that ran.
-    ``runs`` (time_ms's keywords) times a slow kernel with fewer calls."""
+    ``runs`` maps "dq" or "dkv" to time_ms's keywords, to time a slow
+    kernel with fewer calls."""
     import torch.nn.functional as F
 
     name, shape, dtype, causal, q_off, k_off, given = case
@@ -616,9 +658,10 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta,
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, lse, do, delta, **kw))}
     for key, (run, plain) in calls.items():
-        row[f"{key}_ms"] = time_ms(run, **runs)
+        kw_runs = runs.get(key, {})
+        row[f"{key}_ms"] = time_ms(run, **kw_runs)
         row[f"{key}_profiler_ms"] = profiled(run, torch,
-                                             runs=runs.get("runs", 20))[0]
+                                             runs=kw_runs.get("runs", 20))[0]
         row[f"{key}_plain_ms"] = time_ms(plain, **plain_runs)
         (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
          row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal, key, given)
@@ -755,19 +798,16 @@ def _head_dim_case(torch, fa, q, k, v, do, causal) -> tuple:
 
 
 def phase_head_dims(torch, fa) -> dict:
-    """The four kernels at head dims 16, 32, 20, 36, 136, 192 and 256
-    against their plain versions; three cases also through qkv column
-    slices (bitwise equal to the contiguous case); b*h = 66560 in both
-    dtypes; the forward, dQ and dK/dV timed at a d = 32 and a d = 256
-    training shape beside their bounds, their plain versions and SDPA (and
-    at d = 256 the partial too)."""
+    """The four kernels at HEAD_DIMS against their plain versions; four
+    cases also through qkv column slices (bitwise equal to the contiguous
+    case); b*h = 66560 in both dtypes; the column slices' shared
+    statistics and the wgmma dK/dV's bitwise repeat; the forward, dQ and
+    dK/dV timed at d = 32, 20 and 256 training shapes
+    beside their bounds, their plain versions and SDPA (and at d = 256 the
+    partial too)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(97531)
-    if fa.wide_max_head_dim() != fa.WIDE_MAX_HEAD_DIM:
-        raise AssertionError(f"the wide library's head-dim cap "
-                             f"{fa.wide_max_head_dim()} is not the wrapper's "
-                             f"{fa.WIDE_MAX_HEAD_DIM}")
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "partial": 0.0}
 
     def book(row):
@@ -825,6 +865,9 @@ def phase_head_dims(torch, fa) -> dict:
         del q, k, v, do, _
         torch.cuda.empty_cache()
 
+    _head_dim_slices(torch, fa, gen)
+    _wide_dkv_repeat(torch, fa, gen)
+
     timed = {}
     for case, runs in HEAD_DIM_TIMED:
         name, shape, dtype, causal = case[:4]
@@ -841,9 +884,8 @@ def phase_head_dims(torch, fa) -> dict:
             return fa.flash_attention_fwd(q, k, v, causal=causal)
 
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row["fwd_ms"] = time_ms(run, **runs)
-        row["fwd_profiler_ms"] = profiled(run, torch,
-                                          runs=runs.get("runs", 20))[0]
+        row["fwd_ms"] = time_ms(run)
+        row["fwd_profiler_ms"] = profiled(run, torch)[0]
         row["fwd_plain_ms"] = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=causal),
             warmup=1, runs=5, batch=2)
@@ -862,9 +904,8 @@ def phase_head_dims(torch, fa) -> dict:
             def hop():
                 return fa.flash_attention_partial(q, k, v, 0, 0)
 
-            row["partial_ms"] = time_ms(hop, **runs)
-            row["partial_profiler_ms"] = profiled(
-                hop, torch, runs=runs.get("runs", 20))[0]
+            row["partial_ms"] = time_ms(hop)
+            row["partial_profiler_ms"] = profiled(hop, torch)[0]
             row["partial_plain_ms"] = time_ms(
                 lambda: fa.flash_attention_partial_reference(q, k, v, 0, 0),
                 warmup=1, runs=5, batch=2)
@@ -878,6 +919,58 @@ def phase_head_dims(torch, fa) -> dict:
         del q, k, v, do, o, lse, delta, qt, kt, vt
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, "timed": timed}
+
+
+def _head_dim_slices(torch, fa, gen) -> None:
+    """At d = 1024 the simple kernels run four 256-column output slices,
+    each computing the softmax statistics (lse; m and l; delta) from all
+    of d, slice 0 alone writing them. With q, k, v and dO made of four
+    equal 256-column blocks, each slice's block of o, acc, dq, dk and dv
+    comes from the same statistics and products in the same order: the
+    four blocks must be bitwise equal, in both dtypes."""
+    name, (b, s, h, d) = SLICE_STATS
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = (torch.randn((b, s, h, 256), generator=gen,
+                                   device="cuda").to(getattr(torch, dtype))
+                       .repeat(1, 1, 1, d // 256) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        acc, m, l = fa.flash_attention_partial(q, k, v, 0, 0)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        equal = {key: all(torch.equal(parts[0], x) for x in parts[1:])
+                 for key, t in zip(("o", "acc", "dq", "dk", "dv"),
+                                   (o, acc, *grads))
+                 for parts in [t.split(256, dim=-1)]}
+        _, rlse = fa.flash_attention_reference(q, k, v)
+        err_lse = (lse - rlse).abs().max().item()
+        row = {"phase": "head_dims", "case": f"{name}_{dtype}",
+               "shape": [b, s, h, d], "dtype": dtype,
+               "slices_bitwise_equal": equal, "max_err_lse": err_lse,
+               "tol_lse": TOL_LSE,
+               "ok": all(equal.values()) and err_lse <= TOL_LSE}
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"column slices disagree: {row}")
+        del q, k, v, do, o, lse, acc, m, l, grads
+    torch.cuda.empty_cache()
+
+
+def _wide_dkv_repeat(torch, fa, gen) -> None:
+    """The wgmma dK/dV at the wide training shape twice on the same
+    inputs: the same bits (no atomics; P^T handed over in shared memory)."""
+    q, k, v, do = (torch.randn(WIDE_REPEAT, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.attention_delta(o, do)
+    first = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
+    again = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
+    same = all(torch.equal(a, c) for a, c in zip(first, again))
+    emit({"phase": "head_dims", "case": "wide_dkv_bitwise_repeat",
+          "shape": list(WIDE_REPEAT), "bitwise_repeat": same, "ok": same})
+    if not same:
+        raise AssertionError("the wgmma dK/dV is not deterministic")
+    del q, k, v, do, o, lse, delta, first, again
+    torch.cuda.empty_cache()
 
 
 def phase_model(torch, fa, burnin) -> None:
@@ -1299,6 +1392,63 @@ def phase_train(torch, fa, burnin, card: str) -> dict:
             and last_loss < first_loss and copies == 0
             and launches == _burnin_counts(cfg.n_layers * run)):
         raise AssertionError(f"train phase failed: {row}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_wide_heads(torch, fa, burnin, card: str) -> dict:
+    """A training step at head_dim 256: WIDE_MODEL's loss and every
+    gradient leaf with attention="flash" against "xla" on the same
+    seeded params and tokens, then the step timed as bench.py times it and
+    profiled, with launches counted from zero."""
+    cfg = burnin.BurninConfig(**WIDE_MODEL)
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=5)
+    loss, grads = burnin.value_and_grad(burnin.loss_fn, params, tokens, cfg)
+    ref_loss, ref = burnin.value_and_grad(
+        burnin.loss_fn, params, tokens, replace(cfg, attention="xla"))
+    _, worst, least = _grad_gaps(torch, params, grads, ref)
+    gaps = {"loss_flash": float(loss), "loss_dense": float(ref_loss),
+            "loss_diff": float(loss) - float(ref_loss),
+            "worst_rel_l2": worst["rel_l2"],
+            "worst_rel_l2_leaf": worst["leaf"],
+            "min_cosine": least["cosine"], "min_cosine_leaf": least["leaf"],
+            "tol_loss": TOL_TRAIN_LOSS, "tol_rel_l2": TOL_GRAD_REL_L2,
+            "min_cosine_bound": MIN_GRAD_COSINE}
+    grads_ok = (abs(gaps["loss_diff"]) <= TOL_TRAIN_LOSS
+                and worst["rel_l2"] <= TOL_GRAD_REL_L2
+                and least["cosine"] >= MIN_GRAD_COSINE
+                and all(bool(torch.isfinite(g).all()) for g in grads))
+    del grads, ref
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    step = burnin.make_train_step(cfg)
+    timing = _timed_steps(torch, lambda: step(params, tokens)[1],
+                          WIDE_WARMUP, WIDE_CHUNKS, WIDE_CHUNK_STEPS)
+    prof = profile_steps(torch, lambda: step(params, tokens), WIDE_PROFILED)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    copies = fa.DO_COPIES
+    run = WIDE_WARMUP + timing["steps"] + WIDE_PROFILED
+    flops = train_step_flops(cfg, TRAIN_BATCH)
+    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
+    row = {"phase": "wide_heads", "config": WIDE_MODEL,
+           "head_dim": cfg.head_dim, "batch": TRAIN_BATCH, "card": card,
+           "grads": gaps, **timing, "flops_per_step": flops,
+           "tflops": tflops, "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "tokens_per_sec": TRAIN_BATCH * (cfg.seq_len - 1)
+           / (timing["step_ms"] / 1e3),
+           "launches": launches, "launches_expected": cfg.n_layers * run,
+           "do_copies": copies,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "profile": prof}
+    emit(row)
+    if not (grads_ok and math.isfinite(timing["loss_last"])
+            and timing["loss_last"] < timing["loss_first"] and copies == 0
+            and launches == _burnin_counts(cfg.n_layers * run)):
+        raise AssertionError(f"wide_heads phase failed: {row}")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2102,6 +2252,7 @@ def main() -> int:
     by_path["pipelined"] = phase_pipelined(torch, fa, pipelined, card, False)
     by_path["pipelined_schedule"] = phase_pipelined(torch, fa, pipelined,
                                                     card, True)
+    by_path["wide_heads"] = phase_wide_heads(torch, fa, burnin, card)
 
     def launches(kernel):
         return {path: counts.get(kernel, 0)

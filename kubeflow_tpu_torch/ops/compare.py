@@ -4,12 +4,15 @@ card, in turns.
 The builds: this checkout's ``csrc/`` sources (label ``this``) and, with
 ``--build LABEL=DIR``, the same sources from another checkout (for example
 an older commit unpacked with ``git archive``), which must keep the C
-interfaces. Each build runs through the wrappers' own launch code. The
+interfaces (the wide library's entry points take the caller's plan,
+width and slices, as the ``*_d256`` cases call them). Each build runs
+through the wrappers' own launch code. The
 cases: the forward at the serving decode shape and at the long-context
 length, the ring hop's partial at both (the one-card hop at the longer),
 and the backward's dQ and dK/dV kernels at the train step's shape (dQ
 computing delta) and at the long-context one-card hop (delta given, as
-the ring's backward calls them).
+the ring's backward calls them); and the wide library's forward, partial,
+dQ and dK/dV at the train shape with 256-column heads (``*_d256``).
 
 Run from the root of a checkout, on a machine with one card::
 
@@ -46,6 +49,9 @@ CASES = (
     ("partial_8192", "partial", (1, 8192, 16, 128), (0, 0)),
     ("bwd_train", "bwd", (8, 1024, 16, 128), None),
     ("bwd_8192_hop", "bwd", (1, 8192, 16, 128), (0, 0)),
+    ("fwd_d256", "fwd", (8, 1024, 16, 256), None),
+    ("partial_d256", "partial", (8, 1024, 16, 256), (0, 0)),
+    ("bwd_d256", "bwd", (8, 1024, 16, 256), None),
 )
 
 
@@ -77,7 +83,7 @@ def ptxas_notes(log: str) -> list[str]:
     from one nvcc log."""
     notes, kernel = [], None
     for line in log.splitlines():
-        found = re.search(r"([a-z]+_bf16_kernel)ILi(\d+)E", line)
+        found = re.search(r"([a-z_]+_bf16_kernel)ILi(\d+)E", line)
         if "entry function" in line:
             kernel = f"{found[1]}<{found[2]}>" if found else None
         elif kernel and "spill" in line:
@@ -88,12 +94,14 @@ def ptxas_notes(log: str) -> list[str]:
 
 
 def builds(others: dict) -> dict:
-    """Label -> ({"fwd": library, "bwd": library}, ptxas notes), compiled
-    together; ``others`` maps labels to other checkouts' roots."""
+    """Label -> ({"fwd": library, "bwd": library, "wide": library},
+    ptxas notes), compiled together; ``others`` maps labels to other
+    checkouts' roots."""
     dirs = {label: Path(root) / "kubeflow_tpu_torch" / "ops" / "csrc"
             for label, root in others.items()}
     dirs["this"] = _build.CSRC
-    sources = {"fwd": fa.SOURCE, "bwd": fa.BWD_SOURCE}
+    sources = {"fwd": fa.SOURCE, "bwd": fa.BWD_SOURCE,
+               "wide": fa.WIDE_SOURCE}
     _build.build([(src, d) for d in dirs.values() for src in sources.values()])
 
     def log(src, d):
@@ -108,9 +116,14 @@ def builds(others: dict) -> dict:
 
 def _kernel_calls(kernel, shape, offsets, libs):
     """Inputs for one case and, per kernel timed, the call of each build
-    and SDPA's call on the same inputs."""
+    and SDPA's call on the same inputs. Heads above 128 columns run each
+    build's wide library."""
     import torch.nn.functional as F
 
+    wide = shape[-1] > fa.TILE_MAX_HEAD_DIM
+    libs = {label: {"fwd": lib["wide" if wide else "fwd"],
+                    "bwd": lib["wide" if wide else "bwd"]}
+            for label, lib in libs.items()}
     gen = torch.Generator(device="cuda").manual_seed(97)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))

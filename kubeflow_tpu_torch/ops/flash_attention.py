@@ -10,9 +10,8 @@ backward is :func:`flash_attention_partial_grads` on the backward kernels.
 The CUDA sources are ``csrc/flash_attention_fwd.cu`` (the forward and the
 partial share its loop) and ``csrc/flash_attention_bwd.cu``, built on the
 Hopper helpers of ``csrc/hopper.cuh``, for heads up to 128 columns, and
-``csrc/flash_attention_wide.cu``, the four kernels for wider heads; their
-headers state each kernel's bound on an H100 and what the design does
-about it.
+``csrc/flash_attention_wide.cu`` for wider heads; their headers state each
+kernel's bound on an H100 and what the design does about it.
 
 Dispatch is by the tensors' device. A CUDA tensor launches the kernel
 (built from the source at first use, see :mod:`._build`) or raises; it
@@ -30,15 +29,18 @@ block must be a multiple of it: ``block_q`` and ``block_k`` (the JAX
 default 1024) enter only that check. lse and delta are f32
 ``[batch * heads, seq]``. The kernels' own tiles are internal.
 
-Head dims: the Hopper kernels take every multiple of 8 up to
-``TILE_MAX_HEAD_DIM`` (128; a narrower head runs on a 64- or 128-column
-tile whose columns past it are zeros), the wide kernels every multiple of
-8 above it up to ``WIDE_MAX_HEAD_DIM`` (824, what one CTA's shared memory
-holds). A head dim that is no multiple of 8 is copied into zero-padded
-``[b, s, h, round_up(d, 8)]`` tensors first (zero columns add exactly 0
-to every product and to delta; the scale stays ``1/sqrt(d)`` of the true
-d), and the outputs are sliced back to d. Any batch * heads is taken.
-The plain versions, like the JAX kernels, take any head dim.
+Head dims: every head dim, as the JAX kernels take. The 128-column
+kernels take every multiple of 8 up to ``TILE_MAX_HEAD_DIM`` (128; a
+narrower head runs on a 64- or 128-column tile whose columns past it are
+zeros); wider heads run the wide library, whose kernel for each head dim
+and dtype :func:`_wide_plan` chooses: the bf16 forward, partial and dK/dV
+on wgmma at 192 or 256 columns up to 256, everything else on simple
+kernels that split the output's columns into slices of 256. A head dim
+that is no multiple of 8 is copied into zero-padded ``[b, s, h,
+round_up(d, 8)]`` tensors first (zero columns add exactly 0 to every
+product and to delta; the scale stays ``1/sqrt(d)`` of the true d), and
+the outputs are sliced back to d. Any batch * heads is taken. The plain
+versions, like the JAX kernels, take any head dim.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -67,12 +70,13 @@ BWD_SOURCE = "flash_attention_bwd.cu"
 WIDE_SOURCE = "flash_attention_wide.cu"
 # TMA moves rows whose strides are multiples of 16 bytes, and the heads of
 # a qkv slice lie head_dim elements apart: the kernels take multiples of 8
-# (others are padded to one), the Hopper ones up to their widest tile.
+# (others are padded to one), the 128-column ones up to their widest tile.
 TILE_MAX_HEAD_DIM = 128
-# The wide kernels' cap: dK/dV keeps K, V and two f32 accumulators of 16
-# rows at full width in shared memory, 256 d + 20,864 bytes of the 232,448
-# a CTA may have (csrc/flash_attention_wide.cu checks the same number).
-WIDE_MAX_HEAD_DIM = 824
+# The wide library's wgmma kernels (bf16 forward, partial, dK/dV) come at
+# 192 and 256 columns; its simple kernels accumulate 256 output columns a
+# CTA (its kSliceCols).
+WIDE_WGMMA_WIDTHS = (192, 256)
+WIDE_SLICE_COLS = 256
 _NEG_BIG = -1e30
 # The JAX wrapper's blocks (default DEFAULT_BLOCK_Q/K) fix which sequence
 # lengths it accepts; the port keeps that contract.
@@ -148,14 +152,6 @@ def _padded_dim(d: int) -> int:
     return -(-d // 8) * 8
 
 
-def _check_kernel_shape(q) -> None:
-    d = q.shape[-1]
-    if _padded_dim(d) > WIDE_MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d}: the CUDA kernels take head dims up "
-                         f"to {WIDE_MAX_HEAD_DIM} (what one CTA's shared "
-                         f"memory holds in the wide dK/dV kernel)")
-
-
 def _pad_heads(*tensors):
     """Each tensor (or None) copied into a contiguous one whose head dim
     is padded with zero columns to the next multiple of 8."""
@@ -171,7 +167,6 @@ def _on_kernel(launch, *args):
     outputs are sliced back to d: zero columns add exactly 0 to QK^T,
     dO V^T and delta, and the caller's scale is that of the true d."""
     d = args[0].shape[-1]
-    _check_kernel_shape(args[0])
     if d % 8 == 0:
         return launch(*args)
     outs = launch(*(_pad_heads(a)[0]
@@ -182,6 +177,35 @@ def _on_kernel(launch, *args):
 
 def _wide(q) -> bool:
     return q.shape[-1] > TILE_MAX_HEAD_DIM
+
+
+class WidePlan(NamedTuple):
+    """How the wide library (``WIDE_SOURCE``) runs one head dim: the
+    forward, partial and dK/dV on the ``"wgmma"`` kernels at ``width``
+    columns, or all four on the ``"simple"`` kernels over ``slices``
+    output-column slices (dQ is always simple)."""
+    kernels: str
+    width: int | None
+    slices: int
+
+
+def _wide_plan(d: int, dtype: torch.dtype) -> WidePlan:
+    """The wide library's kernels for head dim d (a multiple of 8) in
+    ``dtype``: bf16 up to 256 columns on wgmma at the narrowest width
+    that holds d (TMA zero-fills the columns past d), f32 and wider bf16
+    heads on the simple kernels. The launches hand this plan to the
+    library, which checks that it has its kernels and does not choose."""
+    if dtype == torch.bfloat16 and d <= WIDE_WGMMA_WIDTHS[-1]:
+        width = min(w for w in WIDE_WGMMA_WIDTHS if w >= d)
+        return WidePlan("wgmma", width, 1)
+    return WidePlan("simple", None, -(-d // WIDE_SLICE_COLS))
+
+
+def _plan_args(q) -> tuple:
+    """The wide library's plan arguments for q's head dim and dtype:
+    ``(width, slices)``, width 0 for the simple kernels."""
+    plan = _wide_plan(q.shape[-1], q.dtype)
+    return plan.width or 0, plan.slices
 
 
 @contextlib.contextmanager
@@ -218,61 +242,56 @@ def _library(lib: ctypes.CDLL | None = None) -> ctypes.CDLL:
     return lib
 
 
-def _wide_library() -> ctypes.CDLL:
+def _wide_library(lib: ctypes.CDLL | None = None) -> ctypes.CDLL:
     """The wide-head library (head dims above ``TILE_MAX_HEAD_DIM``), its
-    entry points typed."""
-    lib = _build.load(WIDE_SOURCE)
+    entry points typed; ``lib`` replaces the one built from ``csrc/`` as
+    in :func:`_library`."""
+    lib = _build.load(WIDE_SOURCE) if lib is None else lib
     if lib.kftpu_wide_fwd.argtypes is None:
         strides = ctypes.POINTER(ctypes.c_longlong)
         lib.kftpu_wide_fwd.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-            + [strides, ctypes.c_float] + [ctypes.c_int] * 4
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 6
             + [ctypes.c_void_p])
         lib.kftpu_wide_bwd_dq.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + [strides, ctypes.c_float] + [ctypes.c_int] * 4
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 5
             + [ctypes.c_void_p])
         lib.kftpu_wide_bwd_dkv.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + [strides, ctypes.c_float] + [ctypes.c_int] * 3
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 5
             + [ctypes.c_void_p])
         for fn in (lib.kftpu_wide_fwd, lib.kftpu_wide_bwd_dq,
-                   lib.kftpu_wide_bwd_dkv, lib.kftpu_wide_max_head_dim):
+                   lib.kftpu_wide_bwd_dkv):
             fn.restype = ctypes.c_int
         lib.kftpu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.kftpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def wide_max_head_dim() -> int:
-    """The wide kernels' cap as their library states it (builds it)."""
-    return _wide_library().kftpu_wide_max_head_dim()
-
-
 def _launch_wide_fwd(q, k, v, o, lse, m, l, causal, scale, q_offset,
-                     k_offset, what):
+                     k_offset, what, lib=None):
     b, s, h, d = q.shape
-    lib = _wide_library()
+    lib = _wide_library(lib)
     with _on_device(q.device) as stream:
         err = lib.kftpu_wide_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _ptr(lse), _ptr(m), _ptr(l), b, s, h, d, _DTYPE_CODES[q.dtype],
             _strides(q, k, v, o, None, None, None, None), scale, int(causal),
-            q_offset, k_offset, int(m is not None), stream)
+            q_offset, k_offset, int(m is not None), *_plan_args(q), stream)
     _raise_on(err, lib, what)
 
 
 def _launch(q, k, v, causal: bool, scale: float, lib=None):
     global LAUNCHES
     b, s, h, d = q.shape
-    _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_layout(name, t)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     if _wide(q):
         _launch_wide_fwd(q, k, v, o, lse, None, None, causal, scale, 0, 0,
-                         "flash_attention_fwd")
+                         "flash_attention_fwd", lib)
         LAUNCHES += 1
         return o, lse
     lib = _library(lib)
@@ -489,7 +508,6 @@ def _check_stats_contiguous(lse, delta) -> None:
 def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
                k_offset, lib=None):
     global BWD_DQ_LAUNCHES
-    _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v), ("dO", do), ("o", o)):
         if t is not None:
             _check_kernel_layout(name, t)
@@ -500,16 +518,19 @@ def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
         delta = torch.empty((b * h, s_q), dtype=torch.float32,
                             device=q.device)
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
-    lib = _wide_library() if _wide(q) else _bwd_library(lib)
-    entry = (lib.kftpu_wide_bwd_dq if _wide(q)
-             else lib.kftpu_flash_attention_bwd_dq)
+    if _wide(q):  # dQ always runs the simple kernel, over the plan's slices
+        lib = _wide_library(lib)
+        entry, plan = lib.kftpu_wide_bwd_dq, _plan_args(q)[1:]
+    else:
+        lib = _bwd_library(lib)
+        entry, plan = lib.kftpu_flash_attention_bwd_dq, ()
     with _on_device(q.device) as stream:
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(o), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, s_q, k.shape[1], h, d, _DTYPE_CODES[q.dtype],
             _strides(q, k, v, o, do, dq, None, None), scale, int(causal),
-            q_offset, k_offset, int(compute_delta), stream)
+            q_offset, k_offset, int(compute_delta), *plan, stream)
     _raise_on(err, lib, "flash_attention_bwd_dq")
     BWD_DQ_LAUNCHES += 1
     return dq, delta
@@ -518,23 +539,25 @@ def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
 def _launch_dkv(q, k, v, lse, do, delta, causal, scale, q_offset, k_offset,
                 lib=None):
     global BWD_DKV_LAUNCHES
-    _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
         _check_kernel_layout(name, t)
     _check_stats_contiguous(lse, delta)
     b, s_q, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    lib = _wide_library() if _wide(q) else _bwd_library(lib)
-    entry = (lib.kftpu_wide_bwd_dkv if _wide(q)
-             else lib.kftpu_flash_attention_bwd_dkv)
+    if _wide(q):
+        lib = _wide_library(lib)
+        entry, plan = lib.kftpu_wide_bwd_dkv, _plan_args(q)
+    else:
+        lib = _bwd_library(lib)
+        entry, plan = lib.kftpu_flash_attention_bwd_dkv, ()
     with _on_device(q.device) as stream:
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, s_q, k.shape[1], h, d, _DTYPE_CODES[q.dtype],
             _strides(q, k, v, None, do, None, dk, dv), scale, int(causal),
-            q_offset, k_offset, stream)
+            q_offset, k_offset, *plan, stream)
     _raise_on(err, lib, "flash_attention_bwd_dkv")
     BWD_DKV_LAUNCHES += 1
     return dk, dv
@@ -662,7 +685,6 @@ def _launch_partial(q, k, v, q_offset: int, k_offset: int, scale: float,
                     lib=None):
     global PARTIAL_LAUNCHES
     b, s, h, d = q.shape
-    _check_kernel_shape(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_layout(name, t)
     o = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
@@ -670,7 +692,7 @@ def _launch_partial(q, k, v, q_offset: int, k_offset: int, scale: float,
     l = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if _wide(q):
         _launch_wide_fwd(q, k, v, o, None, m, l, True, scale, q_offset,
-                         k_offset, "flash_attention_partial")
+                         k_offset, "flash_attention_partial", lib)
         PARTIAL_LAUNCHES += 1
         return o, m, l
     lib = _library(lib)

@@ -200,33 +200,67 @@ def test_forward_kernel_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_head_dims_it_lacks(cuda):
-    # The kernels take every head dim up to the wide kernels' cap (padded
-    # to a multiple of 8 where it is none): the cap + 8 stays refused, in
-    # both dtypes, before anything launches; the cap is the library's own.
-    assert fa.wide_max_head_dim() == fa.WIDE_MAX_HEAD_DIM
-    before = (fa.LAUNCHES, fa.PARTIAL_LAUNCHES)
-    for d in (fa.WIDE_MAX_HEAD_DIM + 1, fa.WIDE_MAX_HEAD_DIM + 8):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = _qkv((1, 64, 2, d), dtype, cuda)
-            with pytest.raises(ValueError, match="head_dim"):
-                fa.flash_attention_fwd(q, k, v)
-            with pytest.raises(ValueError, match="head_dim"):
-                fa.flash_attention_partial(q, k, v, 0, 0)
-    assert (fa.LAUNCHES, fa.PARTIAL_LAUNCHES) == before
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_take_head_dims_past_the_old_cap(cuda, dtype):
+    # The wide kernels once stopped at 824 columns (what one CTA's shared
+    # memory held in dK/dV) and refused 825 and 832. Now the simple
+    # kernels split the output's columns into slices of 256 and read the
+    # owned rows 64 columns at a time where they do not fit: 825 (padded
+    # to 832), 832 and 1024 (owned rows held in shared memory) and 4096
+    # (read from device memory in all three kernels) through all four
+    # kernels against their plain versions, nothing refused.
+    for d in (825, 832, 1024, 4096):
+        _check_forward_and_backward((1, 64, 2, d), True, dtype, cuda)
+        _check_partial_and_hop_backward((1, 96, 2, d), 96, 0, dtype, cuda)
+        _check_partial_and_hop_backward((1, 96, 2, d), 0, 0, dtype, cuda)
+
+
+# Plans the wide library has no kernels for, (d, dtype, width, slices):
+# a wgmma width narrower than d, f32 or a third width on wgmma, wgmma
+# over two slices, and too few or too many simple slices.
+LACKING_PLANS = [
+    (256, torch.bfloat16, 192, 1),
+    (136, torch.float32, 192, 1),
+    (136, torch.bfloat16, 128, 1),
+    (256, torch.bfloat16, 256, 2),
+    (264, torch.bfloat16, 0, 1),
+    (264, torch.float32, 0, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,width,slices", LACKING_PLANS)
+def test_wide_library_refuses_plans_it_lacks(cuda, monkeypatch, d, dtype,
+                                             width, slices):
+    # The wrapper's _wide_plan chooses the wide kernels and hands the plan
+    # to the library, which runs it or refuses it; it never chooses.
+    q, k, v = _qkv((1, 64, 2, d), dtype, cuda)
+    o, lse = fa.flash_attention_reference(q, k, v)
+    monkeypatch.setattr(fa, "_plan_args", lambda q: (width, slices))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention_partial(q, k, v, 0, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention_bwd_dkv(q, k, v, lse, q, lse)
+    if slices != -(-d // 256):   # dQ runs the simple kernel over them
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.flash_attention_bwd_dq(q, k, v, o, lse, q)
 
 
 # Every head dim the JAX kernels take: no multiple of 8 (20, 36: padded
-# with zero columns onto the Hopper kernels), above their 128-column tile
-# (136, 192, Gemma's 256: the wide kernels) and the wide kernels' cap,
-# through all four kernels at the tolerances above. Causal cases span 10
-# of the wide kernels' 16-row tiles and 5 of their 32-row streamed tiles;
-# full cases are ragged.
-ANY_HEAD_DIMS = (20, 36, 136, 192, 256, fa.WIDE_MAX_HEAD_DIM)
+# with zero columns onto the 128-column kernels); above their tile: 136
+# and 192 (the wgmma kernels at 192 columns), 200, 248 and Gemma's 256 (at
+# 256), 264 (two output-column slices of the simple kernels), 824, 832 and
+# 1024 (four); through all four kernels at the tolerances above. Causal
+# cases span 10 of the simple kernels' 16-row tiles, 2.5 of the wgmma
+# forward's 128-row Q tiles and 5 of dK/dV's 64-key tiles; full cases are
+# ragged.
+ANY_HEAD_DIMS = (20, 36, 136, 192, 200, 248, 256, 264, 824, 832, 1024)
 
 
 def _any_head_dim_shape(d, causal):
-    if d == fa.WIDE_MAX_HEAD_DIM:
+    if d >= 824:
         return (1, 64, 2, d) if causal else (1, 45, 1, d)
     return (2, 160, 3, d) if causal else (1, 77, 2, d)
 
@@ -250,13 +284,13 @@ def test_any_head_dim_forward_and_backward_match_plain_version(cuda, d,
 def test_any_head_dim_partial_and_hop_backward_match_plain_version(
         cuda, case, d, dtype):
     shape, q_off, k_off = PARTIAL_CASES[case]
-    shape = (1, 96, 2, d) if d == fa.WIDE_MAX_HEAD_DIM else shape[:3] + (d,)
+    shape = (1, 96, 2, d) if d >= 824 else shape[:3] + (d,)
     _check_partial_and_hop_backward(shape, q_off * shape[1] // 256,
                                     k_off * shape[1] // 256, dtype, cuda)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [20, 136])
+@pytest.mark.parametrize("d", [20, 136, 256])
 def test_any_head_dim_reads_qkv_column_slices(cuda, d):
     """Heads d elements apart in one [b, s, 3*h*d] product, as the models
     hand them over: the same bits as the contiguous case."""
@@ -274,6 +308,46 @@ def test_any_head_dim_reads_qkv_column_slices(cuda, d):
     for a, c in zip(fa.flash_attention_bwd(q, k, v, o, lse, do),
                     fa.flash_attention_bwd(*dense, o, lse, do)):
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_wide_dkv_kernel_is_deterministic(cuda):
+    # The wgmma dK/dV at 256 columns: two warpgroups hand P^T over through
+    # shared memory, no atomics; the same inputs give the same bits.
+    q, k, v, o, lse, do = _bwd_inputs((2, 1024, 4, 256), torch.bfloat16,
+                                      cuda)
+    delta = fa.attention_delta(o, do)
+    first = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
+    again = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_column_slices_share_their_softmax_statistics(cuda, dtype):
+    # At d = 1024 each of the four output-column slices of a simple kernel
+    # computes the softmax statistics (lse; m and l; delta) on its own, and
+    # slice 0 alone writes them. With q, k, v and dO made of four equal
+    # 256-column blocks, every slice's output block comes from the same
+    # statistics and the same products in the same order: the four blocks
+    # of o, acc, dq, dk and dv must be bitwise equal; lse and the partial
+    # are held against their plain versions too.
+    b, s, h, d = 1, 96, 2, 1024
+    block = [t.contiguous() for t in _bwd_inputs((b, s, h, 256), dtype,
+                                                 cuda)]
+    q, k, v, _, _, do = (t.repeat(1, 1, 1, 4) for t in block)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    acc, m, l = fa.flash_attention_partial(q, k, v, 0, 0)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for t in (o, acc, *grads):
+        parts = t.split(256, dim=-1)
+        assert all(torch.equal(parts[0], p) for p in parts[1:])
+    _, rlse = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
+    _assert_partial_close((acc, m, l), fa.flash_attention_partial_reference(
+        q, k, v, 0, 0), dtype)
 
 
 @pytest.mark.cuda

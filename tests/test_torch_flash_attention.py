@@ -7,9 +7,11 @@ numpy inputs. O is held against ``flash_attention`` and lse against
 The card's kernel is held against the plain version in
 ``test_torch_cuda_kernels.py``; here also the arithmetic the card's
 wrapper relies on for head dims that are no multiple of 8 (zero-padded
-heads) and the kernels' head-dim cap.
+heads), the wide library's plan for each head dim, and that no head dim
+is refused.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -214,12 +216,91 @@ def test_on_kernel_pads_head_arguments_and_slices_head_outputs(d):
     assert seen == [(width,) * 3, (width,) * 5, (width,) * 3]
 
 
-def test_kernel_head_dim_cap():
-    """The CUDA kernels take head dims up to the wide kernels' cap, a head
-    dim that is no multiple of 8 counted at its padded width."""
-    for d in (8, 20, 128, 136, fa.WIDE_MAX_HEAD_DIM - 3,
-              fa.WIDE_MAX_HEAD_DIM):
-        fa._check_kernel_shape(torch.empty((1, 1, 1, d)))
-    for d in (fa.WIDE_MAX_HEAD_DIM + 1, fa.WIDE_MAX_HEAD_DIM + 8):
-        with pytest.raises(ValueError, match=f"head_dim {d}"):
-            fa._check_kernel_shape(torch.empty((1, 1, 1, d)))
+def test_kernel_refuses_no_head_dim():
+    """No head dim is refused for its width, as the JAX kernels refuse
+    none: ``_on_kernel``, the one gate of every CUDA wrapper, hands the
+    launcher each width (padded to a multiple of 8), well past what one
+    CTA's shared memory held before the output-column split (824). The
+    plain version stands in for the launcher here."""
+    seen = []
+
+    def fwd(q, k, v, causal, scale):
+        seen.append(q.shape[-1])
+        return fa.flash_attention_reference(q, k, v, causal=causal,
+                                            scale=scale)
+
+    for d in (8, 20, 128, 136, 821, 825, 832, 1024, 4100):
+        _, (q, k, v) = _inputs((1, 8, 1, d), "float32", seed=d)
+        o, lse = fa._on_kernel(fwd, q, k, v, True, 1.0 / d ** 0.5)
+        assert o.shape == q.shape and lse.shape == (1, 8)
+        assert bool(torch.isfinite(o).all())
+    assert seen == [8, 24, 128, 136, 824, 832, 832, 1024, 4104]
+
+
+# (d, dtype) -> the wide library's kernels: bf16 up to 256 columns on the
+# wgmma kernels at the next instantiation up, the rest on the simple
+# kernels over 256-column output slices.
+WIDE_PLANS = {
+    (136, "bfloat16"): ("wgmma", 192, 1),
+    (192, "bfloat16"): ("wgmma", 192, 1),
+    (200, "bfloat16"): ("wgmma", 256, 1),
+    (248, "bfloat16"): ("wgmma", 256, 1),
+    (256, "bfloat16"): ("wgmma", 256, 1),
+    (264, "bfloat16"): ("simple", None, 2),
+    (832, "bfloat16"): ("simple", None, 4),
+    (1024, "bfloat16"): ("simple", None, 4),
+    (136, "float32"): ("simple", None, 1),
+    (256, "float32"): ("simple", None, 1),
+    (264, "float32"): ("simple", None, 2),
+    (1024, "float32"): ("simple", None, 4),
+}
+
+
+@pytest.mark.parametrize("d,dtype", sorted(WIDE_PLANS))
+def test_wide_plan_routes_each_head_dim(d, dtype):
+    assert fa._wide_plan(d, getattr(torch, dtype)) == WIDE_PLANS[d, dtype]
+
+
+# Wide heads against the JAX kernels in interpret mode: the forward with
+# lse and the backward (dq, dk, dv through jax.vjp), at the tolerances of
+# CASES and of test_torch_flash_backward.py (f32: summation order only;
+# bf16: one bf16 ulp of the output, 1e-2 of the largest gradient). d = 256
+# is the wgmma instantiation's width, d = 1024 four output-column slices
+# of the simple kernels.
+WIDE_TOL_O = {"float32": 2e-5, "bfloat16": 1e-2}
+WIDE_TOL_GRAD = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [256, 1024])
+def test_wide_heads_match_jax(d, dtype):
+    shape = (1, 128, 2, d)
+    b, s, h, _ = shape
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, dtype, seed=d)
+    rng = np.random.default_rng(d + 1)
+    do = rng.standard_normal(shape).astype(np.float32)
+    jdo, tdo = jnp.asarray(do).astype(dtype), torch.from_numpy(do).to(
+        getattr(torch, dtype))
+
+    def fold(t):
+        return t.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+    o_jax, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v), jq, jk, jv)
+    _, lse_jax = _flash_fwd(fold(jq), fold(jk), fold(jv), scale=d ** -0.5,
+                            causal=True, block_q=1024, block_k=1024,
+                            interpret=True)
+    o, lse = fa.flash_attention_fwd(tq, tk, tv)
+    tol = WIDE_TOL_O[dtype]
+    np.testing.assert_allclose(_np(o), _np(o_jax), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_jax[:, 0, :]),
+                               rtol=LSE_TOL, atol=LSE_TOL)
+    for t in (tq, tk, tv):
+        t.requires_grad_()
+    got = torch.autograd.grad(fa.flash_attention(tq, tk, tv), (tq, tk, tv),
+                              grad_outputs=tdo)
+    for g, r in zip(got, vjp(jdo)):
+        r = _np(r)
+        assert g.dtype == tq.dtype and g.shape == r.shape
+        np.testing.assert_allclose(
+            _np(g.detach()), r, rtol=0,
+            atol=WIDE_TOL_GRAD[dtype] * np.abs(r).max())

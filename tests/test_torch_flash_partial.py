@@ -85,6 +85,21 @@ def test_partial_matches_jax_at_each_hop(hop, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [256, 1024])
+@pytest.mark.parametrize("hop", ["below", "diagonal"])
+def test_partial_matches_jax_at_wide_heads(hop, d, dtype):
+    """Heads as the wide library takes them: d = 256 (the wgmma
+    instantiation's width) and 1024 (four output-column slices of the
+    simple kernels), at a hop below the diagonal and on it."""
+    q_off, k_off = HOPS[hop]
+    (jq, jk, jv), (tq, tk, tv) = _inputs((1, 128, 2, d), dtype, seed=d)
+    ref = jax_partial(jq, jk, jv, q_off, k_off)
+    got = fa.flash_attention_partial(tq, tk, tv, q_off, k_off)
+    assert got[0].shape == tq.shape and got[1].shape == (1, 2, 128)
+    _assert_partial_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hop", sorted(HOPS))
 def test_partial_matches_jax_across_blocks(hop, dtype):
     """JAX at 128-row blocks over s = 512: its online softmax runs across
