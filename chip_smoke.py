@@ -15,7 +15,7 @@ last line. With no CUDA device it exits 1 and prints no result.
 2. build   — every ``.cu`` source of the package, one ``nvcc`` each, in
    parallel; seconds, ptxas's register / spill / performance lines, and
    each library's wgmma, TMA-load and mma.sync instruction counts
-   (``cuobjdump``).
+   (``cuobjdump``), the wide library's also kernel by kernel.
 3. kernels — the forward kernel against its plain PyTorch version at the
    shapes the serving and training paths give it (and the edge shapes the
    port promises, across the kernel's 128-row tiles), tolerances
@@ -94,11 +94,12 @@ last line. With no CUDA device it exits 1 and prints no result.
    slices (bitwise equal), and b*h = 66560 ([1040, 64, 64, 16]) in both
    dtypes; at d = 1024 the four column slices' outputs bitwise equal where the inputs' are
    (each slice computes the softmax statistics, slice 0 writes them); a
-   bitwise repeat of the wgmma dK/dV at [8, 1024, 16, 256]; at training
-   shapes of d = 32 [8, 1024, 64, 32], d = 20 [8, 1024, 64, 20] (with the
-   padding copies timed apart) and d = 256 ([8, 1024, 16, 256], and the
-   wide_heads step's [8, 1024, 8, 256]) the forward, dQ and dK/dV (at
-   d = 256 also the partial) timed beside their bounds, plain versions
+   bitwise repeat of the wgmma dQ and dK/dV at [8, 1024, 16, 256]; at
+   training shapes of d = 32 [8, 1024, 64, 32], d = 20 [8, 1024, 64, 20]
+   (with the padding copies timed apart) and d = 256 ([8, 1024, 16, 256],
+   and the wide_heads step's [8, 1024, 8, 256]) the forward, dQ and dK/dV
+   (at d = 256 also the partial, and the simple dQ through the plan
+   (0, 1) beside the wgmma one) timed beside their bounds, plain versions
    and SDPA.
 15. moe_grads — ``MOE_MODEL`` (bench.py's, uncut) at batch 8: the loss
    of ``attention="flash"`` against the dense path, the share of tokens
@@ -141,17 +142,17 @@ last line. With no CUDA device it exits 1 and prints no result.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
-every timed shape, the d = 32 and d = 256 ones included, and
+every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
-``pipelined_schedule`` and ``wide_heads``), the card line, and the result
-line.
+``pipelined_schedule`` and ``wide_heads``, and ``device_kernels``: the
+CUDA kernels behind each entry, by head dim and dtype), the card line,
+and the result line.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import shutil
 import statistics
 import subprocess
 import sys
@@ -159,9 +160,8 @@ import time
 from contextlib import contextmanager
 from dataclasses import replace
 from functools import partial
-from pathlib import Path
 
-from kubeflow_tpu_torch.ops.compare import time_ms
+from kubeflow_tpu_torch.ops.compare import sass_counts, time_ms
 
 # H100 SXM published dense peaks (NVIDIA data sheet): the bound a kernel
 # is held against, with the card's power limit printed beside it.
@@ -247,8 +247,8 @@ BWD_CASES = [
     ("one_card_hop", (1, 8192, 16, 128), "bfloat16", True, 0, 0, True),
     # The pipelined_schedule path's: a microbatch of 2 of PP_MODEL.
     ("pp_micro", (2, 1024, 16, 128), "bfloat16", True, 0, 0, False),
-    # The wide_heads path's: the simple dQ and the wgmma dK/dV at
-    # WIDE_MODEL's 8 heads of 256, in more than one launch group.
+    # The wide_heads path's: the wgmma dQ and dK/dV at WIDE_MODEL's 8
+    # heads of 256, in more than one launch group.
     ("wide_heads", (TRAIN_BATCH, 1024, 8, 256), "bfloat16", True, 0, 0,
      False),
 ]
@@ -347,26 +347,25 @@ HEAD_DIM_STRIDED = ("d32_bfloat16_causal", "d20_bfloat16_causal",
 # Four 256-column output slices whose inputs are equal: their outputs must
 # be bitwise equal (each slice computes the softmax statistics itself).
 SLICE_STATS = ("slices_d1024", (1, 320, 4, 1024))
-# The wgmma dK/dV's bitwise repeat at the wide training shape.
+# The wgmma dQ's and dK/dV's bitwise repeat at the wide training shape.
 WIDE_REPEAT = (8, 1024, 16, 256)
 # More (batch, head) pairs than a grid's y dimension holds: b*h = 66560,
 # each dtype through the four kernels.
 MANY_HEADS = ("bh66560", (1040, 64, 64, 16))
 # Timed: a d = 32 training shape (b*h = 512 heads of 1024 tokens), a
 # d = 20 one (zero-padded to 24: the copies timed apart) and two d = 256
-# ones (the wide library, also the partial): [8, 1024, 16, 256], and the
-# wide_heads step's [8, 1024, 8, 256]; (case, runs
-# as time_ms takes them by kernel: the simple dQ takes tens of ms a call,
-# the others time_ms's defaults).
+# ones (the wide library, also the partial and the simple dQ):
+# [8, 1024, 16, 256], and the wide_heads step's [8, 1024, 8, 256].
 HEAD_DIM_TIMED = [
-    (("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0, False), {}),
-    (("d20_train", (8, 1024, 64, 20), "bfloat16", True, 0, 0, False), {}),
-    (("d256_train", (8, 1024, 16, 256), "bfloat16", True, 0, 0, False),
-     {"dq": dict(warmup=2, runs=10, batch=2)}),
+    ("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0, False),
+    ("d20_train", (8, 1024, 64, 20), "bfloat16", True, 0, 0, False),
+    ("d256_train", (8, 1024, 16, 256), "bfloat16", True, 0, 0, False),
     # The shape the wide_heads step gives them: 8 heads of 256.
-    (("wide_heads", (8, 1024, 8, 256), "bfloat16", True, 0, 0, False),
-     {"dq": dict(warmup=2, runs=10, batch=2)}),
+    ("wide_heads", (8, 1024, 8, 256), "bfloat16", True, 0, 0, False),
 ]
+# The simple dQ (the wide library's plan (0, 1)), timed beside the wgmma
+# dQ at the d = 256 shapes: tens of ms a call, so fewer calls.
+SIMPLE_DQ_RUNS = dict(warmup=2, runs=10, batch=2)
 
 # The MoE config: bench.py's MOE_MODEL uncut (bench.py:616-620; top-2 of 8
 # experts at capacity factor 1.0, flash attention at head_dim 128), batch
@@ -443,6 +442,7 @@ KERNEL_CATEGORIES = (
                                        "wide_dkv_kernel",
                                        "wide_fwd_bf16_kernel",
                                        "wide_partial_bf16_kernel",
+                                       "wide_dq_bf16_kernel",
                                        "wide_dkv_bf16_kernel")),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -452,23 +452,6 @@ KERNEL_CATEGORIES = (
     ("reductions (norms, softmax, loss, embedding grad)",
      ("reduce", "softmax", "nll_loss", "norm", "embedding", "index")),
 )
-
-
-def sass_counts(library) -> dict | str:
-    """How many wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-    instructions the library's SASS holds, by ``cuobjdump``; "not
-    measured" where the toolkit has none."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).is_file():
-        return "not measured"
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    ops = []
-    for line in sass.splitlines():
-        words = [w for w in line.split()[1:] if not w.startswith("@")]
-        if line.strip().startswith("/*") and words:
-            ops.append(words[0].split(".")[0])  # the opcode, predicate aside
-    return {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
 
 
 def emit(obj) -> None:
@@ -632,18 +615,14 @@ def _max_err(got, ref) -> tuple:
     return err, (err / top if top else (0.0 if err == 0 else math.inf))
 
 
-def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta,
-              runs=None) -> None:
+def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
     """Time each backward kernel beside its plain version and its bound,
     and SDPA's backward (dq, dk and dv together: one PyTorch call for the
     same gradients, timed only, never on the port's path) by CUDA events
-    and by the profiler's device time, naming the backend that ran.
-    ``runs`` maps "dq" or "dkv" to time_ms's keywords, to time a slow
-    kernel with fewer calls."""
+    and by the profiler's device time, naming the backend that ran."""
     import torch.nn.functional as F
 
     name, shape, dtype, causal, q_off, k_off, given = case
-    runs = runs or {}
     kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
     o_in, delta_in = (None, delta) if given else (o, None)
     # The plain versions move ~20 GB a call at 8192 tokens: fewer runs.
@@ -658,10 +637,8 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta,
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, lse, do, delta, **kw))}
     for key, (run, plain) in calls.items():
-        kw_runs = runs.get(key, {})
-        row[f"{key}_ms"] = time_ms(run, **kw_runs)
-        row[f"{key}_profiler_ms"] = profiled(run, torch,
-                                             runs=kw_runs.get("runs", 20))[0]
+        row[f"{key}_ms"] = time_ms(run)
+        row[f"{key}_profiler_ms"] = profiled(run, torch)[0]
         row[f"{key}_plain_ms"] = time_ms(plain, **plain_runs)
         (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
          row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal, key, given)
@@ -801,10 +778,10 @@ def phase_head_dims(torch, fa) -> dict:
     """The four kernels at HEAD_DIMS against their plain versions; four
     cases also through qkv column slices (bitwise equal to the contiguous
     case); b*h = 66560 in both dtypes; the column slices' shared
-    statistics and the wgmma dK/dV's bitwise repeat; the forward, dQ and
-    dK/dV timed at d = 32, 20 and 256 training shapes
+    statistics and the wgmma dQ's and dK/dV's bitwise repeat; the
+    forward, dQ and dK/dV timed at d = 32, 20 and 256 training shapes
     beside their bounds, their plain versions and SDPA (and at d = 256 the
-    partial too)."""
+    partial, and the simple dQ beside the wgmma one)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(97531)
@@ -866,10 +843,10 @@ def phase_head_dims(torch, fa) -> dict:
         torch.cuda.empty_cache()
 
     _head_dim_slices(torch, fa, gen)
-    _wide_dkv_repeat(torch, fa, gen)
+    _wide_bwd_repeat(torch, fa, gen)
 
     timed = {}
-    for case, runs in HEAD_DIM_TIMED:
+    for case in HEAD_DIM_TIMED:
         name, shape, dtype, causal = case[:4]
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .to(getattr(torch, dtype)) for _ in range(4))
@@ -913,12 +890,32 @@ def phase_head_dims(torch, fa) -> dict:
             (row["partial_bound_ms"], row["partial_bound_by"],
              row["partial_flops"]) = partial_bound_ms(shape, dtype, 0, 0)
             _rates(row, "partial_")
-        _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta, runs)
+        _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta)
+        if row["kernels"] == "wide":   # the simple dQ, the same build
+            _time_simple_dq(row, torch, fa, q, k, v, o, lse, do, causal)
         emit(row)
         timed[name] = row
         del q, k, v, do, o, lse, delta, qt, kt, vt
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, "timed": timed}
+
+
+def _time_simple_dq(row, torch, fa, q, k, v, o, lse, do, causal) -> None:
+    """The simple dQ of the same library (the plan (0, slices)) timed
+    beside the wgmma one, and how far its dq lies from the wgmma dq's."""
+    d = q.shape[-1]
+    plan = (0, -(-d // fa.WIDE_SLICE_COLS))
+
+    def simple():
+        return fa._launch_dq(q, k, v, o, lse, do, None, causal, d ** -0.5,
+                             0, 0, plan=plan)
+
+    got = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal)[0]
+    row["dq_simple_plan"] = list(plan)
+    row["dq_simple_max_diff"] = _max_err(simple()[0], got)[0]
+    row["dq_simple_ms"] = time_ms(simple, **SIMPLE_DQ_RUNS)
+    row["dq_simple_bound_share"] = row["dq_bound_ms"] / row["dq_simple_ms"]
+    row["dq_speedup_vs_simple"] = row["dq_simple_ms"] / row["dq_ms"]
 
 
 def _head_dim_slices(torch, fa, gen) -> None:
@@ -955,21 +952,29 @@ def _head_dim_slices(torch, fa, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def _wide_dkv_repeat(torch, fa, gen) -> None:
-    """The wgmma dK/dV at the wide training shape twice on the same
-    inputs: the same bits (no atomics; P^T handed over in shared memory)."""
+def _wide_bwd_repeat(torch, fa, gen) -> None:
+    """The wgmma dQ (delta computed) and dK/dV at the wide training shape
+    twice on the same inputs: the same bits (no atomics; dK/dV's P^T
+    handed over in shared memory)."""
     q, k, v, do = (torch.randn(WIDE_REPEAT, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa.attention_delta(o, do)
-    first = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
-    again = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
-    same = all(torch.equal(a, c) for a, c in zip(first, again))
-    emit({"phase": "head_dims", "case": "wide_dkv_bitwise_repeat",
-          "shape": list(WIDE_REPEAT), "bitwise_repeat": same, "ok": same})
-    if not same:
-        raise AssertionError("the wgmma dK/dV is not deterministic")
-    del q, k, v, do, o, lse, delta, first, again
+    same = {}
+    for key, run in (
+            ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do)),
+            ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, do,
+                                                       delta))):
+        first, again = run(), run()
+        same[key] = all(torch.equal(a, c) for a, c in zip(first, again))
+        del first, again
+    ok = all(same.values())
+    emit({"phase": "head_dims", "case": "wide_bwd_bitwise_repeat",
+          "shape": list(WIDE_REPEAT), "bitwise_repeat": same, "ok": ok})
+    if not ok:
+        raise AssertionError(f"a wgmma backward kernel is not "
+                             f"deterministic: {same}")
+    del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
 
 
@@ -2224,6 +2229,8 @@ def main() -> int:
           "build_sec": time.perf_counter() - t0,
           "sass": {src: sass_counts(_build.library_path(src))
                    for src in (fa.SOURCE, fa.BWD_SOURCE, fa.WIDE_SOURCE)},
+          "sass_wide_by_kernel": sass_counts(
+              _build.library_path(fa.WIDE_SOURCE), by_kernel=True),
           "ptxas": [line.strip() for log in _build.BUILD_LOG.values()
                     for line in log.splitlines()
                     if "registers" in line or "spill" in line
@@ -2265,6 +2272,14 @@ def main() -> int:
     kernel_timed = ("ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
                     "bound_share", "tflops")
     library_timed = ("library_ms", "library_profiler_ms", "library_backend")
+
+    def device_kernels(name: str, wide: str) -> dict:
+        """The CUDA kernels behind one entry, by head dim and dtype."""
+        return {"d <= 128": name, "bf16 136-256": f"wide_{name}",
+                "f32 > 128, bf16 > 256": wide,
+                "wide_source": "kubeflow_tpu_torch/ops/csrc/"
+                               "flash_attention_wide.cu"}
+
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -2281,7 +2296,9 @@ def main() -> int:
                    for name in TIMED_KERNEL_CASES},
                 **{name: {key: row[f"fwd_{key}"] for key in timed}
                    for name, row in dims_timed.items()}},
-         "tensor_map_encode_us": decode["tensor_map_encode_us"]},
+         "tensor_map_encode_us": decode["tensor_map_encode_us"],
+         "device_kernels": device_kernels("fwd_bf16_kernel",
+                                          "wide_fwd_kernel")},
         *({"name": f"flash_attention_bwd_{key}", "route": "cuda",
            "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
            "replaces": f"kubeflow_tpu/ops/flash_attention.py:{line}",
@@ -2301,7 +2318,9 @@ def main() -> int:
                                       for c in TIMED_BWD_CASES),
                                     *dims_timed.items()]},
            "library_call": "F.scaled_dot_product_attention backward "
-                           "(dq, dk, dv together)"}
+                           "(dq, dk, dv together)",
+           "device_kernels": device_kernels(f"{key}_bf16_kernel",
+                                            f"wide_{key}_kernel")}
           for key, line, outs in (("dq", 167, ("dq",)),
                                   ("dkv", 195, ("dk", "dv")))),
         {"name": "flash_attention_partial", "route": "cuda",
@@ -2322,7 +2341,9 @@ def main() -> int:
                    for name, row in dims_timed.items()
                    if "partial_ms" in row}},
          "library_call": "F.scaled_dot_product_attention(is_causal=True): "
-                         "the same products, normalized"}]})
+                         "the same products, normalized",
+         "device_kernels": device_kernels("partial_bf16_kernel",
+                                          "wide_fwd_kernel")}]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,26 +4,33 @@ card, in turns.
 The builds: this checkout's ``csrc/`` sources (label ``this``) and, with
 ``--build LABEL=DIR``, the same sources from another checkout (for example
 an older commit unpacked with ``git archive``), which must keep the C
-interfaces (the wide library's entry points take the caller's plan,
-width and slices, as the ``*_d256`` cases call them). Each build runs
-through the wrappers' own launch code. The
+interfaces: every wide entry point, ``kftpu_wide_bwd_dq`` included, takes
+the caller's plan (width, then slices), so a build older than the wgmma
+dQ's cannot be loaded beside this one. ``--simple-dq`` adds the label
+``this_simple_dq`` instead: the wide cases' dQ of this build through the
+simple kernel's plan ``(0, slices)``, timed in turns with the wgmma dQ.
+Each build runs through the wrappers' own launch code. The
 cases: the forward at the serving decode shape and at the long-context
 length, the ring hop's partial at both (the one-card hop at the longer),
 and the backward's dQ and dK/dV kernels at the train step's shape (dQ
 computing delta) and at the long-context one-card hop (delta given, as
 the ring's backward calls them); and the wide library's forward, partial,
-dQ and dK/dV at the train shape with 256-column heads (``*_d256``).
+dQ and dK/dV at the train shape with 256-column heads (``*_d256``), the
+backward also at the wide_heads step's 8 heads (``bwd_wide_heads``).
 
 Run from the root of a checkout, on a machine with one card::
 
     python -m kubeflow_tpu_torch.ops.compare [--build LABEL=DIR ...] \
-        [--cases NAME,...] [--rounds N] [--out FILE]
+        [--simple-dq] [--cases NAME,...] [--rounds N] [--out FILE]
 
-Every case prints one JSON line: per kernel and build the median ms over
-rounds run in turns (A B C C B A ...), the largest difference of the
-build's outputs from the first build's, and one PyTorch call's time on
-the same inputs as the yardstick (SDPA's causal forward, or its backward
-for dq, dk and dv together).
+The first line names the card and, per build, ptxas's registers, spills
+and performance notes (C75xx) for each bf16 kernel and the wgmma (HGMMA),
+TMA load (UTMALDG) and mma.sync (HMMA) instructions of each kernel in
+the libraries' SASS. Every case prints one JSON line: per kernel and
+build the median ms over rounds run in turns (A B C C B A ...), the
+largest difference of the build's outputs from the first build's, and
+one PyTorch call's time on the same inputs as the yardstick (SDPA's
+causal forward, or its backward for dq, dk and dv together).
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -52,7 +61,9 @@ CASES = (
     ("fwd_d256", "fwd", (8, 1024, 16, 256), None),
     ("partial_d256", "partial", (8, 1024, 16, 256), (0, 0)),
     ("bwd_d256", "bwd", (8, 1024, 16, 256), None),
+    ("bwd_wide_heads", "bwd", (8, 1024, 8, 256), None),
 )
+SIMPLE_DQ = "this_simple_dq"
 
 
 def time_ms(fn, *, warmup=5, runs=30, batch=10) -> float:
@@ -79,18 +90,53 @@ def time_ms(fn, *, warmup=5, runs=30, batch=10) -> float:
 
 
 def ptxas_notes(log: str) -> list[str]:
-    """Each bf16 kernel's spill line and ptxas's performance notes (C75xx)
-    from one nvcc log."""
+    """Each bf16 kernel's register and spill lines and ptxas's performance
+    notes (C75xx) from one nvcc log."""
     notes, kernel = [], None
     for line in log.splitlines():
         found = re.search(r"([a-z_]+_bf16_kernel)ILi(\d+)E", line)
         if "entry function" in line:
             kernel = f"{found[1]}<{found[2]}>" if found else None
-        elif kernel and "spill" in line:
+        elif kernel and ("spill" in line or "registers" in line):
             notes.append(f"{kernel}: {line.strip()}")
         if "C75" in line:
             notes.append(line.strip())
     return notes
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(library, by_kernel: bool = False) -> dict | str:
+    """How many wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+    instructions the library's SASS holds, by ``cuobjdump``: in all, or
+    per kernel (its mangled name) with ``by_kernel``; "not measured"
+    where the toolkit has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return "not measured"
+    return count_sass(subprocess.run(
+        [tool, "-sass", str(library)], capture_output=True, text=True,
+        check=True, timeout=300).stdout, by_kernel)
+
+
+def count_sass(sass: str, by_kernel: bool = False) -> dict:
+    """:func:`sass_counts` of ``cuobjdump -sass``'s text."""
+    ops, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            continue
+        words = [w for w in line.split()[1:] if not w.startswith("@")]
+        if line.strip().startswith("/*") and words:
+            # the opcode, predicate aside
+            ops.setdefault(kernel, []).append(words[0].split(".")[0])
+    if by_kernel:
+        return {name: {op: found.count(op) for op in SASS_OPS}
+                for name, found in ops.items()
+                if any(op in found for op in SASS_OPS)}
+    every = [op for found in ops.values() for op in found]
+    return {op: every.count(op) for op in SASS_OPS}
 
 
 def builds(others: dict) -> dict:
@@ -114,10 +160,11 @@ def builds(others: dict) -> dict:
             for label, d in dirs.items()}
 
 
-def _kernel_calls(kernel, shape, offsets, libs):
+def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False):
     """Inputs for one case and, per kernel timed, the call of each build
     and SDPA's call on the same inputs. Heads above 128 columns run each
-    build's wide library."""
+    build's wide library; with ``simple_dq`` their dQ also runs this
+    build's simple kernel (label ``SIMPLE_DQ``)."""
     import torch.nn.functional as F
 
     wide = shape[-1] > fa.TILE_MAX_HEAD_DIM
@@ -149,9 +196,15 @@ def _kernel_calls(kernel, shape, offsets, libs):
     given, o_in = (delta, None) if offsets else (None, o)
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    return ({"dq": {label: (lambda lib=lib["bwd"]: fa._launch_dq(
-                 q, k, v, o_in, lse, do, given, True, scale, q_off, k_off,
-                 lib=lib)) for label, lib in libs.items()},
+    dq = {label: (lambda lib=lib["bwd"]: fa._launch_dq(
+        q, k, v, o_in, lse, do, given, True, scale, q_off, k_off, lib=lib))
+        for label, lib in libs.items()}
+    if wide and simple_dq:
+        simple = (0, -(-shape[-1] // fa.WIDE_SLICE_COLS))
+        dq[SIMPLE_DQ] = lambda: fa._launch_dq(
+            q, k, v, o_in, lse, do, given, True, scale, q_off, k_off,
+            lib=libs["this"]["bwd"], plan=simple)
+    return ({"dq": dq,
              "dkv": {label: (lambda lib=lib["bwd"]: fa._launch_dkv(
                  q, k, v, lse, do, delta, True, scale, q_off, k_off,
                  lib=lib)) for label, lib in libs.items()}},
@@ -159,8 +212,9 @@ def _kernel_calls(kernel, shape, offsets, libs):
                                         retain_graph=True))
 
 
-def run_case(name, kernel, shape, offsets, libs, rounds: int) -> dict:
-    calls, library = _kernel_calls(kernel, shape, offsets, libs)
+def run_case(name, kernel, shape, offsets, libs, rounds: int,
+             simple_dq: bool = False) -> dict:
+    calls, library = _kernel_calls(kernel, shape, offsets, libs, simple_dq)
     row = {"case": name, "shape": list(shape), "offsets": offsets,
            "ms": {}, "ms_rounds": {}, "max_diff_vs_first": {}}
     for key, by_build in calls.items():
@@ -190,6 +244,9 @@ def main(argv=None) -> int:
                     metavar="LABEL=DIR",
                     help="another checkout whose kernel sources are timed "
                          "beside this one's (repeatable)")
+    ap.add_argument("--simple-dq", action="store_true",
+                    help=f"also time the wide cases' dQ of this build on "
+                         f"the simple kernel (label {SIMPLE_DQ})")
     ap.add_argument("--cases", default=None,
                     help="comma-separated case names (default: all of "
                          + ", ".join(c[0] for c in CASES) + ")")
@@ -208,10 +265,13 @@ def main(argv=None) -> int:
     built = builds(dict(item.split("=", 1) for item in args.build))
     libs = {label: lib for label, (lib, _) in built.items()}
     lines = [{"card": torch.cuda.get_device_name(0), "builds": list(libs),
-              "ptxas": {label: notes for label, (_, notes) in built.items()}}]
+              "ptxas": {label: notes for label, (_, notes) in built.items()},
+              "sass": {label: {key: sass_counts(lib._name, by_kernel=True)
+                               for key, lib in lib_set.items()}
+                       for label, lib_set in libs.items()}}]
     print(json.dumps(lines[0]), flush=True)
     for case in cases:
-        lines.append(run_case(*case, libs, args.rounds))
+        lines.append(run_case(*case, libs, args.rounds, args.simple_dq))
         print(json.dumps(lines[-1]), flush=True)
         torch.cuda.empty_cache()
     if args.out is not None:

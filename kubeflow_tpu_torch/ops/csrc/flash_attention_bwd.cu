@@ -293,41 +293,6 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
   }
 }
 
-// sum over the row's D columns of f32(a) * f32(b), for row `row` of two
-// tiles laid out alike (panels `panel` bytes apart): this thread takes the
-// 16-byte chunks 2 tq and 2 tq + 1 of each 128-byte row (the swizzle moves
-// chunks within the row, which a sum does not see), the 4 threads of the
-// row sum.
-template <int D>
-__device__ __forceinline__ float row_dot(const unsigned char* a,
-                                         const unsigned char* b, int row,
-                                         int tq, int panel) {
-  float sum = 0.f;
-#pragma unroll
-  for (int pn = 0; pn < D / kPanelCols; ++pn) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int off = pn * panel + row * kRowBytes + (tq * 2 + c) * 16;
-      const uint4 x = *reinterpret_cast<const uint4*>(a + off);
-      const uint4 y = *reinterpret_cast<const uint4*>(b + off);
-      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float2 fx = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&xs[w]));
-        const float2 fy = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&ys[w]));
-        sum = fmaf(fx.x, fy.x, sum);
-        sum = fmaf(fx.y, fy.y, sum);
-      }
-    }
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  return sum;
-}
-
 // 4-byte asynchronous copy global -> shared; a source size of 0 writes a
 // zero (the ragged edge) without reading.
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem,

@@ -21,10 +21,10 @@
 // point takes as `width` and `slices` and checks; flash_attention.py's
 // _wide_plan chooses it):
 //  * bf16, d <= 256: the forward and the partial run wide_fwd_bf16_kernel /
-//    wide_partial_bf16_kernel, dK/dV wide_dkv_bf16_kernel, all on wgmma and
-//    TMA, at D = 192 columns (d <= 192) or 256 (TMA fills the columns past
-//    d with zeros, which add exactly 0 to Q K^T and dO V^T; the epilogues
-//    store d columns). dQ runs the simple wide_dq_kernel.
+//    wide_partial_bf16_kernel, dQ wide_dq_bf16_kernel, dK/dV
+//    wide_dkv_bf16_kernel, all on wgmma and TMA, at D = 192 columns
+//    (d <= 192) or 256 (TMA fills the columns past d with zeros, which add
+//    exactly 0 to Q K^T, dO V^T and delta; the epilogues store d columns).
 //  * f32 at any d, and bf16 above 256: the simple kernels (wide_fwd_kernel
 //    for the forward and the partial, wide_dq_kernel, wide_dkv_kernel), FMA
 //    on the CUDA cores, with the output columns split into slices of 256.
@@ -33,8 +33,10 @@
 // the tensor cores, 3.35 TB/s) at [8, 1024, 16, 256] bf16, causal: the
 // forward's Q K^T and P V are 68.8 GFLOP (70 us at the bf16 peak) against
 // 268 MB of q, k, v and o (80 us): bound by bytes. The dQ kernel (three
-// products, 103.2 GFLOP) moves 403 MB (120 us, bound by bytes); the dK/dV
-// kernel (four products, 137.6 GFLOP, 139 us) is bound by operations.
+// products, 103.2 GFLOP, 104 us) moves 403 MB (120 us): bound by bytes;
+// at the wide_heads step's [8, 1024, 8, 256] half of each, 60 us. The
+// dK/dV kernel (four products, 137.6 GFLOP, 139 us) is bound by
+// operations.
 //
 // The wgmma kernels (bf16, D = 192 or 256). Each product runs on the
 // tensor cores from shared memory that TMA filled, as in the 128-column
@@ -60,12 +62,32 @@
 //    named barriers: ready and free) and accumulates dV += P^T dO; B
 //    computes dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T Q,
 //    scaled on the f32 result. Shared memory 209 KB at D = 256.
+//  * dQ: one CTA per (b*h, 128-row Q tile), a producer and two consumers
+//    of 64 Q rows each, as the forward; Q and dO stay (2 x 64 KB at
+//    D = 256). The registers fit: dQ for 64 rows x 256 columns is 128 a
+//    thread, S and dP of a 64-key tile 32 each, P forms in place in S and
+//    dS in place in dP, dS as bf16 fragments 16: about 192 at the peak,
+//    under setmaxnreg's 240. Shared memory does not fit the plain shape:
+//    two stages of K and V tiles (2 x 64 KB) beside Q and dO are 256 KB,
+//    against 227 KB. So K and V stream through rings of their own, K in
+//    2 stages and V in 1 (224 KB at D = 256, static_assert below): V is
+//    released as soon as dP = dO V^T has landed and K after dQ += dS K,
+//    so the next V's load runs under dS and dQ += dS K. 32-key tiles in
+//    2 stages, or one consumer warpgroup, would fit too, but double the
+//    waits a key or halve the math warps. S and dP are m64n64k16 with
+//    both operands K-major, committed as two groups so that P's exp2s run
+//    while dP is still on the tensor cores; dQ += dS K is m64nDk16 with
+//    dS from registers and K read MN-major, as dK += dS^T Q in dK/dV.
+//    delta = rowsum(dO * O): the O tile is TMA-loaded once, before the
+//    loop, into the two K stages, and the consumers sum each row from
+//    shared memory, four threads a row; a caller that has delta (a ring
+//    hop) passes it.
 //  * Launch order, as the 128-column kernels: (batch, head) pairs in groups
 //    of as many heads as half the L2 holds the streamed tensors of, each
 //    group's tiles from the heaviest causal tile on. No atomics: the
 //    results are deterministic.
 //
-// The simple kernels (f32; bf16 dQ; bf16 above 256 columns): one CTA of
+// The simple kernels (f32; bf16 above 256 columns): one CTA of
 // 128 threads (4 warps) per (b*h, 16 owned rows, column slice): query rows
 // for the forward, the partial and dQ, key rows for dK/dV.
 //  * The output-column split: a CTA accumulates the slice [256 y, 256 y +
@@ -994,6 +1016,285 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   hopper_fwd<D, true>(qmap, kmap, vmap, p);
 }
 
+// ------------------------------------------------------------------- dQ
+
+template <int D>
+struct DqCfg {
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kOwnTile = kPanels * kPanel128;  // Q or dO, 128 rows
+  static constexpr int kKvTile = kPanels * kPanel64;    // a K or V tile
+  // Q | dO | K x kStages | V | barriers, 1024-aligned. O's 128 rows take
+  // the K stages before the loop.
+  static constexpr int kKOffset = 2 * kOwnTile;
+  static constexpr int kVOffset = kKOffset + kStages * kKvTile;
+  static constexpr int kBarOffset = kVOffset + kKvTile;
+  // own full, O full, O empty; K full and empty a stage; V full, V empty.
+  static constexpr int kBars = 3 + 2 * kStages + 2;
+  static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
+};
+static_assert(DqCfg<256>::kSmem <= kMaxSmem, "dQ fits at D 256");
+static_assert(kStages * kPanel64 == kPanel128,
+              "dQ's O tile takes the K stages");
+
+template <int D>
+struct DqSmem {
+  using Cfg = DqCfg<D>;
+  uint32_t base;
+  unsigned char* ptr;  // base, as a generic pointer (for plain loads)
+  __device__ const unsigned char* at(uint32_t addr) const {
+    return ptr + (addr - base);
+  }
+  __device__ uint32_t q() const { return base; }
+  __device__ uint32_t dout() const { return base + Cfg::kOwnTile; }
+  __device__ uint32_t o() const { return base + Cfg::kKOffset; }
+  __device__ uint32_t k(int st) const {
+    return base + Cfg::kKOffset + st * Cfg::kKvTile;
+  }
+  __device__ uint32_t v() const { return base + Cfg::kVOffset; }
+  __device__ uint32_t bar(int i) const {
+    return base + Cfg::kBarOffset + 8 * i;
+  }
+  __device__ uint32_t own_full() const { return bar(0); }
+  __device__ uint32_t o_full() const { return bar(1); }
+  __device__ uint32_t o_empty() const { return bar(2); }
+  __device__ uint32_t k_full(int st) const { return bar(3 + st); }
+  __device__ uint32_t k_empty(int st) const { return bar(3 + kStages + st); }
+  __device__ uint32_t v_full() const { return bar(3 + 2 * kStages); }
+  __device__ uint32_t v_empty() const { return bar(4 + 2 * kStages); }
+};
+
+// The producer's one thread: Q and dO once, the O tile (for delta) into
+// the K stages when `with_o`, then each key tile's K and V through their
+// rings; the first K waits until the consumers have read O.
+template <int D>
+__device__ __forceinline__ void produce_dq(const DqSmem<D>& sm,
+                                           const CUtensorMap& qmap,
+                                           const CUtensorMap& kmap,
+                                           const CUtensorMap& vmap,
+                                           const CUtensorMap& omap,
+                                           const CUtensorMap& domap, int m0,
+                                           int hi, int bi, int n_tiles,
+                                           bool with_o) {
+  using Cfg = DqCfg<D>;
+  mbar_expect_tx(sm.own_full(), 2 * Cfg::kOwnTile);
+#pragma unroll
+  for (int pn = 0; pn < Cfg::kPanels; ++pn) {
+    tma_load(sm.q() + pn * kPanel128, qmap, sm.own_full(), pn * kPanelCols,
+             hi, m0, bi);
+    tma_load(sm.dout() + pn * kPanel128, domap, sm.own_full(),
+             pn * kPanelCols, hi, m0, bi);
+  }
+  if (with_o) {
+    mbar_expect_tx(sm.o_full(), Cfg::kOwnTile);
+#pragma unroll
+    for (int pn = 0; pn < Cfg::kPanels; ++pn) {
+      tma_load(sm.o() + pn * kPanel128, omap, sm.o_full(), pn * kPanelCols,
+               hi, m0, bi);
+    }
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    const int n0 = j * kTileRows;
+    if (j == 0 && with_o) mbar_wait(sm.o_empty(), 0);
+    // Each ring's previous tile in the slot was released (round 0 passes
+    // at once).
+    mbar_wait(sm.k_empty(st), ((j / kStages) & 1) ^ 1);
+    mbar_expect_tx(sm.k_full(st), Cfg::kKvTile);
+#pragma unroll
+    for (int pn = 0; pn < Cfg::kPanels; ++pn) {
+      tma_load(sm.k(st) + pn * kPanel64, kmap, sm.k_full(st),
+               pn * kPanelCols, hi, n0, bi);
+    }
+    mbar_wait(sm.v_empty(), (j & 1) ^ 1);
+    mbar_expect_tx(sm.v_full(), Cfg::kKvTile);
+#pragma unroll
+    for (int pn = 0; pn < Cfg::kPanels; ++pn) {
+      tma_load(sm.v() + pn * kPanel64, vmap, sm.v_full(), pn * kPanelCols,
+               hi, n0, bi);
+    }
+  }
+}
+
+// A consumer warpgroup of dQ: rows row[0] and row[1] of the m64
+// accumulator layout (local rows rl and rl + 8 of the 128-row tile),
+// warpgroup rows from m0w on.
+template <int D>
+__device__ __forceinline__ void consume_dq(const DqSmem<D>& sm,
+                                           const Params& p, int c, int bh,
+                                           int m0w, int rl,
+                                           const int (&row)[2], int tq,
+                                           int lane, int n_tiles, bool with_o,
+                                           float (&dq)[D / 2]) {
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t q_addr = sm.q() + c * kWgRows * kRowBytes;
+  const uint32_t do_addr = sm.dout() + c * kWgRows * kRowBytes;
+  const long long stat0 = static_cast<long long>(bh) * p.s_q;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = row[i] < p.s_q ? p.lse[stat0 + row[i]] * kLog2e : 0.f;
+  }
+  mbar_wait(sm.own_full(), 0);
+  if (with_o) {
+    // delta = rowsum(f32(dO) * f32(O)) from dO and the O tile.
+    mbar_wait(sm.o_full(), 0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dlt[i] = row_dot<D>(sm.at(sm.dout()), sm.at(sm.o()), rl + 8 * i, tq,
+                          kPanel128);
+      if (tq == 0 && row[i] < p.s_q) p.delta[stat0 + row[i]] = dlt[i];
+    }
+    if (lane == 0) mbar_arrive(sm.o_empty());  // one arrive a warp
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dlt[i] = row[i] < p.s_q ? p.delta[stat0 + row[i]] : 0.f;
+    }
+  }
+  // Keys [0, n_end) reach some row of this warpgroup; row i keeps the keys
+  // before end[i].
+  const int last = min(m0w + kWgRows, p.s_q) - 1;
+  const int n_end =
+      p.causal ? min(p.s_k, p.q_offset + last - p.k_offset + 1) : p.s_k;
+  int end[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    end[i] = p.causal ? min(p.s_k, p.q_offset + row[i] - p.k_offset + 1)
+                      : p.s_k;
+  }
+  float s[32], dp[32];
+  uint32_t dsf[4][4];
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    const uint32_t k_ph = (j / kStages) & 1, v_ph = j & 1;
+    const int n0 = j * kTileRows;
+    // Both tiles before the first product: a wait between two wgmma
+    // groups makes ptxas serialize them (C7520).
+    mbar_wait(sm.k_full(st), k_ph);
+    mbar_wait(sm.v_full(), v_ph);
+    if (n0 >= n_end) {  // no row of this warpgroup sees the tile
+      if (lane == 0) {
+        mbar_arrive(sm.v_empty());
+        mbar_arrive(sm.k_empty(st));
+      }
+      continue;
+    }
+    wgmma_fence();
+    issue_ss<D>(s, q_addr, kPanel128, sm.k(st));
+    wgmma_commit();
+    issue_ss<D>(dp, do_addr, kPanel128, sm.v());
+    wgmma_commit();
+    wgmma_wait<1>();
+    hold(s);
+    // P = exp2(S' - lse') from f32 scores, masked with -1e30 on diagonal
+    // and ragged tiles, while dP is on the tensor cores:
+    // s[jj * 4 + i * 2 + e] is row row[i], key n0 + jj * 8 + tq * 2 + e.
+    const bool need_mask =
+        n0 + kTileRows > p.s_k ||
+        (p.causal && p.k_offset + n0 + kTileRows - 1 > p.q_offset + m0w);
+    const int col0 = n0 + tq * 2;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1, col = (x >> 2) * 8 + (x & 1);
+      float v = s[x] * scale2;
+      if (need_mask && col >= end[i] - col0) v = kNegBig;
+      s[x] = ex2(v - lse2[i]);
+    }
+    wgmma_wait<0>();
+    hold(dp);
+    if (lane == 0) mbar_arrive(sm.v_empty());  // the next V may load
+    // dS = P (dP - delta), rounded to bf16 fragments for dQ += dS K.
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      dp[x] = s[x] * (dp[x] - dlt[(x >> 1) & 1]);
+    }
+    pack_a(dp, dsf);
+    wgmma_fence();
+    issue_rs<D>(dq, dsf, sm.k(st));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dq);
+    hold(dsf);
+    if (lane == 0) mbar_arrive(sm.k_empty(st));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    wide_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap omap,
+                        const __grid_constant__ CUtensorMap domap,
+                        const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t addr = smem_u32(smem_raw);
+  const uint32_t aligned = (addr + 1023) & ~1023u;
+  const DqSmem<D> sm{aligned, smem_raw + (aligned - addr)};
+  if (threadIdx.x == 0) {
+    mbar_init(sm.own_full(), 1);
+    mbar_init(sm.o_full(), 1);
+    mbar_init(sm.o_empty(), kConsumerWarps);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(sm.k_full(st), 1);
+      mbar_init(sm.k_empty(st), kConsumerWarps);
+    }
+    mbar_init(sm.v_full(), 1);
+    mbar_init(sm.v_empty(), kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int bh, tile;
+  group_tile(p, (p.s_q + kBlockM - 1) / kBlockM, true, bh, tile);
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int m0 = tile * kBlockM;
+  // Keys [0, n_end) reach some row of this tile: causal, the last row's
+  // global position bounds them.
+  const int n_end =
+      p.causal ? max(0, min(p.s_k, p.q_offset + min(m0 + kBlockM, p.s_q) -
+                                       p.k_offset))
+               : p.s_k;
+  const int n_tiles = (n_end + kTileRows - 1) / kTileRows;
+  const bool with_o = p.compute_delta != 0;
+  const bool loads = n_tiles > 0 || with_o;
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && loads) {
+      produce_dq<D>(sm, qmap, kmap, vmap, omap, domap, m0, hi, bi, n_tiles,
+                    with_o);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int t = threadIdx.x - wg * kWgThreads;
+  const int lane = t & 31, tq = lane & 3;
+  const int rl = c * kWgRows + (t >> 5) * 16 + (lane >> 2);
+  const int row[2] = {m0 + rl, m0 + rl + 8};
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  if (loads) {
+    consume_dq<D>(sm, p, c, bh, m0 + c * kWgRows, rl, row, tq, lane, n_tiles,
+                  with_o, dq);
+  }
+  // dq[j * 4 + i * 2 + e]: row row[i], column j * 8 + tq * 2 + e. A row
+  // that no key reaches stores zeros.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= p.s_q) continue;
+    bf16* orow = out_row_of<bf16>(p.dq, p, kDQ, bi, hi, row[i]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (j * 8 >= p.d) break;  // the tile's zero columns past d
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) = pack_bf16(
+          dq[j * 4 + i * 2] * p.scale, dq[j * 4 + i * 2 + 1] * p.scale);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- dK/dV
 
 template <int D>
@@ -1333,6 +1634,43 @@ int launch_fwd_bf16(const Params& p, cudaStream_t stream) {
 }
 
 template <int D>
+int launch_dq_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int kSmem = DqCfg<D>::kSmem;
+  CUtensorMap maps[5] = {};  // q, k, v, o, dO; o only for delta
+  const struct {
+    const void* ptr;
+    int which, s, box_rows;
+  } tensors[5] = {{p.q, kQ, p.s_q, kBlockM},
+                  {p.k, kK, p.s_k, kTileRows},
+                  {p.v, kV, p.s_k, kTileRows},
+                  {p.o, kO, p.s_q, kBlockM},
+                  {p.dout, kDO, p.s_q, kBlockM}};
+  for (int i = 0; i < 5; ++i) {
+    if (i == 3 && !p.compute_delta) continue;
+    const int err = encode_tensor(&maps[i], tensors[i].ptr, p,
+                                  tensors[i].which, tensors[i].s,
+                                  tensors[i].box_rows);
+    if (err != 0) return err;
+  }
+  static std::atomic<int> l2_bytes[kMaxDevices];
+  int l2 = 0;
+  const int err = prepare(
+      reinterpret_cast<const void*>(&wide_dq_bf16_kernel<D>), kSmem,
+      l2_bytes, &l2);
+  if (err != 0) return err;
+  Params grouped = p;  // K and V stream through every Q tile of a head
+  grouped.group = heads_a_group(static_cast<long long>(p.b) * p.h,
+                                2LL * p.s_k * p.d * 2, l2);
+  const long long ctas = static_cast<long long>(p.b) * p.h *
+                         ((p.s_q + kBlockM - 1) / kBlockM);
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  wide_dq_bf16_kernel<D>
+      <<<static_cast<unsigned>(ctas), kHopperThreads, kSmem, stream>>>(
+          maps[0], maps[1], maps[2], maps[3], maps[4], grouped);
+  return cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   constexpr int kSmem = DkvCfg<D>::kSmem;
   CUtensorMap maps[4];
@@ -1424,8 +1762,8 @@ Params make_params(int b, int s_q, int s_k, int h, int d,
 // returns a cudaError_t (0 on success), or 100000 + the CUresult of a
 // failed tensor-map encode; the launch is asynchronous on `stream`. The
 // head dim d is any multiple of 8. `width` and `slices` are the caller's
-// plan (see has_plan; dQ always runs the simple kernel over `slices`); a
-// plan the library lacks returns cudaErrorInvalidValue.
+// plan (see has_plan); a plan the library lacks returns
+// cudaErrorInvalidValue.
 
 // The forward (partial = 0: o in q's dtype, lse) or the ring hop's partial
 // (partial = 1, causal: o the f32 unnormalized accumulator, m and l).
@@ -1469,8 +1807,8 @@ extern "C" int kftpu_wide_bwd_dq(
     const void* dout, const float* lse, float* delta, void* dq, int b,
     int s_q, int s_k, int h, int d, int dtype, const long long* strides,
     float scale, int causal, int q_offset, int k_offset, int compute_delta,
-    int slices, void* stream) {
-  if (!takes(d, dtype, s_q, s_k) || !has_plan(d, dtype, 0, slices)) {
+    int width, int slices, void* stream) {
+  if (!takes(d, dtype, s_q, s_k) || !has_plan(d, dtype, width, slices)) {
     return cudaErrorInvalidValue;
   }
   Params p = make_params(b, s_q, s_k, h, d, strides, scale, causal, q_offset,
@@ -1484,10 +1822,14 @@ extern "C" int kftpu_wide_bwd_dq(
   p.delta = delta;
   p.dq = dq;
   p.compute_delta = compute_delta;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (width != 0) {
+    return width == 192 ? launch_dq_bf16<192>(p, st)
+                        : launch_dq_bf16<256>(p, st);
+  }
   return launch_simple(dtype == 1 ? &wide_dq_kernel<__nv_bfloat16>
                                   : &wide_dq_kernel<float>,
-                       p, s_q, slices, &smem_dq,
-                       static_cast<cudaStream_t>(stream));
+                       p, s_q, slices, &smem_dq, st);
 }
 
 // dK and dV from the delta the dQ launch wrote (or the caller gave).

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels
 // (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_wide.cu):
 // mbarriers, TMA loads through 4-D tensor maps of [b, s, h, d] tensors,
-// wgmma descriptors and the wgmma forms the kernels issue, and the host
-// side that encodes the maps. Each source builds into its own library, so
+// wgmma descriptors and the wgmma forms the kernels issue, the row sums of
+// two swizzled tiles (the dQ kernels' delta), and the host side that
+// encodes the maps. Each source builds into its own library, so
 // nothing here is shared at run time; the header only keeps one copy of
 // the code.
 //
@@ -133,6 +134,41 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// sum over the row's D columns of f32(a) * f32(b), for row `row` of two
+// tiles laid out alike (panels `panel` bytes apart): this thread takes the
+// 16-byte chunks 2 tq and 2 tq + 1 of each 128-byte row (the swizzle moves
+// chunks within the row, which a sum does not see), the 4 threads of the
+// row sum.
+template <int D>
+__device__ __forceinline__ float row_dot(const unsigned char* a,
+                                         const unsigned char* b, int row,
+                                         int tq, int panel) {
+  float sum = 0.f;
+#pragma unroll
+  for (int pn = 0; pn < D / kPanelCols; ++pn) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int off = pn * panel + row * kRowBytes + (tq * 2 + c) * 16;
+      const uint4 x = *reinterpret_cast<const uint4*>(a + off);
+      const uint4 y = *reinterpret_cast<const uint4*>(b + off);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 fx = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[w]));
+        const float2 fy = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[w]));
+        sum = fmaf(fx.x, fy.x, sum);
+        sum = fmaf(fx.y, fy.y, sum);
+      }
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  return sum;
 }
 
 // wgmma.mma_async, bf16 in, f32 accumulate: A and B from shared memory

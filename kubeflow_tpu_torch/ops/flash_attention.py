@@ -33,8 +33,8 @@ Head dims: every head dim, as the JAX kernels take. The 128-column
 kernels take every multiple of 8 up to ``TILE_MAX_HEAD_DIM`` (128; a
 narrower head runs on a 64- or 128-column tile whose columns past it are
 zeros); wider heads run the wide library, whose kernel for each head dim
-and dtype :func:`_wide_plan` chooses: the bf16 forward, partial and dK/dV
-on wgmma at 192 or 256 columns up to 256, everything else on simple
+and dtype :func:`_wide_plan` chooses: the bf16 forward, partial, dQ and
+dK/dV on wgmma at 192 or 256 columns up to 256, everything else on simple
 kernels that split the output's columns into slices of 256. A head dim
 that is no multiple of 8 is copied into zero-padded ``[b, s, h,
 round_up(d, 8)]`` tensors first (zero columns add exactly 0 to every
@@ -72,9 +72,9 @@ WIDE_SOURCE = "flash_attention_wide.cu"
 # a qkv slice lie head_dim elements apart: the kernels take multiples of 8
 # (others are padded to one), the 128-column ones up to their widest tile.
 TILE_MAX_HEAD_DIM = 128
-# The wide library's wgmma kernels (bf16 forward, partial, dK/dV) come at
-# 192 and 256 columns; its simple kernels accumulate 256 output columns a
-# CTA (its kSliceCols).
+# The wide library's wgmma kernels (bf16 forward, partial, dQ, dK/dV) come
+# at 192 and 256 columns; its simple kernels accumulate 256 output columns
+# a CTA (its kSliceCols).
 WIDE_WGMMA_WIDTHS = (192, 256)
 WIDE_SLICE_COLS = 256
 _NEG_BIG = -1e30
@@ -180,10 +180,9 @@ def _wide(q) -> bool:
 
 
 class WidePlan(NamedTuple):
-    """How the wide library (``WIDE_SOURCE``) runs one head dim: the
-    forward, partial and dK/dV on the ``"wgmma"`` kernels at ``width``
-    columns, or all four on the ``"simple"`` kernels over ``slices``
-    output-column slices (dQ is always simple)."""
+    """How the wide library (``WIDE_SOURCE``) runs one head dim: on the
+    ``"wgmma"`` kernels at ``width`` columns, or on the ``"simple"``
+    kernels over ``slices`` output-column slices."""
     kernels: str
     width: int | None
     slices: int
@@ -255,7 +254,7 @@ def _wide_library(lib: ctypes.CDLL | None = None) -> ctypes.CDLL:
             + [ctypes.c_void_p])
         lib.kftpu_wide_bwd_dq.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-            + [strides, ctypes.c_float] + [ctypes.c_int] * 5
+            + [strides, ctypes.c_float] + [ctypes.c_int] * 6
             + [ctypes.c_void_p])
         lib.kftpu_wide_bwd_dkv.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -506,7 +505,10 @@ def _check_stats_contiguous(lse, delta) -> None:
 
 
 def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
-               k_offset, lib=None):
+               k_offset, lib=None, plan=None):
+    """The dQ launch; ``plan`` replaces :func:`_plan_args`'s plan for a
+    wide head (``(0, slices)`` times the simple kernel beside the wgmma
+    one in one build)."""
     global BWD_DQ_LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v), ("dO", do), ("o", o)):
         if t is not None:
@@ -518,9 +520,9 @@ def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
         delta = torch.empty((b * h, s_q), dtype=torch.float32,
                             device=q.device)
     dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
-    if _wide(q):  # dQ always runs the simple kernel, over the plan's slices
+    if _wide(q):
         lib = _wide_library(lib)
-        entry, plan = lib.kftpu_wide_bwd_dq, _plan_args(q)[1:]
+        entry, plan = lib.kftpu_wide_bwd_dq, plan or _plan_args(q)
     else:
         lib = _bwd_library(lib)
         entry, plan = lib.kftpu_flash_attention_bwd_dq, ()

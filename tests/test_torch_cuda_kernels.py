@@ -243,9 +243,8 @@ def test_wide_library_refuses_plans_it_lacks(cuda, monkeypatch, d, dtype,
         fa.flash_attention_partial(q, k, v, 0, 0)
     with pytest.raises(RuntimeError, match="launch failed"):
         fa.flash_attention_bwd_dkv(q, k, v, lse, q, lse)
-    if slices != -(-d // 256):   # dQ runs the simple kernel over them
-        with pytest.raises(RuntimeError, match="launch failed"):
-            fa.flash_attention_bwd_dq(q, k, v, o, lse, q)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention_bwd_dq(q, k, v, o, lse, q)
 
 
 # Every head dim the JAX kernels take: no multiple of 8 (20, 36: padded
@@ -290,6 +289,27 @@ def test_any_head_dim_partial_and_hop_backward_match_plain_version(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [136, 192, 200, 248, 256])
+@pytest.mark.parametrize("case", ["straddle_192_64", "straddle_64_192",
+                                  "ragged_diagonal"])
+def test_wgmma_head_dims_hop_backward_matches_plain_version(cuda, case, d):
+    # The wgmma dQ and dK/dV at hops whose diagonal falls half-way into a
+    # 128-row Q tile and a ragged one, delta given: at (64, 192) rows 0-127
+    # see no key of the block and get a zero dq.
+    shape, q_off, k_off = PARTIAL_CASES[case]
+    q, k, v, o, lse, do = _bwd_inputs(shape[:3] + (d,), torch.bfloat16,
+                                      cuda)
+    delta = fa.attention_delta(o, do)
+    got = fa.flash_attention_bwd(q, k, v, None, lse, do, q_offset=q_off,
+                                 k_offset=k_off, delta=delta)
+    _assert_grads_close(got, fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, q_offset=q_off, k_offset=k_off, delta=delta),
+        torch.bfloat16)
+    if case == "straddle_64_192":
+        assert bool((got[0][:, :128] == 0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [20, 136, 256])
 def test_any_head_dim_reads_qkv_column_slices(cuda, d):
     """Heads d elements apart in one [b, s, 3*h*d] product, as the models
@@ -308,6 +328,55 @@ def test_any_head_dim_reads_qkv_column_slices(cuda, d):
     for a, c in zip(fa.flash_attention_bwd(q, k, v, o, lse, do),
                     fa.flash_attention_bwd(*dense, o, lse, do)):
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_wide_dq_kernel_is_deterministic(cuda):
+    # The wgmma dQ at 256 columns, computing delta from O: no atomics; the
+    # same inputs give the same bits, dq and delta.
+    q, k, v, o, lse, do = _bwd_inputs((8, 1024, 16, 256), torch.bfloat16,
+                                      cuda)
+    first = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,kernel", [
+    (136, torch.bfloat16, "wide_dq_bf16_kernel<192>"),
+    (200, torch.bfloat16, "wide_dq_bf16_kernel<256>"),
+    (256, torch.bfloat16, "wide_dq_bf16_kernel<256>"),
+    (264, torch.bfloat16, "wide_dq_kernel<__nv_bfloat16>"),
+    (136, torch.float32, "wide_dq_kernel<float>"),
+])
+def test_wide_dq_launches_the_kernel_of_its_plan(cuda, d, dtype, kernel):
+    # bf16 heads up to 256 columns take the wgmma dQ at the narrowest
+    # width that holds them; f32 and wider bf16 heads the simple kernel.
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, o, lse, do = _bwd_inputs((1, 128, 2, d), dtype, cuda)
+    fa.flash_attention_bwd_dq(q, k, v, o, lse, do)   # built, loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages() if "wide_dq" in ev.key]
+    assert len(names) == 1 and kernel in names[0], names
+
+
+@pytest.mark.cuda
+def test_wide_dq_simple_plan_matches_plain_version(cuda):
+    # The simple dQ stays in the library for bf16 at 256 columns (the
+    # plan (0, 1)), where it is timed beside the wgmma dQ.
+    q, k, v, o, lse, do = _bwd_inputs((2, 160, 3, 256), torch.bfloat16,
+                                      cuda)
+    got, delta = fa._launch_dq(q, k, v, o, lse, do, None, True,
+                               256 ** -0.5, 0, 0, plan=(0, 1))
+    ref, rdelta = fa.flash_attention_bwd_dq_reference(q, k, v, o, lse, do)
+    bound = TOL_GRAD[torch.bfloat16] * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= bound
+    torch.testing.assert_close(delta, rdelta, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -39,6 +39,12 @@ CASES = {
     "f32_s32": ((2, 32, 2, 128), "float32", True),
     "f32_s256": ((2, 256, 2, 128), "float32", True),
     "bf16_causal": ((2, 128, 2, 128), "bfloat16", True),
+    # Heads wider than the 128-column kernels (the wide library on the
+    # card): 136 (no multiple of 64) and Gemma's 256.
+    "f32_d136": ((2, 128, 2, 136), "float32", True),
+    "f32_d256": ((2, 128, 2, 256), "float32", True),
+    "bf16_d136": ((2, 128, 2, 136), "bfloat16", True),
+    "bf16_d256": ((2, 128, 2, 256), "bfloat16", True),
 }
 # One ring hop of 128-row blocks: the K block below the diagonal, on it,
 # and above it (no key reaches any query: all three gradients are zero);

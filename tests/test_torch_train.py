@@ -83,9 +83,11 @@ def test_loss_and_gradients_match_jax(attention, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n_heads", [1, 2], ids=["head_dim128", "head_dim64"])
-def test_one_and_two_sgd_steps_match_jax(n_heads, dtype):
-    jcfg, cfg = _configs(n_heads=n_heads, attention="flash", dtype=dtype)
+@pytest.mark.parametrize("n_heads,d_model", [(1, 128), (2, 128), (1, 256)],
+                         ids=["head_dim128", "head_dim64", "head_dim256"])
+def test_one_and_two_sgd_steps_match_jax(n_heads, d_model, dtype):
+    jcfg, cfg = _configs(n_heads=n_heads, d_model=d_model, attention="flash",
+                         dtype=dtype)
     jparams = _jax_params(jcfg)
     tokens = _tokens()
     jstep = jax.jit(jax_burnin.make_train_step(jcfg))
