@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, long-context training, MoE,
-vision and pipelined training paths on one NVIDIA GPU and hold its
-kernels against their plain versions.
+"""Drive the PyTorch port's serving, training, sharded training,
+long-context training, MoE, vision and pipelined training paths on one
+NVIDIA GPU and hold its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -139,12 +139,31 @@ last line. With no CUDA device it exits 1 and prints no result.
    leaf at the ``train_grads`` bounds, then 2 warm-up steps, 10 timed (2
    chunks of 5) and 3 profiled; launches counted from zero: one forward,
    one dQ and one dK/dV per layer and step.
+23. sharded (run after train) — the sharded training main path at one
+   shard: a process group of this process alone over NCCL, a 1 x 1
+   ("data", "model") mesh, ``burnin.make_train_step(cfg, mesh)`` at
+   ``BENCH_MODEL``, batch 8: two steps bitwise equal (loss and every
+   leaf) to two of the unsharded step from the same params and tokens,
+   then timed and profiled as ``train`` with launches counted from zero,
+   its step ms and MFU printed beside ``train``'s.
+24. dryrun (inside the same group) — ``entry.dryrun_multichip(1)`` on
+   the card (the burn-in block); ``dryrun_multichip(4)`` over NCCL where
+   the machine has 4 cards, else a line saying why it did not run.
+25. sharded_grads — the sharded step at 2 x 2 ("data", "model"): 4
+   processes share the card over gloo on CUDA tensors (NCCL takes one
+   process a card), ``BENCH_MODEL``'s widths at 2 layers (a depth cut),
+   global batch 8, flash, so each runs the kernels at [4, 1024, 8, 128];
+   one step at lr 1, then rank 0's loss and every leaf's update
+   (``unshard``-ed to the global layout) against the one-process step on
+   the card at the ``train_grads`` bounds. Its seconds go through the
+   host's gloo, not NVLink, and are no rate.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
-``pipelined_schedule`` and ``wide_heads``, and ``device_kernels``: the
+``pipelined_schedule``, ``wide_heads``, ``sharded`` and
+``sharded_grads`` (summed over its 4 processes), and ``device_kernels``: the
 CUDA kernels behind each entry, by head dim and dtype), the card line,
 and the result line.
 """
@@ -217,6 +236,11 @@ TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS, TRAIN_PROFILED = 2, 4, 25, 3
 WIDE_MODEL = dict(TRAIN_MODEL, n_heads=8)
 WIDE_WARMUP, WIDE_CHUNKS, WIDE_CHUNK_STEPS, WIDE_PROFILED = 2, 2, 5, 3
 FIT_STEPS, FIT_ACCUM = 10, 2
+# The sharded step's gradients at 2 x 2 (data, model): TRAIN_MODEL's
+# widths at 2 layers (a depth cut), so each of the 4 processes that share
+# the card runs the kernels at [4, 1024, 8, 128].
+SHARDED_MODEL = dict(TRAIN_MODEL, n_layers=2)
+SHARDED_MESH = (2, 2)
 
 # Backward cases (name, [b, s, h, d], dtype, causal, q_offset, k_offset,
 # delta given): the train step's attention, several tiles past the JAX
@@ -1399,7 +1423,7 @@ def phase_train(torch, fa, burnin, card: str) -> dict:
         raise AssertionError(f"train phase failed: {row}")
     del params
     torch.cuda.empty_cache()
-    return launches
+    return row
 
 
 def phase_wide_heads(torch, fa, burnin, card: str) -> dict:
@@ -1507,6 +1531,190 @@ def phase_trainer(torch, fa, burnin, trainer) -> dict:
             and launches == _burnin_counts(expect)):
         raise AssertionError(f"trainer phase failed: {row}")
     del state, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextmanager
+def world_of_one(torch):
+    """A process group of this process alone over NCCL (a file store in
+    a temporary directory), destroyed on the way out."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), world_size=1,
+            rank=0, device_id=torch.device("cuda", 0))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded(torch, fa, burnin, tree, pmesh, card: str,
+                  train: dict) -> dict:
+    """The sharded train step at one shard: world 1 over NCCL, mesh 1 x 1,
+    TRAIN_MODEL at batch 8. Two steps of ``make_train_step(cfg, mesh)``
+    against two of ``make_train_step(cfg)`` from the same params and
+    tokens, the losses and every leaf bitwise equal; then the sharded step
+    timed and profiled as ``train`` (launches counted from zero), beside
+    ``train``'s numbers from this run."""
+    cfg = burnin.BurninConfig(**TRAIN_MODEL)
+    mesh = pmesh.make_mesh(pmesh.MeshPlan(1, 1), "cuda")
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=0)
+    plain = tree.map_params(torch.clone, params)
+    params = burnin.shard_params(params, mesh, cfg)
+    step = burnin.make_train_step(cfg, mesh)
+    plain_step = burnin.make_train_step(cfg)
+    equal = []
+    for _ in range(2):
+        loss = step(params, tokens)[1]
+        equal.append(torch.equal(loss, plain_step(plain, tokens)[1]))
+    equal.append(all(torch.equal(a, b) for a, b in
+                     zip(tree.leaves(params), tree.leaves(plain))))
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    timing = _timed_steps(torch, lambda: step(params, tokens)[1],
+                          TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS)
+    prof = profile_steps(torch, lambda: step(params, tokens),
+                         TRAIN_PROFILED)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    run = TRAIN_WARMUP + timing["steps"] + TRAIN_PROFILED
+    flops = train_step_flops(cfg, TRAIN_BATCH)
+    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
+    row = {"phase": "sharded", "config": TRAIN_MODEL, "batch": TRAIN_BATCH,
+           "mesh": {"data": 1, "model": 1}, "backend": "nccl", "world": 1,
+           "card": card, "bitwise_equal_to_unsharded": equal, **timing,
+           "tflops": tflops, "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "train_step_ms": train["step_ms"], "train_mfu": train["mfu"],
+           "train_step_spread_pct": train["step_spread_pct"],
+           "launches": launches, "launches_expected": cfg.n_layers * run,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "profile": prof}
+    emit(row)
+    if not (all(equal) and math.isfinite(timing["loss_last"])
+            and timing["loss_last"] < timing["loss_first"]
+            and launches == _burnin_counts(cfg.n_layers * run)):
+        raise AssertionError(f"sharded phase failed: {row}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun(torch, entry) -> None:
+    """``dryrun_multichip(1)`` on the card (the burn-in block, as the JAX
+    package's gate at n = 1), inside the world of one; with 4 cards,
+    ``dryrun_multichip(4)`` over NCCL too."""
+    t0 = time.perf_counter()
+    row = {"phase": "dryrun", "n_1": entry.dryrun_multichip(1),
+           "n_1_sec": time.perf_counter() - t0,
+           "device_count": torch.cuda.device_count()}
+    if torch.cuda.device_count() >= 4:
+        t0 = time.perf_counter()
+        row["n_4"] = entry.dryrun_multichip(4)
+        row["n_4_sec"] = time.perf_counter() - t0
+    else:
+        row["n_4"] = (f"not run: dryrun_multichip(4) needs 4 cards, one a "
+                      f"process over NCCL, and this machine has "
+                      f"{torch.cuda.device_count()}")
+    emit(row)
+    if not all(math.isfinite(v) for key in ("n_1", "n_4")
+               if isinstance(row[key], dict) for v in row[key].values()):
+        raise AssertionError(f"dryrun phase failed: {row}")
+
+
+def _sharded_grads_rank(rank: int, model: dict, seed: int) -> dict:
+    """One process of ``sharded_grads``: this rank's shard of the seeded
+    params and tokens at SHARDED_MESH, one sharded SGD step at lr 1 on
+    the card, and the update of every leaf gathered back to the global
+    layout (rank 0 keeps it). Runs in a child process of the gloo world."""
+    import torch
+
+    from kubeflow_tpu_torch.models import burnin
+    from kubeflow_tpu_torch.models.tree import leaves, map_params
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel.mesh import MeshPlan, make_mesh, shard
+
+    cfg = burnin.BurninConfig(**model)
+    mesh = make_mesh(MeshPlan(*SHARDED_MESH), "cuda")
+    params, tokens = _train_inputs(torch, burnin, cfg, seed)
+    params = burnin.shard_params(params, mesh, cfg)
+    before = [t.clone() for t in leaves(params)]
+    tokens = shard(tokens, ("data",), mesh)
+    step = burnin.make_train_step(cfg, mesh, lr=1.0)
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)
+    t0 = time.perf_counter()
+    _, loss = step(params, tokens)
+    loss = float(loss)
+    step_sec = time.perf_counter() - t0
+    launches = _launch_counts(fa)
+    updates = iter([(b - a).cpu() for b, a in zip(before, leaves(params))])
+    update = burnin.unshard_params(map_params(lambda _: next(updates),
+                                              params), mesh, cfg)
+    return {"loss": loss, "launches": launches, "step_sec": step_sec,
+            "local_heads": params["layers"][0]["qkv"].shape[1]
+            // (3 * cfg.head_dim), "local_batch": tokens.shape[0],
+            "update": update if rank == 0 else None}
+
+
+def phase_sharded_grads(torch, fa, burnin, tree, launch) -> dict:
+    """The sharded step's numbers at 2 x 2: 4 processes share the card
+    over gloo (the card machine has one card, and NCCL takes one process a
+    card), TRAIN_MODEL's widths at 2 layers (a depth cut), global batch 8,
+    flash. After one step at lr 1 (each leaf's update is its gradient),
+    rank 0's loss and every leaf's update, gathered to the global layout,
+    against the one-process step's on the card at the train_grads
+    bounds."""
+    cfg = burnin.BurninConfig(**SHARDED_MODEL)
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=7)
+    skeleton = tree.map_params(lambda _: None, params)
+    before = [t.clone() for t in tree.leaves(params)]
+    _, ref_loss = burnin.make_train_step(cfg, lr=1.0)(params, tokens)
+    ref = [b - a for b, a in zip(before, tree.leaves(params))]
+    del params, tokens, before
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_world(_sharded_grads_rank, 4, SHARDED_MODEL, 7,
+                             cuda=True, timeout=300)
+    wall = time.perf_counter() - t0
+    got = [t.cuda() for t in tree.leaves(ranks[0]["update"])]
+    leaves, worst, least = _grad_gaps(torch, skeleton, got, ref)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    row = {"phase": "sharded_grads", "config": SHARDED_MODEL,
+           "cut": "depth: TRAIN_MODEL's widths at n_layers 2",
+           "mesh": dict(zip(("data", "model"), SHARDED_MESH)),
+           "backend": "gloo on CUDA tensors (4 processes, one card)",
+           "batch": TRAIN_BATCH, "local_batch": ranks[0]["local_batch"],
+           "local_heads": ranks[0]["local_heads"], "lr": 1.0,
+           "loss_sharded": ranks[0]["loss"],
+           "loss_one_process": float(ref_loss),
+           "loss_diff": ranks[0]["loss"] - float(ref_loss),
+           "losses_by_rank": [r["loss"] for r in ranks],
+           "worst_rel_l2": worst["rel_l2"], "worst_rel_l2_leaf": worst["leaf"],
+           "min_cosine": least["cosine"], "min_cosine_leaf": least["leaf"],
+           "tol_loss": TOL_TRAIN_LOSS, "tol_rel_l2": TOL_GRAD_REL_L2,
+           "min_cosine_bound": MIN_GRAD_COSINE, "launches": launches,
+           "note": "host-clock seconds through gloo on the host, not NVLink: "
+                   "not a rate",
+           "step_sec_by_rank": [r["step_sec"] for r in ranks],
+           "world_sec": wall, "leaves": leaves}
+    emit(row)
+    if not (all(x["finite"] for x in leaves)
+            and len(set(row["losses_by_rank"])) == 1
+            and abs(row["loss_diff"]) <= TOL_TRAIN_LOSS
+            and worst["rel_l2"] <= TOL_GRAD_REL_L2
+            and least["cosine"] >= MIN_GRAD_COSINE
+            and launches == _burnin_counts(4 * cfg.n_layers)):
+        raise AssertionError(f"sharded_grads phase failed: {row}")
+    del ranks, got, ref
     torch.cuda.empty_cache()
     return launches
 
@@ -2206,10 +2414,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    from kubeflow_tpu_torch import entry
     from kubeflow_tpu_torch.models import (burnin, longctx, moe, pipelined,
                                            trainer, tree, vision)
     from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import launch
+    from kubeflow_tpu_torch.parallel import mesh as pmesh
     from kubeflow_tpu_torch.parallel import moe as pmoe
     from kubeflow_tpu_torch.parallel import ring
     from kubeflow_tpu_torch.serving import engine as engine_mod
@@ -2245,7 +2456,12 @@ def main() -> int:
     by_path = {"serving": {"fwd": phase_serving(
         torch, fa, burnin, engine_mod, loadgen)["launches"]}}
     phase_train_grads(torch, fa, burnin)
-    by_path["train"] = phase_train(torch, fa, burnin, card)
+    train = phase_train(torch, fa, burnin, card)
+    by_path["train"] = train["launches"]
+    with world_of_one(torch):
+        by_path["sharded"] = phase_sharded(torch, fa, burnin, tree, pmesh,
+                                           card, train)
+        phase_dryrun(torch, entry)
     by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
@@ -2260,6 +2476,8 @@ def main() -> int:
     by_path["pipelined_schedule"] = phase_pipelined(torch, fa, pipelined,
                                                     card, True)
     by_path["wide_heads"] = phase_wide_heads(torch, fa, burnin, card)
+    by_path["sharded_grads"] = phase_sharded_grads(torch, fa, burnin, tree,
+                                                   launch)
 
     def launches(kernel):
         return {path: counts.get(kernel, 0)

@@ -17,11 +17,16 @@ imports nothing of it (and no JAX). Ported so far, slice by slice:
    hand-written ring-hop partial-attention kernel;
 4. mixture-of-experts training (``models.moe``) over expert parallelism
    (``parallel.moe``, two all-to-alls), on a ``DeviceMesh`` from
-   ``parallel.mesh``.
+   ``parallel.mesh``;
+5. the pipelined and vision families (``models.pipelined`` over
+   ``parallel.pipeline``, ``models.vision``);
+6. the sharded main path: the burn-in step data x tensor parallel, the
+   trainer's sharded state and vision's data-parallel batch, on the
+   tensor-parallel pieces of ``parallel.mesh``.
 
 The kernels live in ``ops.flash_attention``, their CUDA sources in
-``ops/csrc/``; ``entry.entry`` mirrors the JAX package's
-``__graft_entry__.entry``.
+``ops/csrc/``; ``entry.entry`` and ``entry.dryrun_multichip`` mirror the
+JAX package's ``__graft_entry__`` entry points.
 """
 
 from kubeflow_tpu_torch.device import resolve_device

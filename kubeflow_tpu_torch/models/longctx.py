@@ -34,8 +34,8 @@ import torch.nn.functional as F
 from kubeflow_tpu_torch.models import burnin
 from kubeflow_tpu_torch.models.burnin import _rmsnorm
 from kubeflow_tpu_torch.models.tree import leaves, value_and_grad
-from kubeflow_tpu_torch.parallel.mesh import world_size
-from kubeflow_tpu_torch.parallel.ring import Axis, ring_attention
+from kubeflow_tpu_torch.parallel.mesh import Axis, world_size
+from kubeflow_tpu_torch.parallel.ring import ring_attention
 from kubeflow_tpu_torch.parallel.ulysses import (
     ring_ulysses_attention,
     ulysses_attention,

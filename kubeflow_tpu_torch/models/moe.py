@@ -32,10 +32,10 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.burnin import _attention, _rmsnorm
-from kubeflow_tpu_torch.models.tree import leaves, map_params, value_and_grad
-from kubeflow_tpu_torch.parallel.mesh import world_size
+from kubeflow_tpu_torch.models.tree import leaves, map_with, value_and_grad
+from kubeflow_tpu_torch.parallel.mesh import (Axis, grad_groups, reduce_grads,
+                                              shard, world_size)
 from kubeflow_tpu_torch.parallel.moe import moe_ffn
-from kubeflow_tpu_torch.parallel.ring import Axis
 
 __all__ = ["MoEConfig", "forward", "init_params", "loss_fn",
            "make_train_step", "param_shapes", "param_sharding_rules",
@@ -123,20 +123,12 @@ def shard_params(params: dict, mesh, cfg: MoEConfig,
     """This process's parameters: its experts' slice of ``expert_w1`` and
     ``expert_w2`` (contiguous copies), the other leaves as they are; the
     tree itself on one expert shard."""
-    axis = Axis.of(mesh, expert_axis)
-    if axis.size == 1:
-        return params
-    if cfg.n_experts % axis.size:
+    size = Axis.of(mesh, expert_axis).size
+    if cfg.n_experts % size:
         raise ValueError(f"{cfg.n_experts} experts do not divide into "
-                         f"{axis.size} expert shards")
-    e_local = cfg.n_experts // axis.size
-    mine = slice(axis.index * e_local, (axis.index + 1) * e_local)
-
-    def shard(spec, p):
-        return p[mine].contiguous() if expert_axis in spec else p
-
-    specs = iter(leaves(param_sharding_rules(cfg, expert_axis)))
-    return map_params(lambda p: shard(next(specs), p), params)
+                         f"{size} expert shards")
+    return map_with(lambda p, spec: shard(p, spec, mesh), params,
+                    param_sharding_rules(cfg, expert_axis))
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh=None,
@@ -176,20 +168,6 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh=None,
             + cfg.aux_weight * aux / world)
 
 
-def _grad_groups(cfg: MoEConfig, mesh, expert_axis: str) -> list:
-    """Per leaf, in :func:`leaves` order: the process group its gradient
-    is summed over (``dist.group.WORLD`` for a replicated leaf; an expert
-    leaf's over the mesh's other axis, or ``None`` when it has none of
-    size > 1)."""
-    others = [name for name in mesh.mesh_dim_names if name != expert_axis]
-    if len(others) > 1:
-        raise ValueError(f"the mesh {mesh.mesh_dim_names} has more than one "
-                         f"axis beside {expert_axis!r}")
-    expert_group = Axis.of(mesh, others[0]).group if others else None
-    return [expert_group if expert_axis in spec else dist.group.WORLD
-            for spec in leaves(param_sharding_rules(cfg, expert_axis))]
-
-
 def make_train_step(cfg: MoEConfig, mesh=None, lr: float = 1e-3,
                     expert_axis: str = "expert"):
     """SGD train step ``(params, tokens) -> (params, loss)`` on this
@@ -200,15 +178,15 @@ def make_train_step(cfg: MoEConfig, mesh=None, lr: float = 1e-3,
     step's donated params). The loss returned is the global one, on the
     device."""
     world = world_size(mesh)
-    groups = _grad_groups(cfg, mesh, expert_axis) if world > 1 else None
+    if world > 1:
+        groups = [grad_groups(spec, mesh) for spec in
+                  leaves(param_sharding_rules(cfg, expert_axis))]
 
     def step(params, tokens):
         loss, grads = value_and_grad(loss_fn, params, tokens, cfg, mesh,
                                      expert_axis)
         if world > 1:
-            for g, group in zip(grads, groups):
-                if group is not None:
-                    dist.all_reduce(g, group=group)
+            reduce_grads(grads, groups)
             dist.all_reduce(loss)
         with torch.no_grad():
             torch._foreach_add_(leaves(params), grads, alpha=-lr)

@@ -20,9 +20,10 @@ computes its loss, masked to 0 off the last stage and scaled by
 mean. The cotangents of the activations that the model axis replicates
 are then shares, one per model process, that sum to the whole; the
 transposes of the JAX step leave them so. The backward of the forward's
-model-axis sum (:class:`_ModelSum`) therefore sums the shares, and the
-train step sums each leaf's gradient once over exactly the mesh axes its
-sharding rule leaves it replicated on (the JAX module's ``reduce_grads``).
+model-axis sum (``parallel.mesh.ModelSum``) therefore sums the shares,
+and the train step sums each leaf's gradient once over exactly the mesh
+axes its sharding rule leaves it replicated on (the JAX module's
+``reduce_grads``).
 
 ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` over the whole
 world with axes ("data", "stage"[, "model"]) (``make_pp_mesh``), or None:
@@ -41,11 +42,13 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.burnin import _rmsnorm
-from kubeflow_tpu_torch.models.tree import leaves, map_params, value_and_grad
+from kubeflow_tpu_torch.models.tree import leaves, map_with, value_and_grad
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
-from kubeflow_tpu_torch.parallel.mesh import world_size
+from kubeflow_tpu_torch.parallel.mesh import (Axis, axis, grad_groups,
+                                              model_sum, reduce_grads, shard,
+                                              world_size)
 from kubeflow_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_spans
-from kubeflow_tpu_torch.parallel.ring import Axis, reference_causal_attention
+from kubeflow_tpu_torch.parallel.ring import reference_causal_attention
 
 __all__ = ["PipelinedConfig", "init_params", "loss_fn", "make_pp_mesh",
            "make_train_step", "param_shapes", "param_sharding_rules",
@@ -138,13 +141,6 @@ def param_sharding_rules(cfg: PipelinedConfig,
                        "ff1": ("stage", None, m), "ff2": ("stage", m, None)}}
 
 
-def _axis(mesh, name: str) -> Axis:
-    """Axis ``name`` of ``mesh``; one shard where the mesh lacks it."""
-    if mesh is None or name not in (mesh.mesh_dim_names or ()):
-        return Axis()
-    return Axis.of(mesh, name)
-
-
 def _model_axis_name(mesh, model_axis: str) -> str | None:
     names = () if mesh is None else (mesh.mesh_dim_names or ())
     return model_axis if model_axis in names else None
@@ -156,59 +152,20 @@ def shard_params(params: dict, mesh, cfg: PipelinedConfig,
     """This process's parameters: its stage's layers and, with a model
     axis, its heads and ff columns, as contiguous copies; the replicated
     leaves as they are. ``mesh=None``: the tree itself."""
-    stage = _axis(mesh, stage_axis)
+    stage = axis(mesh, stage_axis)
     pipeline_spans(cfg.n_layers, stage.size)  # clear divisibility error
-    model = _axis(mesh, model_axis)
+    model = axis(mesh, model_axis)
     if cfg.n_heads % model.size or cfg.d_ff % model.size:
         raise ValueError(f"n_heads={cfg.n_heads} and d_ff={cfg.d_ff} must "
                          f"divide by model-axis size {model.size}")
-    axes = {"stage": stage, model_axis: model}
     rules = param_sharding_rules(cfg, _model_axis_name(mesh, model_axis))
-
-    def shard(spec, p):
-        cut = False
-        for dim, name in enumerate(spec):
-            axis = axes.get(name)
-            if axis is not None and axis.size > 1:
-                n = p.shape[dim] // axis.size
-                p, cut = p.narrow(dim, axis.index * n, n), True
-        return p.clone(memory_format=torch.contiguous_format) if cut else p
-
-    specs = iter(leaves(rules))
-    return map_params(lambda p: shard(next(specs), p), params)
-
-
-class _ModelSum(torch.autograd.Function):
-    """The sum of a row-parallel product's shares over the model axis. Its
-    backward sums the cotangent's shares too: each model process holds a
-    share of the replicated activation's cotangent (see the module's
-    docstring)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_reduced(x, group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _all_reduced(grad, ctx.group), None
-
-
-def _all_reduced(x, group):
-    """A sum of ``x`` over ``group``, into a copy (autograd may hold ``x``
-    elsewhere)."""
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
-    return out
+    return map_with(lambda p, spec: shard(p, spec, mesh), params, rules)
 
 
 def _stage_fn(cfg: PipelinedConfig, model: Axis = Axis()):
     """``(local_layers, h) -> h``: the transformer layer over this
     process's slice of the stack; with a model axis, the local heads and
     ff columns and one model-axis sum after each row-parallel product."""
-
-    def model_sum(x):
-        return x if model.size == 1 else _ModelSum.apply(x, model.group)
 
     def run(local_layers, h):
         dtype = h.dtype
@@ -231,9 +188,9 @@ def _stage_fn(cfg: PipelinedConfig, model: Axis = Axis()):
             else:
                 ctx = reference_causal_attention(q, k, v)
             attn = ctx.reshape(b, s, heads * hd) @ out_w.reshape(-1, d)
-            h = h + model_sum(attn)
+            h = h + model_sum(attn, model)
             g = F.gelu(_rmsnorm(h, ln2) @ ff1, approximate="tanh")
-            h = h + model_sum(g @ ff2)
+            h = h + model_sum(g @ ff2, model)
         return h
 
     return run
@@ -261,16 +218,6 @@ def reference_loss(params: dict, tokens: torch.Tensor,
     return _logits_nll(params, x, tgt, dtype)
 
 
-def _grad_groups(cfg, mesh, axes: dict, model_axis: str) -> list:
-    """Per leaf, in :func:`leaves` order, the process groups its gradient
-    is summed over in turn: one per mesh axis of size > 1 that its rule
-    leaves it replicated on."""
-    rules = param_sharding_rules(cfg, _model_axis_name(mesh, model_axis))
-    return [[axes[name].group for name in mesh.mesh_dim_names
-             if name not in spec and axes[name].size > 1]
-            for spec in leaves(rules)]
-
-
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: PipelinedConfig,
             mesh=None, *, force_schedule: bool = False,
             data_axis: str = "data", stage_axis: str = "stage",
@@ -281,7 +228,7 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: PipelinedConfig,
     softmax), 0 off the last stage, over ``data * model``. The shares sum
     over the world to the loss. ``force_schedule`` runs the GPipe tick
     schedule even at one stage."""
-    data, stage, model = (_axis(mesh, name)
+    data, stage, model = (axis(mesh, name)
                           for name in (data_axis, stage_axis, model_axis))
     dtype = getattr(torch, cfg.dtype)
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
@@ -310,11 +257,11 @@ def make_train_step(cfg: PipelinedConfig, mesh=None, lr: float = 1e-3,
     summed over the axes each leaf replicates on, and ``p - lr * g`` runs
     on every leaf in place (the counterpart of the JAX step's donated
     params). The loss returned is the global one, on the device."""
-    axes = {name: _axis(mesh, name)
-            for name in (data_axis, stage_axis, model_axis)}
-    pipeline_spans(cfg.n_layers, axes[stage_axis].size)  # divisibility error
+    pipeline_spans(cfg.n_layers, axis(mesh, stage_axis).size)  # divisibility
     world = world_size(mesh)
-    groups = _grad_groups(cfg, mesh, axes, model_axis) if world > 1 else None
+    if world > 1:
+        rules = param_sharding_rules(cfg, _model_axis_name(mesh, model_axis))
+        groups = [grad_groups(spec, mesh) for spec in leaves(rules)]
     loss_share = partial(loss_fn, cfg=cfg, mesh=mesh,
                          force_schedule=force_schedule, data_axis=data_axis,
                          stage_axis=stage_axis, model_axis=model_axis)
@@ -322,9 +269,7 @@ def make_train_step(cfg: PipelinedConfig, mesh=None, lr: float = 1e-3,
     def step(params, tokens):
         loss, grads = value_and_grad(loss_share, params, tokens)
         if world > 1:
-            for g, leaf_groups in zip(grads, groups):
-                for group in leaf_groups:
-                    dist.all_reduce(g, group=group)
+            reduce_grads(grads, groups)
             dist.all_reduce(loss)
         with torch.no_grad():
             torch._foreach_add_(leaves(params), grads, alpha=-lr)

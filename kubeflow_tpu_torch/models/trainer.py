@@ -1,7 +1,7 @@
 """Training harness: optimizer, gradient accumulation and ``fit``.
 
-The port of ``kubeflow_tpu/models/trainer.py`` on one device. The optax
-chain becomes torch objects with optax's numbers:
+The port of ``kubeflow_tpu/models/trainer.py``, on one device or on a
+mesh. The optax chain becomes torch objects with optax's numbers:
 
 - ``clip_by_global_norm``: ``g / ‖g‖ * max`` only when ``‖g‖ ≥ max``,
   with no epsilon (``torch.nn.utils.clip_grad_norm_`` divides by
@@ -15,11 +15,19 @@ chain becomes torch objects with optax's numbers:
 
 The train state is a dict as in the JAX package, ``{"params",
 "opt_state", "step"}``; the step updates params and optimizer state in
-place (the counterpart of donating the state to a jitted step). Sharding
-(``state_sharding_rules``, ``shard_state``) and the abstract state of an
-Orbax restore wait for the sharded and checkpoint slices; ``fit``'s
-``profiler`` and ``publisher`` wait for the telemetry port and raise
-when given.
+place (the counterpart of donating the state to a jitted step).
+
+Sharded, the state follows the params' rules: ``state_sharding_rules``
+gives the AdamW moments their params' rules leaf for leaf, as optax's
+moments inherit them in JAX, and ``shard_state`` builds the optimizer on
+the param shards, so the moments it makes are shards too. The sharded
+step sums the gradients as the model's step does and clips by the global
+norm of the global leaves. AdamW, its decoupled weight decay and the
+schedule are elementwise and run on the shards unchanged.
+
+The abstract state of an Orbax restore waits for the checkpoint slice;
+``fit``'s ``profiler`` and ``publisher`` wait for the telemetry port and
+raise when given.
 """
 
 from __future__ import annotations
@@ -30,8 +38,11 @@ from itertools import islice
 from typing import Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
-from kubeflow_tpu_torch.models.tree import leaves, value_and_grad
+from kubeflow_tpu_torch.models.tree import leaves, map_with, value_and_grad
+from kubeflow_tpu_torch.parallel.mesh import (axis, cuts, grad_groups,
+                                              reduce_grads, shard, world_size)
 
 
 @dataclass(frozen=True)
@@ -60,12 +71,32 @@ def warmup_cosine(cfg: TrainerConfig) -> Callable[[int], float]:
     return factor
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list, max_norm: float,
+                         split: list | None = None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / ‖g‖`` when the global norm
     ``‖g‖ ≥ max_norm``, as ``optax.clip_by_global_norm``: ``g / ‖g‖ *
     max_norm``, no epsilon, untouched below the threshold. Returns the
-    norm (on the device; nothing synchronises)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm (on the device; nothing synchronises).
+
+    ``split``, for the shards of a sharded state: one list a leaf of the
+    process groups its shards are cut over (``[]``: whole on every
+    process). The norm is then the global leaves': each cut leaf's
+    squared norm summed over its groups, each whole one counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if split and any(split):
+        parts = {}
+        for i, groups in enumerate(split):
+            parts.setdefault(tuple(groups), []).append(i)
+        squares = norms * norms
+        total = torch.zeros_like(norms[0])
+        for groups, rows in parts.items():
+            part = squares[rows].sum()
+            for group in groups:
+                dist.all_reduce(part, group=group)
+            total = total + part
+        norm = total.sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     below = norm < max_norm
     divisor = torch.where(below, torch.ones_like(norm), norm)
     factor = torch.where(below, torch.ones_like(norm),
@@ -97,9 +128,10 @@ class Optimizer:
                 "schedule": torch.optim.lr_scheduler.LambdaLR(
                     opt, warmup_cosine(cfg))}
 
-    def update(self, grads: list, opt_state: dict, params) -> None:
+    def update(self, grads: list, opt_state: dict, params,
+               split: list | None = None) -> None:
         if self.cfg.grad_clip:
-            clip_by_global_norm_(grads, self.cfg.grad_clip)
+            clip_by_global_norm_(grads, self.cfg.grad_clip, split)
         tensors = leaves(params)
         for p, g in zip(tensors, grads):
             p.grad = g
@@ -119,20 +151,87 @@ def init_state(params, optimizer: Optimizer) -> dict:
     return {"params": params, "opt_state": optimizer.init(params), "step": 0}
 
 
+def state_sharding_rules(params_rules, params, optimizer: Optimizer) -> dict:
+    """The state's sharding rules: the params' rules; under "opt_state",
+    the optimizer's per-parameter moments by their state keys (AdamW's
+    ``exp_avg`` and ``exp_avg_sq``) with the params' rules leaf for leaf,
+    its update count and the schedule replicated (``()``); the step
+    replicated."""
+    if len(leaves(params_rules)) != len(leaves(params)):
+        raise ValueError("the rules do not have the params' leaves")
+    moments = ("exp_avg", "exp_avg_sq") if optimizer.cfg.optimizer == "adamw" \
+        else ()
+    return {"params": params_rules,
+            "opt_state": {**{name: params_rules for name in moments},
+                          "count": (), "schedule": ()},
+            "step": ()}
+
+
+def shard_state(state: dict, mesh, rules: dict) -> dict:
+    """This process's state on ``mesh``: its shard of every param, and the
+    optimizer and schedule rebuilt on those shards with their
+    hyperparameters and counts, any moments already made cut as their
+    params (so AdamW's lazily made moments are shards too)."""
+    specs = leaves(rules["params"])
+    old_params = leaves(state["params"])
+    params = map_with(lambda p, spec: shard(p, spec, mesh), state["params"],
+                      rules["params"])
+    shard_of = {id(p): new for p, new in zip(old_params, leaves(params))}
+    old = state["opt_state"]["optimizer"]
+    opt = type(old)([{**group, "params": [shard_of[id(p)]
+                                          for p in group["params"]]}
+                     for group in old.param_groups])
+    schedule = state["opt_state"]["schedule"]
+    if schedule is not None:
+        fresh = torch.optim.lr_scheduler.LambdaLR(opt, schedule.lr_lambdas)
+        fresh.load_state_dict(schedule.state_dict())
+        schedule = fresh
+    # After the schedule's first step, which sets the lr of its count 0.
+    for group, old_group in zip(opt.param_groups, old.param_groups):
+        group.update({k: v for k, v in old_group.items() if k != "params"})
+    for p, new, spec in zip(old_params, leaves(params), specs):
+        opt.state[new] = {
+            key: shard(v, spec, mesh) if torch.is_tensor(v)
+            and v.shape == p.shape else v
+            for key, v in old.state.get(p, {}).items()}
+    return {"params": params,
+            "opt_state": {"optimizer": opt, "schedule": schedule},
+            "step": state["step"]}
+
+
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, mesh=None,
+                    rules: dict | None = None):
     """``(state, batch) -> (state, loss)``, updating the state in place.
 
-    ``loss_fn(params, batch) -> scalar``: close over the model config at
-    the call site (``functools.partial(burnin.loss_fn, cfg=cfg)``).
+    ``loss_fn(params, batch) -> scalar``: close over the model config (and
+    the mesh) at the call site (``functools.partial(burnin.loss_fn,
+    cfg=cfg, mesh=mesh)``).
 
     ``accum_steps > 1`` splits the batch's leading dim into that many
     microbatches, one after another (the activations of one microbatch
     live at a time), sums ``loss / accum_steps`` and ``grads /
     accum_steps`` over them, and applies the optimizer once.
+
+    With a ``mesh`` of more than one process, the state is this process's
+    (``shard_state``), ``rules`` the state's (``state_sharding_rules``),
+    ``batch`` this process's data shard and ``loss_fn`` its loss share:
+    after the accumulation, each gradient is summed once over the mesh
+    axes its leaf is replicated on and the loss over the world, and the
+    clip takes the global norm of the global leaves.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    world = world_size(mesh)
+    split = groups = None
+    if world > 1:
+        if rules is None:
+            raise ValueError("a step on a mesh needs the state's rules "
+                             "(state_sharding_rules)")
+        specs = leaves(rules["params"])
+        groups = [grad_groups(spec, mesh) for spec in specs]
+        split = [[axis(mesh, name).group for name in cuts(spec, mesh)
+                  if name is not None] for spec in specs]
 
     def grads_of(params, batch):
         if accum_steps == 1:
@@ -154,7 +253,10 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
     def step(state, batch):
         loss, grads = grads_of(state["params"], batch)
-        optimizer.update(grads, state["opt_state"], state["params"])
+        if world > 1:
+            reduce_grads(grads, groups)
+            dist.all_reduce(loss)
+        optimizer.update(grads, state["opt_state"], state["params"], split)
         return {"params": state["params"], "opt_state": state["opt_state"],
                 "step": state["step"] + 1}, loss
 

@@ -27,6 +27,13 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def map_with(fn, tree, rules):
+    """``tree`` with ``fn(leaf, rule)`` applied to every leaf, ``rules`` a
+    tree of the same structure (a sharding rule a leaf)."""
+    specs = iter(leaves(rules))
+    return map_params(lambda p: fn(p, next(specs)), tree)
+
+
 def value_and_grad(fn, params: dict, *args):
     """``(fn(params, *args), grads)``, the grads a list in
     :func:`leaves` order. The gradient is taken through aliases of the

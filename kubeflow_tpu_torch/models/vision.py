@@ -13,6 +13,11 @@ The convolutions are PyTorch's ``conv2d``, as the JAX package leaves its
 ``conv_general_dilated`` to XLA outside any Pallas kernel; ``"SAME"``
 padding is XLA's: at stride 2 on an even size one row and column after and
 none before.
+
+Data parallel (``shard_batch``), each process holds the whole params and
+its "data" shard of the batch; RMSNorm is per sample, so the shards'
+losses are independent and the step sums the gradients and the loss
+shares over the data axis.
 """
 
 from __future__ import annotations
@@ -20,15 +25,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.burnin import _rmsnorm
 from kubeflow_tpu_torch.models.tree import leaves, value_and_grad
+from kubeflow_tpu_torch.parallel.mesh import Axis, shard, world_size
 
 __all__ = ["VisionConfig", "conv2d", "forward", "forward_flops",
            "init_params", "loss_fn", "make_train_step", "param_shapes",
-           "space_to_depth"]
+           "shard_batch", "space_to_depth"]
 
 
 @dataclass(frozen=True)
@@ -165,19 +172,42 @@ def forward_flops(cfg: VisionConfig) -> int:
     return flops + 2 * cfg.widths[-1] * cfg.num_classes
 
 
-def loss_fn(params: dict, batch: tuple, cfg: VisionConfig) -> torch.Tensor:
-    """``(images, labels)`` -> mean cross entropy."""
+def loss_fn(params: dict, batch: tuple, cfg: VisionConfig,
+            shards: int = 1) -> torch.Tensor:
+    """``(images, labels)`` -> mean cross entropy; over ``shards`` data
+    shards, this shard's share of the global mean."""
     images, labels = batch
-    return F.cross_entropy(forward(params, images, cfg), labels)
+    loss = F.cross_entropy(forward(params, images, cfg), labels)
+    return loss if shards == 1 else loss / shards
 
 
-def make_train_step(cfg: VisionConfig, lr: float = 1e-3):
+def shard_batch(images, labels, mesh, data_axis: str = "data"):
+    """This process's block of the global batch, split over ``data_axis``
+    (the params replicate). A mesh without ``data_axis``, or a batch that
+    does not divide, raises ``ValueError``, as the JAX package's placement
+    does."""
+    Axis.of(mesh, data_axis)
+    return (shard(images, (data_axis,), mesh),
+            shard(labels, (data_axis,), mesh))
+
+
+def make_train_step(cfg: VisionConfig, mesh=None, lr: float = 1e-3,
+                    data_axis: str = "data"):
     """SGD train step ``(params, (images, labels)) -> (params, loss)``:
     gradients in f32 on the f32 master weights and ``p - lr * g`` on every
-    leaf in place (the counterpart of the JAX step's donated params)."""
+    leaf in place (the counterpart of the JAX step's donated params).
+    With a ``mesh``, ``batch`` is this process's data shard
+    (``shard_batch``); the gradients and the loss shares are summed over
+    the data axis, so the loss returned is the global mean. The mesh spans
+    the whole world and has ``data_axis`` (else ``ValueError``)."""
+    world_size(mesh)
+    data = Axis.of(mesh, data_axis)
 
     def step(params, batch):
-        loss, grads = value_and_grad(loss_fn, params, batch, cfg)
+        loss, grads = value_and_grad(loss_fn, params, batch, cfg, data.size)
+        if data.size > 1:
+            for t in grads + [loss]:
+                dist.all_reduce(t, group=data.group)
         with torch.no_grad():
             torch._foreach_add_(leaves(params), grads, alpha=-lr)
         return params, loss

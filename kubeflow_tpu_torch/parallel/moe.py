@@ -41,8 +41,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from kubeflow_tpu_torch.parallel.mesh import world_size
-from kubeflow_tpu_torch.parallel.ring import Axis
+from kubeflow_tpu_torch.parallel.mesh import Axis, world_size
 from kubeflow_tpu_torch.parallel.ulysses import all_to_all
 
 __all__ = ["load_balancing_loss", "moe_ffn", "moe_ffn_local",

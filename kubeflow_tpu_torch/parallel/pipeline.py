@@ -29,7 +29,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from kubeflow_tpu_torch.parallel.ring import Axis, shift
+from kubeflow_tpu_torch.parallel.mesh import Axis
+from kubeflow_tpu_torch.parallel.ring import shift
 
 SECTION = "pipeline_stage_hop"
 

@@ -28,7 +28,6 @@ own ``[b_local, s_local, h, d]`` blocks.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
@@ -37,37 +36,10 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention_partial,
     flash_attention_partial_grads,
 )
+from kubeflow_tpu_torch.parallel.mesh import Axis
 from kubeflow_tpu_torch.telemetry import sections
 
 _NEG_BIG = -1e30  # not -inf: keeps the online-softmax max finite pre-first-hit
-
-
-@dataclass(frozen=True)
-class Axis:
-    """One mesh axis as this process sees it: its process group (None for
-    one shard), its size, this process's index on it, and the global rank
-    of each index (``dist.P2POp`` takes global ranks)."""
-
-    group: object = None
-    size: int = 1
-    index: int = 0
-    ranks: tuple = (0,)
-
-    @classmethod
-    def of(cls, mesh, name: str) -> "Axis":
-        """Axis ``name`` of a ``DeviceMesh`` (``None``: one shard)."""
-        if mesh is None:
-            return cls()
-        names = mesh.mesh_dim_names or ()
-        if name not in names:
-            raise ValueError(f"mesh has no axis {name!r}; its axes are "
-                             f"{names}")
-        size = mesh.size(names.index(name))
-        if size == 1:
-            return cls()
-        group = mesh.get_group(name)
-        return cls(group, size, mesh.get_local_rank(name),
-                   tuple(dist.get_global_rank(group, i) for i in range(size)))
 
 
 def shift(tensors, axis: Axis, section: str, step: int = 1) -> list:

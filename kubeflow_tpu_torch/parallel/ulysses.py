@@ -28,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
-from kubeflow_tpu_torch.parallel.ring import Axis, ring_attention_local
+from kubeflow_tpu_torch.parallel.mesh import Axis
+from kubeflow_tpu_torch.parallel.ring import ring_attention_local
 from kubeflow_tpu_torch.telemetry import sections
 
 
