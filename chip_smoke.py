@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, sharded training,
-long-context training, MoE, vision and pipelined training paths on one
-NVIDIA GPU and hold its kernels against their plain versions.
+"""Drive the PyTorch port's serving, sharded serving, training (with its
+step telemetry), sharded training, long-context training, MoE, vision and
+pipelined training paths on one NVIDIA GPU and hold its kernels against
+their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -41,8 +42,9 @@ last line. With no CUDA device it exits 1 and prints no result.
    with ``attention="flash"`` and ``"xla"`` (plain dense) on the same
    seeded weights and tokens; logits within a stated bf16 tolerance; the
    flash forward launches the kernel once per layer.
-6. serving — a main path: ``ServingEngine`` cold start, model
-   registration and swaps, a seeded open-loop trace, ``park`` and
+6. serving (run after train, inside the world of one below) — a main
+   path: ``ServingEngine`` (``use_mesh=True``, its default) cold start,
+   model registration and swaps, a seeded open-loop trace, ``park`` and
    ``warm_restore``, a replay. Launch counts are zeroed just before and
    read just after, and must equal one per layer for every forward the
    engine ran. Then the decode step is timed and profiled, and the
@@ -58,9 +60,13 @@ last line. With no CUDA device it exits 1 and prints no result.
    step.
 9. trainer — ``trainer.fit`` with ``TrainerConfig()`` (AdamW,
    warmup-cosine, clip 1.0) and 2 accumulation steps, 10 steps at full
-   width; each kernel launches once per layer and microbatch. Step times
-   from the per-step sync, the first step (which allocates the AdamW
-   moments) apart from the steady ones; then 3 more steps profiled.
+   width, with the telemetry hooks as the SDK wires them (a
+   ``StepProfiler`` at ``sync_every=1`` and a ``TelemetryPublisher``);
+   each kernel launches once per layer and microbatch. Step times from
+   the per-step sync, the first step (which allocates the AdamW moments)
+   apart from the steady ones; the profiler's summary held to them (p50
+   within 5% of the steady median, MFU, memory high-water, the published
+   annotation); then 3 more steps profiled.
 10. partial_kernels — the ring hop's partial kernel against its plain
    version: the one-card hop of ``LONGCTX_MODEL`` ([1, 8192, 16, 128]
    bf16 at offsets (0, 0)), a 4-shard ring's hops below, on and above the
@@ -139,17 +145,22 @@ last line. With no CUDA device it exits 1 and prints no result.
    leaf at the ``train_grads`` bounds, then 2 warm-up steps, 10 timed (2
    chunks of 5) and 3 profiled; launches counted from zero: one forward,
    one dQ and one dK/dV per layer and step.
-23. sharded (run after train) — the sharded training main path at one
+23. serving_sharded (the end of serving) — the serving engine ran with
+   ``use_mesh=True`` in a world of one over NCCL: it must hold no mesh and
+   no control group, and after its warm swap, park and warm restore its
+   decode and prefill scores of seeded tokens must be bitwise equal to
+   the ``use_mesh=False`` engine's scores on the same weights.
+24. sharded (run after train) — the sharded training main path at one
    shard: a process group of this process alone over NCCL, a 1 x 1
    ("data", "model") mesh, ``burnin.make_train_step(cfg, mesh)`` at
-   ``BENCH_MODEL``, batch 8: two steps bitwise equal (loss and every
-   leaf) to two of the unsharded step from the same params and tokens,
-   then timed and profiled as ``train`` with launches counted from zero,
-   its step ms and MFU printed beside ``train``'s.
-24. dryrun (inside the same group) — ``entry.dryrun_multichip(1)`` on
+   ``BENCH_MODEL``, batch 8: two steps (launches counted from zero)
+   bitwise equal (loss and every leaf) to two of the unsharded step from
+   the same params and tokens. Not timed: at one shard its time could
+   only echo ``train``'s.
+25. dryrun (inside the same group) — ``entry.dryrun_multichip(1)`` on
    the card (the burn-in block); ``dryrun_multichip(4)`` over NCCL where
    the machine has 4 cards, else a line saying why it did not run.
-25. sharded_grads — the sharded step at 2 x 2 ("data", "model"): 4
+26. sharded_grads — the sharded step at 2 x 2 ("data", "model"): 4
    processes share the card over gloo on CUDA tensors (NCCL takes one
    process a card), ``BENCH_MODEL``'s widths at 2 layers (a depth cut),
    global batch 8, flash, so each runs the kernels at [4, 1024, 8, 128];
@@ -157,14 +168,26 @@ last line. With no CUDA device it exits 1 and prints no result.
    (``unshard``-ed to the global layout) against the one-process step on
    the card at the ``train_grads`` bounds. Its seconds go through the
    host's gloo, not NVLink, and are no rate.
+27. serving_sharded_world (the same 4 processes, after the step) —
+   sharded serving in a world of 4: 4 processes share the card over
+   gloo, each a ``ServingEngine(use_mesh=True)`` on
+   the default 1 x 4 mesh (4 of the 16 heads a process, the forward
+   kernel at [8, 1024, 4, 128]), the serving widths at 2 layers (a depth
+   cut); rank 0 schedules a lane trace (every arrival at 0, prompts, a
+   model swap) and the others follow its control words. Rank 0's
+   last-position logits of every forward the engine ran, and of one
+   score of seeded tokens, within rel L2 1e-2 of a one-process engine's
+   on the card, the argmax equal where the margin is clear; every rank's
+   report equal, and equal to the one-process engine's (structural).
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
-``pipelined_schedule``, ``wide_heads``, ``sharded`` and
-``sharded_grads`` (summed over its 4 processes), and ``device_kernels``: the
-CUDA kernels behind each entry, by head dim and dtype), the card line,
+``pipelined_schedule``, ``wide_heads``, ``sharded``,
+and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
+its 4 processes), and ``device_kernels``: the CUDA kernels behind each
+entry, by head dim and dtype), the script's wall seconds, the card line,
 and the result line.
 """
 
@@ -195,6 +218,15 @@ MODEL = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=8, d_ff=16384,
              seq_len=1024, attention="flash", dtype="bfloat16")
 MAX_BATCH = 8
 PREFILL_CHUNK = 32
+# Sharded serving in a world of 4 processes on the one card (the default
+# 1 x 4 mesh): the serving widths at 2 layers, a depth cut that keeps the
+# 4-process world short.
+SERVING_SHARDED_MODEL = dict(MODEL, n_layers=2)
+# Rank 0's last-position logits of the world-4 engine against the
+# one-process engine's, as rel L2 over each forward's: bf16 shares summed over
+# the model axis round elsewhere than one process's products (the tiny
+# bf16 rehearsal on the CPU gave 0.0073).
+TOL_SERVING_LOGITS_REL_L2 = 1e-2
 
 # Kernel shapes: the decode step's, the prefill chunk's, several tiles
 # past the JAX block (s > 1024), and the f32 / head-dim-64 / full path.
@@ -214,6 +246,10 @@ KERNEL_CASES = [
     # wgmma forward over 64 (batch, head) pairs, in more than one launch
     # group).
     ("wide_heads", (8, 1024, 8, 256), "bfloat16", True),
+    # serving_sharded_world's, per process: 4 of the 16 heads at model 4,
+    # the decode step's and the prefill chunk's.
+    ("sharded_decode", (MAX_BATCH, 1024, 4, 128), "bfloat16", True),
+    ("sharded_prefill_chunk", (1, PREFILL_CHUNK, 4, 128), "bfloat16", True),
 ]
 # The kernels timed: the forward at both sequence lengths the main paths
 # give it.
@@ -236,11 +272,18 @@ TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS, TRAIN_PROFILED = 2, 4, 25, 3
 WIDE_MODEL = dict(TRAIN_MODEL, n_heads=8)
 WIDE_WARMUP, WIDE_CHUNKS, WIDE_CHUNK_STEPS, WIDE_PROFILED = 2, 2, 5, 3
 FIT_STEPS, FIT_ACCUM = 10, 2
+# The step profiler's p50 against the phase's own steady median of the
+# per-step marks (the same steps, both waiting on each loss): the two
+# clocks differ by the publish and the host's work between marks.
+TOL_TELEMETRY_P50_PCT = 5.0
 # The sharded step's gradients at 2 x 2 (data, model): TRAIN_MODEL's
 # widths at 2 layers (a depth cut), so each of the 4 processes that share
 # the card runs the kernels at [4, 1024, 8, 128].
 SHARDED_MODEL = dict(TRAIN_MODEL, n_layers=2)
 SHARDED_MESH = (2, 2)
+# The sharded step at one shard: two steps held bitwise to the unsharded
+# step's.
+SHARDED_STEPS = 2
 
 # Backward cases (name, [b, s, h, d], dtype, causal, q_offset, k_offset,
 # delta given): the train step's attention, several tiles past the JAX
@@ -478,7 +521,13 @@ KERNEL_CATEGORIES = (
 )
 
 
+# The script's own clock: each phase line says when it was printed.
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_sec": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -1293,7 +1342,218 @@ def phase_serving(torch, fa, burnin, engine_mod, loadgen) -> dict:
           "shape": list(got.shape)})
     if not (equal and list(got.shape) == [MAX_BATCH]):
         raise AssertionError("engine argmax disagrees with the dense forward")
+
+    # The engine above ran with use_mesh=True (the default) in a world of
+    # one: it built no mesh and no control group, so after its warm swap,
+    # park and warm restore its scores are those the use_mesh=False engine
+    # builds (ModelRegistry._build_fns without a mesh), bitwise.
+    world = torch.distributed.get_world_size()
+    plain = engine_mod.ModelRegistry._build_fns(cfg)[0]
+    chunk = probe[:1, :PREFILL_CHUNK]
+    bitwise = [torch.equal(got, plain(engine._params, probe)),
+               torch.equal(engine._prefill_fn(engine._params, chunk),
+                           plain(engine._params, chunk))]
+    row = {"phase": "serving_sharded", "backend": "nccl", "world": world,
+           "use_mesh": engine.use_mesh,
+           "mesh": engine.models.mesh is not None,
+           "control_group": engine._ctl is not None,
+           "decode_and_prefill_bitwise_equal_to_use_mesh_false": bitwise,
+           "note": "the serving phase's engine; at world 1 use_mesh=True "
+                   "runs the use_mesh=False code (structural)"}
+    emit(row)
+    if not (world == 1 and engine.use_mesh and not row["mesh"]
+            and not row["control_group"] and all(bitwise)):
+        raise AssertionError(f"serving_sharded phase failed: {row}")
     return {"launches": main_launches}
+
+
+def _recording_logits(engine_mod, calls: list):
+    """Wrap the forward that the engine's scores call, so each call's
+    last-position logits are appended to ``calls`` (f32, on the host);
+    returns the function that restores it."""
+    real = engine_mod.forward
+
+    def recorded(params, tokens, cfg, mesh=None):
+        logits = real(params, tokens, cfg, mesh)
+        calls.append(logits[:, -1].float().cpu())
+        return logits
+
+    engine_mod.forward = recorded
+    return lambda: setattr(engine_mod, "forward", real)
+
+
+def _lanes(report) -> tuple:
+    """What a ServeReport's lanes decided: the counts, and each completion
+    with its request and model."""
+    return (report.steps, report.prefill_chunks, report.model_swaps,
+            [(c.rid, c.model) for c in report.completions])
+
+
+def _serving_world_rank(rank: int, model: dict) -> dict:
+    """One process of ``serving_sharded_world``: the engine with
+    ``use_mesh=True`` on this rank's shards (the default mesh of a world
+    of 4: 1 x 4), the lane trace, then one score-shaped forward whose
+    last-position logits rank 0 keeps; rank 0 also keeps the
+    last-position logits of every forward the engine ran (warm-ups,
+    prefill chunks, decode steps), which its followers replayed. Runs in
+    a child process of the gloo world."""
+    import torch
+
+    from kubeflow_tpu_torch.models import burnin
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.serving import engine as engine_mod
+
+    cfg = burnin.BurninConfig(**model)
+    scores = []
+    restore = (_recording_logits(engine_mod, scores) if rank == 0
+               else lambda: None)
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        engine = engine_mod.ServingEngine(
+            cfg, max_batch=MAX_BATCH, use_mesh=True,
+            options=engine_mod.EngineOptions(prefill_chunk=PREFILL_CHUNK))
+        engine.cold_start(seed=0)
+        engine.register_model("alt")
+        report = engine.serve(_serving_world_trace(engine_mod))
+    finally:
+        restore()
+    params, mesh = engine._params, engine.models.mesh
+    probe = _serving_world_probe(torch, cfg)
+    with torch.inference_mode():
+        logits = burnin.forward(params, probe, cfg, mesh)[:, -1]
+    torch.cuda.synchronize()
+    serve_sec = time.perf_counter() - t0
+    return {"lanes": _lanes(report), "launches": _launch_counts(fa),
+            "local_heads": params["layers"][0]["qkv"].shape[1]
+            // (3 * cfg.head_dim),
+            "mesh": mesh.mesh.tolist(), "serve_sec": serve_sec,
+            "forwards": 2 * (engine.models.swaps_cold
+                             + engine.models.swaps_warm)
+            + report.steps + report.prefill_chunks + 1,
+            "logits": logits.cpu() if rank == 0 else None,
+            "scores": scores}
+
+
+def _serving_world_trace(engine_mod) -> list:
+    """Every request arrives at 0, so the lanes depend on the trace alone
+    (as the CPU tests' lane trace): prompts of two chunks on every third,
+    and requests 3 and 4 on a second model (a swap and back)."""
+    return [engine_mod.Request(rid=i, arrival=0.0, tokens_out=2 + i % 3,
+                               prompt_tokens=40 if i % 3 == 0 else 0,
+                               model="alt" if i in (3, 4) else "default")
+            for i in range(7)]
+
+
+def _serving_world_probe(torch, cfg):
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return torch.randint(0, cfg.vocab, (MAX_BATCH, cfg.seq_len),
+                         generator=gen, device="cuda")
+
+
+def _serving_world_reference(torch, burnin, engine_mod) -> dict:
+    """The one-process engine on the card that ``serving_sharded_world``
+    is held to: its lanes on the same trace, the last-position logits of
+    every forward it ran there, and those of one score-shaped forward of
+    its weights."""
+    cfg = burnin.BurninConfig(**SERVING_SHARDED_MODEL)
+    scores = []
+    restore = _recording_logits(engine_mod, scores)
+    try:
+        engine = engine_mod.ServingEngine(
+            cfg, max_batch=MAX_BATCH, use_mesh=False,
+            options=engine_mod.EngineOptions(prefill_chunk=PREFILL_CHUNK))
+        engine.cold_start(seed=0)
+        engine.register_model("alt")
+        lanes = _lanes(engine.serve(_serving_world_trace(engine_mod)))
+    finally:
+        restore()
+    with torch.inference_mode():
+        logits = burnin.forward(engine._params,
+                                _serving_world_probe(torch, cfg),
+                                cfg)[:, -1].float()
+    return {"lanes": lanes, "logits": logits, "scores": scores}
+
+
+def _logit_gaps(got, want) -> dict:
+    """``got``'s last-position logits against ``want``'s: the largest
+    absolute error, rel L2 over all of them, the rows whose ``want`` top-2
+    margin exceeds 4x that error, and whether their argmax agrees."""
+    err = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 4 * err
+    return {"max_abs_err": err,
+            "rel_l2": ((got - want).norm() / want.norm()).item(),
+            "clear_rows": int(clear.sum()),
+            "argmax_equal": bool((got.argmax(-1)[clear]
+                                  == want.argmax(-1)[clear]).all())}
+
+
+def phase_serving_sharded_world(torch, ranks: list, ref: dict,
+                                world_sec: float) -> dict:
+    """Sharded serving in a world of 4: 4 processes share the card over
+    gloo (NCCL takes one process a card), each an engine with
+    ``use_mesh=True`` on the default 1 x 4 mesh (4 of the 16 heads a
+    process), ``SERVING_SHARDED_MODEL`` (the serving widths at 2 layers,
+    a depth cut). Each forward the engine ran on rank 0 (the followers
+    ran it on their shards in the same collectives), and one score-shaped
+    forward of seeded tokens, against the one-process engine's on the
+    same trace on the card: the last-position logits within
+    TOL_SERVING_LOGITS_REL_L2 and the argmax equal wherever the
+    one-process top-2 margin exceeds 4x the largest logit error. The
+    engine feeds zero tokens, so a serving forward's rows are one row
+    repeated. The reports are checked too, but as structure: the lanes
+    depend on the trace alone (every arrival at 0) and every rank returns
+    rank 0's report. Its seconds go through the host's gloo: no rate.
+    ``ranks``: each process's ``_serving_world_rank``."""
+    cfg = SERVING_SHARDED_MODEL
+    probe = _logit_gaps(ranks[0]["logits"].cuda().float(), ref["logits"])
+    scores = [_logit_gaps(got.cuda(), want.cuda())
+              for got, want in zip(ranks[0]["scores"], ref["scores"])]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    forwards = sum(r["forwards"] for r in ranks)
+    row = {"phase": "serving_sharded_world", "config": cfg,
+           "cut": "depth: the serving config's widths at n_layers 2",
+           "mesh": ranks[0]["mesh"],
+           "backend": "gloo on CUDA tensors (4 processes, one card)",
+           "max_batch": MAX_BATCH, "local_heads": ranks[0]["local_heads"],
+           "lanes": ranks[0]["lanes"],
+           "structural": {
+               "reports_equal_across_ranks": all(
+                   r["lanes"] == ranks[0]["lanes"] for r in ranks),
+               "report_equal_to_one_process":
+                   ranks[0]["lanes"] == ref["lanes"]},
+           "tol_rel_l2": TOL_SERVING_LOGITS_REL_L2,
+           "scores": len(scores),
+           "scores_expected": len(ref["scores"]),
+           "scores_max_rel_l2": max(g["rel_l2"] for g in scores),
+           "scores_max_abs_err": max(g["max_abs_err"] for g in scores),
+           "scores_clear_rows": sum(g["clear_rows"] for g in scores),
+           "scores_argmax_equal_where_clear": all(g["argmax_equal"]
+                                                  for g in scores),
+           "probe_rel_l2": probe["rel_l2"],
+           "probe_max_abs_err": probe["max_abs_err"],
+           "probe_clear_rows": probe["clear_rows"],
+           "probe_argmax_equal_where_clear": probe["argmax_equal"],
+           "launches": launches,
+           "launches_expected": cfg["n_layers"] * forwards,
+           "note": "host-clock seconds through gloo on the host, not NVLink: "
+                   "not a rate",
+           "serve_sec_by_rank": [r["serve_sec"] for r in ranks],
+           "world_sec": world_sec}
+    emit(row)
+    gaps = [probe, *scores]
+    if not (all(row["structural"].values())
+            and len(scores) == len(ref["scores"]) > 0
+            and all(math.isfinite(g["rel_l2"])
+                    and g["rel_l2"] <= TOL_SERVING_LOGITS_REL_L2
+                    and g["argmax_equal"] for g in gaps)
+            and row["local_heads"] == cfg["n_heads"] // 4
+            and launches["fwd"] == row["launches_expected"]):
+        raise AssertionError(f"serving_sharded_world phase failed: {row}")
+    return {"fwd": launches["fwd"]}
 
 
 def train_step_flops(cfg, batch: int) -> float:
@@ -1483,7 +1743,17 @@ def phase_wide_heads(torch, fa, burnin, card: str) -> dict:
     return launches
 
 
-def phase_trainer(torch, fa, burnin, trainer) -> dict:
+def phase_trainer(torch, fa, burnin, trainer, telemetry) -> dict:
+    """``trainer.fit`` at full width with the telemetry hooks as the SDK
+    wires them: a ``StepProfiler`` (the analytic step FLOPs, the dense
+    bf16 peak) and a ``TelemetryPublisher`` whose patcher records the
+    bodies. ``sync_every=1`` makes every step wait on its loss, as
+    bench.py's ``_mc_family`` does; with a longer interval a step between
+    window boundaries would time only the host's dispatch. The phase holds
+    the profiler to its own clock: ``steps - 1`` measured steps, the p50
+    within 5% of the steady median of the per-step marks, MFU = FLOPs /
+    p50 / peak, the memory high-water equal to ``max_memory_allocated``,
+    and the last published annotation decoding to the summary."""
     cfg = burnin.BurninConfig(**TRAIN_MODEL)
     params, _ = _train_inputs(torch, burnin, cfg, seed=2)
     tx = trainer.make_optimizer(trainer.TrainerConfig())
@@ -1494,6 +1764,13 @@ def phase_trainer(torch, fa, burnin, trainer) -> dict:
     batches = (torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
                              generator=gen, device="cuda")
                for _ in range(FIT_STEPS))
+    flops = train_step_flops(cfg, TRAIN_BATCH)
+    profiler = telemetry.StepProfiler(
+        "burnin", flops_per_step=flops,
+        tokens_per_step=TRAIN_BATCH * (cfg.seq_len - 1),
+        peak_flops=PEAK_BF16_FLOPS, sync_every=1)
+    bodies = []
+    publisher = telemetry.TelemetryPublisher(bodies.append)
     losses, marks = [], []
 
     def on_step(i, loss):               # float(loss) synced the step
@@ -1505,30 +1782,51 @@ def phase_trainer(torch, fa, burnin, trainer) -> dict:
     _zero_launch_counts(fa)              # ---- the main path starts here
     t0 = time.perf_counter()
     state = trainer.fit(state, batches, steps=FIT_STEPS, step_fn=step,
-                        on_step=on_step)
+                        on_step=on_step, profiler=profiler,
+                        publisher=publisher)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts(fa)        # ---- the main path ends here
     peak = torch.cuda.max_memory_allocated()
     step_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    summary = profiler.summary()
+    published = telemetry.publisher.decode(
+        bodies[-1]["metadata"]["annotations"]) if bodies else None
     more = torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
                          generator=gen, device="cuda")
     prof = profile_steps(torch, lambda: step(state, more), TRAIN_PROFILED)
     expect = cfg.n_layers * FIT_ACCUM * FIT_STEPS
+    steady = statistics.median(step_ms[1:])
+    p50_ms = (summary["step_p50_sec"] or 0.0) * 1e3
     row = {"phase": "trainer", "trainer_config": "TrainerConfig()",
            "accum_steps": FIT_ACCUM, "steps": state["step"],
            "batch": TRAIN_BATCH, "losses": losses,
            "step_ms_with_sync": wall * 1e3 / FIT_STEPS,
            "first_step_ms": step_ms[0],
            "steady_step_ms_mean": statistics.mean(step_ms[1:]),
-           "steady_step_ms_median": statistics.median(step_ms[1:]),
+           "steady_step_ms_median": steady,
            "step_ms": step_ms,
+           "telemetry": summary, "profiler_p50_ms": p50_ms,
+           "profiler_p50_vs_steady_pct": 100.0 * (p50_ms - steady) / steady,
+           "publishes": len(bodies), "published": published,
            "launches": launches, "launches_expected": expect,
            "max_memory_allocated_bytes": peak, "profile": prof}
     emit(row)
+    telemetry_ok = (
+        summary["steps_measured"] == FIT_STEPS - 1
+        and summary["step"] == FIT_STEPS
+        and abs(row["profiler_p50_vs_steady_pct"]) <= TOL_TELEMETRY_P50_PCT
+        and summary["mfu"] == flops / summary["step_p50_sec"]
+        / PEAK_BF16_FLOPS
+        and summary["mfu_basis"] == "accelerator"
+        and summary["hbm_high_water_bytes"] == peak
+        and published is not None
+        and published["family"] == summary["family"]
+        and published["step"] == summary["step"]
+        and published["mfu"] == round(summary["mfu"], 4))
     if not (state["step"] == FIT_STEPS and len(losses) == FIT_STEPS
             and all(math.isfinite(x) for x in losses)
-            and launches == _burnin_counts(expect)):
+            and launches == _burnin_counts(expect) and telemetry_ok):
         raise AssertionError(f"trainer phase failed: {row}")
     del state, params
     torch.cuda.empty_cache()
@@ -1553,14 +1851,14 @@ def world_of_one(torch):
             dist.destroy_process_group()
 
 
-def phase_sharded(torch, fa, burnin, tree, pmesh, card: str,
-                  train: dict) -> dict:
+def phase_sharded(torch, fa, burnin, tree, pmesh) -> dict:
     """The sharded train step at one shard: world 1 over NCCL, mesh 1 x 1,
     TRAIN_MODEL at batch 8. Two steps of ``make_train_step(cfg, mesh)``
-    against two of ``make_train_step(cfg)`` from the same params and
-    tokens, the losses and every leaf bitwise equal; then the sharded step
-    timed and profiled as ``train`` (launches counted from zero), beside
-    ``train``'s numbers from this run."""
+    (launches counted from zero) against two of ``make_train_step(cfg)``
+    from the same params and tokens, the losses and every leaf bitwise
+    equal. It is not timed: at one shard it runs ``train``'s ops, so its
+    time could only echo ``train``'s until several cards give it
+    collectives to time."""
     cfg = burnin.BurninConfig(**TRAIN_MODEL)
     mesh = pmesh.make_mesh(pmesh.MeshPlan(1, 1), "cuda")
     params, tokens = _train_inputs(torch, burnin, cfg, seed=0)
@@ -1568,41 +1866,26 @@ def phase_sharded(torch, fa, burnin, tree, pmesh, card: str,
     params = burnin.shard_params(params, mesh, cfg)
     step = burnin.make_train_step(cfg, mesh)
     plain_step = burnin.make_train_step(cfg)
-    equal = []
-    for _ in range(2):
-        loss = step(params, tokens)[1]
-        equal.append(torch.equal(loss, plain_step(plain, tokens)[1]))
-    equal.append(all(torch.equal(a, b) for a, b in
-                     zip(tree.leaves(params), tree.leaves(plain))))
-    del plain
-    torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts(fa)              # ---- the main path starts here
-    timing = _timed_steps(torch, lambda: step(params, tokens)[1],
-                          TRAIN_WARMUP, TRAIN_CHUNKS, TRAIN_CHUNK_STEPS)
-    prof = profile_steps(torch, lambda: step(params, tokens),
-                         TRAIN_PROFILED)
+    losses = [step(params, tokens)[1] for _ in range(SHARDED_STEPS)]
     torch.cuda.synchronize()
     launches = _launch_counts(fa)        # ---- the main path ends here
-    run = TRAIN_WARMUP + timing["steps"] + TRAIN_PROFILED
-    flops = train_step_flops(cfg, TRAIN_BATCH)
-    tflops = flops / (timing["step_ms"] / 1e3) / 1e12
+    equal = [torch.equal(loss, plain_step(plain, tokens)[1])
+             for loss in losses]
+    equal.append(all(torch.equal(a, b) for a, b in
+                     zip(tree.leaves(params), tree.leaves(plain))))
+    expect = cfg.n_layers * SHARDED_STEPS
     row = {"phase": "sharded", "config": TRAIN_MODEL, "batch": TRAIN_BATCH,
            "mesh": {"data": 1, "model": 1}, "backend": "nccl", "world": 1,
-           "card": card, "bitwise_equal_to_unsharded": equal, **timing,
-           "tflops": tflops, "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
-           "train_step_ms": train["step_ms"], "train_mfu": train["mfu"],
-           "train_step_spread_pct": train["step_spread_pct"],
-           "launches": launches, "launches_expected": cfg.n_layers * run,
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "profile": prof}
+           "steps": SHARDED_STEPS, "losses": [float(x) for x in losses],
+           "bitwise_equal_to_unsharded": equal,
+           "launches": launches, "launches_expected": expect}
     emit(row)
-    if not (all(equal) and math.isfinite(timing["loss_last"])
-            and timing["loss_last"] < timing["loss_first"]
-            and launches == _burnin_counts(cfg.n_layers * run)):
+    if not (all(equal) and all(math.isfinite(x) for x in row["losses"])
+            and launches == _burnin_counts(expect)):
         raise AssertionError(f"sharded phase failed: {row}")
-    del params
+    del params, plain
     torch.cuda.empty_cache()
     return launches
 
@@ -1664,28 +1947,31 @@ def _sharded_grads_rank(rank: int, model: dict, seed: int) -> dict:
             "update": update if rank == 0 else None}
 
 
-def phase_sharded_grads(torch, fa, burnin, tree, launch) -> dict:
+def _sharded_grads_reference(torch, burnin, tree) -> dict:
+    """The one-process step on the card that ``sharded_grads`` is held
+    to: the seeded params and tokens at SHARDED_MODEL, one SGD step at
+    lr 1, each leaf's update (its gradient) and the loss."""
+    cfg = burnin.BurninConfig(**SHARDED_MODEL)
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=7)
+    skeleton = tree.map_params(lambda _: None, params)
+    before = [t.clone() for t in tree.leaves(params)]
+    _, loss = burnin.make_train_step(cfg, lr=1.0)(params, tokens)
+    update = [b - a for b, a in zip(before, tree.leaves(params))]
+    return {"skeleton": skeleton, "update": update, "loss": float(loss)}
+
+
+def phase_sharded_grads(torch, tree, ranks: list, ref: dict,
+                        world_sec: float) -> dict:
     """The sharded step's numbers at 2 x 2: 4 processes share the card
     over gloo (the card machine has one card, and NCCL takes one process a
     card), TRAIN_MODEL's widths at 2 layers (a depth cut), global batch 8,
     flash. After one step at lr 1 (each leaf's update is its gradient),
     rank 0's loss and every leaf's update, gathered to the global layout,
     against the one-process step's on the card at the train_grads
-    bounds."""
-    cfg = burnin.BurninConfig(**SHARDED_MODEL)
-    params, tokens = _train_inputs(torch, burnin, cfg, seed=7)
-    skeleton = tree.map_params(lambda _: None, params)
-    before = [t.clone() for t in tree.leaves(params)]
-    _, ref_loss = burnin.make_train_step(cfg, lr=1.0)(params, tokens)
-    ref = [b - a for b, a in zip(before, tree.leaves(params))]
-    del params, tokens, before
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = launch.run_world(_sharded_grads_rank, 4, SHARDED_MODEL, 7,
-                             cuda=True, timeout=300)
-    wall = time.perf_counter() - t0
+    bounds. ``ranks``: each process's ``_sharded_grads_rank``."""
     got = [t.cuda() for t in tree.leaves(ranks[0]["update"])]
-    leaves, worst, least = _grad_gaps(torch, skeleton, got, ref)
+    leaves, worst, least = _grad_gaps(torch, ref["skeleton"], got,
+                                      ref["update"])
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     row = {"phase": "sharded_grads", "config": SHARDED_MODEL,
@@ -1695,8 +1981,8 @@ def phase_sharded_grads(torch, fa, burnin, tree, launch) -> dict:
            "batch": TRAIN_BATCH, "local_batch": ranks[0]["local_batch"],
            "local_heads": ranks[0]["local_heads"], "lr": 1.0,
            "loss_sharded": ranks[0]["loss"],
-           "loss_one_process": float(ref_loss),
-           "loss_diff": ranks[0]["loss"] - float(ref_loss),
+           "loss_one_process": ref["loss"],
+           "loss_diff": ranks[0]["loss"] - ref["loss"],
            "losses_by_rank": [r["loss"] for r in ranks],
            "worst_rel_l2": worst["rel_l2"], "worst_rel_l2_leaf": worst["leaf"],
            "min_cosine": least["cosine"], "min_cosine_leaf": least["leaf"],
@@ -1705,18 +1991,54 @@ def phase_sharded_grads(torch, fa, burnin, tree, launch) -> dict:
            "note": "host-clock seconds through gloo on the host, not NVLink: "
                    "not a rate",
            "step_sec_by_rank": [r["step_sec"] for r in ranks],
-           "world_sec": wall, "leaves": leaves}
+           "world_sec": world_sec, "leaves": leaves}
     emit(row)
     if not (all(x["finite"] for x in leaves)
             and len(set(row["losses_by_rank"])) == 1
             and abs(row["loss_diff"]) <= TOL_TRAIN_LOSS
             and worst["rel_l2"] <= TOL_GRAD_REL_L2
             and least["cosine"] >= MIN_GRAD_COSINE
-            and launches == _burnin_counts(4 * cfg.n_layers)):
+            and launches == _burnin_counts(4 * SHARDED_MODEL["n_layers"])):
         raise AssertionError(f"sharded_grads phase failed: {row}")
-    del ranks, got, ref
-    torch.cuda.empty_cache()
     return launches
+
+
+def _world_rank(rank: int, grads_model: dict, seed: int,
+                serving_model: dict) -> dict:
+    """One process of the world of 4 that ``sharded_grads`` and
+    ``serving_sharded_world`` share (one spawn: each process takes
+    seconds to reach the card): the sharded step, then the sharded
+    engine, each with its launches counted from zero."""
+    import torch
+
+    grads = _sharded_grads_rank(rank, grads_model, seed)
+    torch.cuda.empty_cache()
+    return {"sharded_grads": grads,
+            "serving_sharded_world": _serving_world_rank(rank,
+                                                         serving_model)}
+
+
+def phase_worlds(torch, burnin, tree, engine_mod, launch) -> dict:
+    """``sharded_grads`` and ``serving_sharded_world`` over one world of 4
+    processes on the card: both references on the card first, then the
+    world, then each phase's row and checks."""
+    grads_ref = _sharded_grads_reference(torch, burnin, tree)
+    serving_ref = _serving_world_reference(torch, burnin, engine_mod)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_world(_world_rank, 4, SHARDED_MODEL, 7,
+                             SERVING_SHARDED_MODEL, cuda=True, timeout=300)
+    world_sec = time.perf_counter() - t0
+    by_path = {
+        "sharded_grads": phase_sharded_grads(
+            torch, tree, [r["sharded_grads"] for r in ranks], grads_ref,
+            world_sec),
+        "serving_sharded_world": phase_serving_sharded_world(
+            torch, [r["serving_sharded_world"] for r in ranks], serving_ref,
+            world_sec)}
+    del ranks, grads_ref, serving_ref
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def partial_bound_ms(shape, dtype: str, q_offset: int, k_offset: int):
@@ -2414,7 +2736,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from kubeflow_tpu_torch import entry
+    from kubeflow_tpu_torch import entry, telemetry
     from kubeflow_tpu_torch.models import (burnin, longctx, moe, pipelined,
                                            trainer, tree, vision)
     from kubeflow_tpu_torch.ops import _build
@@ -2453,16 +2775,16 @@ def main() -> int:
     head_dims = phase_head_dims(torch, fa)
     other_dims, dims_timed = head_dims["max_abs_err"], head_dims["timed"]
     phase_model(torch, fa, burnin)
-    by_path = {"serving": {"fwd": phase_serving(
-        torch, fa, burnin, engine_mod, loadgen)["launches"]}}
     phase_train_grads(torch, fa, burnin)
     train = phase_train(torch, fa, burnin, card)
-    by_path["train"] = train["launches"]
+    by_path = {"train": train["launches"]}
     with world_of_one(torch):
-        by_path["sharded"] = phase_sharded(torch, fa, burnin, tree, pmesh,
-                                           card, train)
+        by_path["serving"] = {"fwd": phase_serving(
+            torch, fa, burnin, engine_mod, loadgen)["launches"]}
+        by_path["sharded"] = phase_sharded(torch, fa, burnin, tree, pmesh)
         phase_dryrun(torch, entry)
-    by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer)
+    by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer,
+                                       telemetry)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)
@@ -2476,8 +2798,7 @@ def main() -> int:
     by_path["pipelined_schedule"] = phase_pipelined(torch, fa, pipelined,
                                                     card, True)
     by_path["wide_heads"] = phase_wide_heads(torch, fa, burnin, card)
-    by_path["sharded_grads"] = phase_sharded_grads(torch, fa, burnin, tree,
-                                                   launch)
+    by_path.update(phase_worlds(torch, burnin, tree, engine_mod, launch))
 
     def launches(kernel):
         return {path: counts.get(kernel, 0)
@@ -2562,6 +2883,7 @@ def main() -> int:
                          "the same products, normalized",
          "device_kernels": device_kernels("partial_bf16_kernel",
                                           "wide_fwd_kernel")}]})
+    emit({"phase": "wall", "script_sec": time.perf_counter() - STARTED})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,14 +25,16 @@ step sums the gradients as the model's step does and clips by the global
 norm of the global leaves. AdamW, its decoupled weight decay and the
 schedule are elementwise and run on the shards unchanged.
 
-The abstract state of an Orbax restore waits for the checkpoint slice;
-``fit``'s ``profiler`` and ``publisher`` wait for the telemetry port and
-raise when given.
+``fit`` takes the telemetry hooks (``telemetry.StepProfiler``,
+``telemetry.TelemetryPublisher``) as the JAX ``fit`` does. The abstract
+state of an Orbax restore and ``fit``'s ``skip_batches`` wait for the
+checkpoint and data slice (``fit`` always fast-forwards on resume).
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from itertools import islice
 from typing import Callable, Iterator
@@ -276,21 +278,36 @@ def fit(state: dict, batches: Iterator, *, steps: int, step_fn: Callable,
 
     ``checkpoints`` is any object with ``save(step, state)`` and
     ``wait()``: ``save`` every ``save_every`` steps, ``wait`` at the end.
-    ``profiler`` and ``publisher`` are the JAX package's telemetry hooks,
-    not ported yet: passing either raises ``NotImplementedError``.
+
+    Telemetry: pass a :class:`kubeflow_tpu_torch.telemetry.StepProfiler`
+    as ``profiler`` to record each step's wall time (the first step is
+    kept apart as the one that allocates and builds; at every window
+    boundary the profiler waits on the loss's card, so queued work drains
+    into a measured step), and a
+    :class:`kubeflow_tpu_torch.telemetry.TelemetryPublisher` as
+    ``publisher`` to export rolling-window summaries (rate-limited in the
+    loop, a forced flush at the end). Both are no-ops when
+    ``KFTPU_TELEMETRY`` is off.
     """
-    if profiler is not None or publisher is not None:
-        raise NotImplementedError(
-            "fit's profiler and publisher hooks wait for the telemetry port")
     start = int(state["step"])
     if start:
         batches = islice(batches, start, None)
     for i in range(start, steps):
+        t0 = time.perf_counter() if profiler is not None else 0.0
         state, loss = step_fn(state, next(batches))
+        if profiler is not None:
+            profiler.observe(i + 1, time.perf_counter() - t0,
+                             sync_value=loss)
+            if publisher is not None:
+                publisher.publish(profiler.summary())
         if on_step is not None:
             on_step(i + 1, float(loss))
         if checkpoints is not None and (i + 1) % save_every == 0:
             checkpoints.save(i + 1, state)
     if checkpoints is not None:
         checkpoints.wait()
+    if profiler is not None:
+        profiler.note_hbm(loss.device if steps > start else None)
+        if publisher is not None:
+            publisher.publish(profiler.summary(), force=True)
     return state

@@ -7,11 +7,15 @@ directory (no TCP port, so concurrent worlds never collide), calls
 as a list by rank. ``fn`` must be a top-level function of a module the
 children can import, and return tensors, numbers and containers of them.
 Every process is joined against one deadline and killed on overrun, so a
-hung collective fails the call instead of stalling it.
+hung collective fails the call instead of stalling it. A process whose
+``fn`` raises saves its traceback and exits at once, without shutting its
+group down, so the others' pending collectives with it fail too.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import tempfile
 import time
 import traceback
@@ -33,12 +37,18 @@ def _child(rank: int, world: int, out: str, backend: str, cuda: bool, fn,
     dist.init_process_group(backend, store=store, world_size=world,
                             rank=rank)
     try:
-        torch.save(fn(rank, *args), out_dir / f"rank{rank}.pt")
+        result = fn(rank, *args)
     except BaseException:
         (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
-        raise
-    finally:
-        dist.destroy_process_group()
+        traceback.print_exc()
+        sys.stderr.flush()
+        # Leave at once: the other processes may be inside a collective
+        # this one will never join, and shutting the group down (here or
+        # at the interpreter's exit) waits for them. The exit closes this
+        # process's connections, which ends their collective.
+        os._exit(1)
+    torch.save(result, out_dir / f"rank{rank}.pt")
+    dist.destroy_process_group()
 
 
 def run_world(fn, world: int, *args, backend: str = "gloo",

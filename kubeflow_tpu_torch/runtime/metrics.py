@@ -7,7 +7,8 @@ The reference registers custom collectors with controller-runtime's registry
 (``notebook-controller/pkg/metrics/metrics.go:14-99``). No prometheus client
 ships in this image, so this is a from-scratch implementation of the 20% we
 use: counters, gauges, labels, and text-format exposition (the port
-keeps the counters and gauges its serving engine registers).
+keeps the counters and gauges its serving engine and its telemetry
+publisher register).
 """
 
 from __future__ import annotations

@@ -36,10 +36,46 @@ device time.
 Weights live on the engine's device: the CUDA card unless the caller
 passes ``device="cpu"`` (where attention takes the kernels' plain
 versions). With no CUDA device and no device given, construction
-raises. Sharded serving over several cards (the JAX engine's
-``use_mesh`` with more than one device) is not ported yet: whatever
-``use_mesh`` says, the engine serves from its one device (by default
-the current CUDA card).
+raises.
+
+**Sharded serving** (the JAX engine's ``use_mesh`` with more than one
+device). JAX drives every device from one controller; the port runs one
+process a card, joined by ``torch.distributed`` (``torchrun``, or
+``parallel.launch.run_world``). With ``use_mesh`` set and a default
+process group of more than one process, :class:`ModelRegistry` builds
+``parallel.mesh.make_mesh()`` once: each process holds its shard of
+every model (``burnin.shard_params``: heads of qkv and rows of attn_out,
+columns of ff1 and rows of ff2 over "model"), and ``score`` runs
+``burnin.forward`` with the mesh, so the logits, and the argmax, are
+whole on every process. The tokens carry no sharding, so the "data"
+replicas repeat the same batch, as in JAX; where ``n_heads`` does not
+divide by the model axis, qkv and attn_out stay whole and only the FF
+splits. Parked and demoted models keep each process's own shard in host
+memory, and a warm swap or restore moves that shard back as it is: no
+process ever holds a whole model on its host (the JAX engine's
+``device_get`` gathers it on the controller's).
+
+The host side runs in lockstep. Every rank constructs the engine and
+makes the same lifecycle calls in the same order (``cold_start``,
+``register_model``, ``use_model``, ``park``, ``warm_restore``,
+``submit``, ``serve``); outside ``serve`` no decision reads the clock.
+Inside ``serve``, rank 0 alone schedules: its clock, admission, lanes,
+KV accounting and swaps. Before each device call it broadcasts one
+control word on a gloo group of the engine's own (decode step, prefill
+chunk, activate model, end), so the words travel on the host and add no
+device sync; the other ranks follow the words with the same device calls
+on their shards, in the same order, and return rank 0's
+:class:`ServeReport`. The KV pool, lanes and queue that
+:meth:`ServingEngine.debug_info` reports are rank 0's; a follower's stay
+empty. Where rank 0 fails, it queues an abort word without waiting for
+it and raises. A failure between device calls (admission, say) reaches
+the followers as that word, and they raise. A failure inside a device
+call leaves them in that call's model-axis collective, deaf to words:
+they end only when the collective does, when rank 0's process is gone
+(gloo: its closed connections) or at the group's timeout (NCCL). So a
+failed rank's process must exit without shutting its groups down, which
+would wait for the followers, as ``parallel.launch.run_world``'s
+processes do (``os._exit``).
 """
 
 from __future__ import annotations
@@ -50,6 +86,7 @@ from collections import deque
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.burnin import (
@@ -57,7 +94,9 @@ from kubeflow_tpu_torch.models.burnin import (
     forward,
     init_params,
     map_params,
+    shard_params,
 )
+from kubeflow_tpu_torch.parallel.mesh import make_mesh
 from kubeflow_tpu_torch.runtime import slo
 from kubeflow_tpu_torch.runtime.metrics import Registry, global_registry
 from kubeflow_tpu_torch.runtime.tracing import span
@@ -70,6 +109,10 @@ from kubeflow_tpu_torch.serving.kvcache import (
 #: The model id requests carry when they don't ask for one — and the
 #: model every engine registers at construction from its own ``cfg``.
 DEFAULT_MODEL = "default"
+
+# The control words rank 0 of a sharded engine sends before each device
+# call of ``serve`` (op, argument): the followers make the same call.
+_END, _DECODE, _PREFILL, _ACTIVATE, _ABORT = range(5)
 
 
 @dataclass(frozen=True)
@@ -185,7 +228,9 @@ class ModelRegistry:
 
     At most ``max_resident`` models keep weights on the device; beyond
     that the least-recently-used model is demoted to host memory (it
-    stays warm). All swaps go through :meth:`activate`.
+    stays warm). All swaps go through :meth:`activate`. With ``use_mesh``
+    in a world of more than one process, the weights on the device and
+    on the host are this process's shards (see the module's docstring).
     """
 
     def __init__(self, *, max_batch: int, prefill_chunk: int = 32,
@@ -197,6 +242,10 @@ class ModelRegistry:
         self.max_resident = max(1, max_resident)
         self.device = resolve_device(device)
         self._entries: dict = {}       # model -> _ModelEntry
+        self._mesh = None
+        if (use_mesh and dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            self._mesh = make_mesh(device_type=self.device.type)
         self._tick = 0
         self.swaps_cold = 0
         self.swaps_warm = 0
@@ -224,28 +273,40 @@ class ModelRegistry:
     def models(self) -> list:
         return sorted(self._entries)
 
+    @property
+    def mesh(self):
+        return self._mesh
+
     def _resident(self) -> list:
         return [e for e in self._entries.values()
                 if e.device_params is not None]
 
-    def _to_device(self, params):
-        # Every model serves from the engine's one device; ``use_mesh``
-        # is kept for the JAX engine's signature (sharded serving is not
-        # ported).
+    def _to_card(self, params):
+        """``params`` (whole or this process's shards) on the engine's
+        device, as they are."""
         return map_params(lambda t: t.to(self.device), params)
+
+    def _to_device(self, params, cfg):
+        """A model's global weights on the device: this process's shards
+        of them on the mesh, else the whole tree."""
+        if self._mesh is not None:
+            params = shard_params(params, self._mesh, cfg)
+        return self._to_card(params)
 
     @staticmethod
     def _to_host(params):
+        # Each process keeps its own shards: nothing is gathered.
         return map_params(lambda t: t.to("cpu"), params)
 
     @staticmethod
-    def _build_fns(cfg):
+    def _build_fns(cfg, mesh=None):
         def score(params, tokens):
             # One decode step: score the batch, return each sequence's
             # next-token argmax (the cheapest useful output — the bench
-            # measures throughput, not sampling quality).
+            # measures throughput, not sampling quality). On a mesh the
+            # logits are whole on every process.
             with torch.inference_mode():
-                logits = forward(params, tokens, cfg)
+                logits = forward(params, tokens, cfg, mesh)
                 return logits[:, -1, :].argmax(dim=-1)
 
         # Same program, two static shapes: [max_batch, seq_len] for
@@ -262,8 +323,9 @@ class ModelRegistry:
 
     def _load_cold(self, entry, seed: int) -> None:
         params = init_params(entry.cfg, seed=seed, device=self.device)
-        entry.device_params = self._to_device(params)
-        entry.decode_fn, entry.prefill_fn = self._build_fns(entry.cfg)
+        entry.device_params = self._to_device(params, entry.cfg)
+        entry.decode_fn, entry.prefill_fn = self._build_fns(entry.cfg,
+                                                            self._mesh)
         self._warmup(entry)
 
     def activate(self, model: str, *, seed: int = 0):
@@ -281,7 +343,9 @@ class ModelRegistry:
             return entry
         t0 = time.perf_counter()
         if entry.warm:
-            entry.device_params = self._to_device(entry.host_params)
+            # The host copy is already this process's shard: moved back
+            # as it is, never cut again.
+            entry.device_params = self._to_card(entry.host_params)
             entry.host_params = None
             self._warmup(entry)
             entry.warm_swap_sec = time.perf_counter() - t0
@@ -339,7 +403,8 @@ class _Prefill:
 
 
 class ServingEngine:
-    """One replica's model server over the burn-in transformer."""
+    """One replica's model server over the burn-in transformer (one rank
+    of it when sharded: see the module's docstring)."""
 
     def __init__(self, cfg=None, *, max_batch: int = 8,
                  use_mesh: bool = True,
@@ -365,6 +430,9 @@ class ServingEngine:
             max_resident=self.options.max_resident_models,
             device=device)
         self.device = self.models.device
+        # The host group of the control words (a sharded engine only).
+        self._ctl = (dist.new_group(backend="gloo")
+                     if self.models.mesh is not None else None)
         self.models.register(DEFAULT_MODEL, self.cfg)
         self.kv = KVBlockPool(
             self.options.kv_blocks or self._default_kv_blocks(),
@@ -485,6 +553,7 @@ class ServingEngine:
                     s is not None for s in slots)
                 if busy:
                     break
+                self._say_activate(model)
                 self._activate_model(model)
             prompt = getattr(req, "prompt_tokens", 0)
             needs_prefill = prompt > 0 and self._prefill_fn is not None
@@ -520,6 +589,75 @@ class ServingEngine:
                 started[free] = clock
                 arrivals[free] = arrival_abs
 
+    # ---- lockstep of a sharded engine ---------------------------------------
+
+    def _follows(self) -> bool:
+        """True on a sharded engine's ranks other than 0."""
+        return self._ctl is not None and dist.get_rank() != 0
+
+    def _say(self, op: int, arg: int = 0, *, wait: bool = True) -> None:
+        """Rank 0: send the followers one control word (a no-op unless
+        sharded); ``wait=False`` leaves it queued without waiting for a
+        follower to take it."""
+        if self._ctl is not None:
+            work = dist.broadcast(torch.tensor([op, arg]), src=0,
+                                  group=self._ctl, async_op=True)
+            if wait:
+                work.wait()
+
+    def _hear(self) -> tuple:
+        word = torch.empty(2, dtype=torch.int64)
+        dist.broadcast(word, src=0, group=self._ctl)
+        return int(word[0]), int(word[1])
+
+    def _say_activate(self, model: str) -> None:
+        """Rank 0: tell the followers to activate ``model``: its index in
+        ``models()``, or -1 and the name where it is not registered yet."""
+        if self._ctl is None:
+            return
+        if model in self.models:
+            self._say(_ACTIVATE, self.models.models().index(model))
+        else:
+            self._say(_ACTIVATE, -1)
+            dist.broadcast_object_list([model], src=0, group=self._ctl)
+
+    def _follow(self) -> ServeReport:
+        """A follower's ``serve``: the device call of each of rank 0's
+        control words, in order, on this rank's shards, until the end;
+        then rank 0's report. The requests are rank 0's to schedule."""
+        self._waiting.clear()
+        tokens, chunk_buf = self._buffers()
+        while True:
+            op, arg = self._hear()
+            if op == _END:
+                break
+            if op == _DECODE:
+                self._step_fn(self._params, tokens).cpu()
+                self.park_step += 1
+            elif op == _PREFILL:
+                self._prefill_fn(self._params, chunk_buf).cpu()
+            elif op == _ACTIVATE:
+                name = [self.models.models()[arg] if arg >= 0 else None]
+                if arg < 0:
+                    dist.broadcast_object_list(name, src=0, group=self._ctl)
+                self._activate_model(name[0])
+            else:
+                raise RuntimeError(
+                    "rank 0 of the sharded engine failed while serving "
+                    "(its own traceback has the cause)")
+        shared = [None, None]
+        dist.broadcast_object_list(shared, src=0, group=self._ctl)
+        report, self._per_model_done = shared
+        return report
+
+    def _buffers(self) -> tuple:
+        # The same zero token buffers the JAX engine feeds: the loop
+        # measures serving throughput, and the argmax is discarded.
+        return (torch.zeros((self.max_batch, self.cfg.seq_len),
+                            dtype=torch.int64, device=self.device),
+                torch.zeros((1, self.options.prefill_chunk),
+                            dtype=torch.int64, device=self.device))
+
     def serve(self, requests: list, *, time_scale: float = 1.0) -> ServeReport:
         """Run one open-loop trace to completion with continuous
         batching. ``requests`` arrive at ``arrival * time_scale`` on
@@ -528,9 +666,30 @@ class ServingEngine:
         percentiles). The trace clock never waits for the model: if the
         model is the bottleneck, arrivals pile up, exactly like
         production. Requests :meth:`submit`-ted earlier (including
-        while parked) drain first."""
+        while parked) drain first.
+
+        Sharded, every rank calls it with the same requests; rank 0
+        schedules them and every rank returns rank 0's report."""
         if self._params is None or self._step_fn is None:
             raise RuntimeError("engine not started (cold_start/warm_restore)")
+        if self._follows():
+            return self._follow()
+        if self._ctl is None:
+            return self._serve(requests, time_scale)
+        try:
+            report = self._serve(requests, time_scale)
+        except BaseException:
+            # Not waited for: where rank 0 failed inside a device call,
+            # the followers are in that call's collective, not listening.
+            self._say(_ABORT, wait=False)
+            raise
+        self._say(_END)
+        dist.broadcast_object_list([report, dict(self._per_model_done)],
+                                   src=0, group=self._ctl)
+        return report
+
+    def _serve(self, requests: list, time_scale: float) -> ServeReport:
+        """The serve loop (rank 0's, when sharded)."""
         opts = self.options
         t0_abs = self.now()
         pending = [(r, t0_abs + r.arrival * time_scale)
@@ -539,12 +698,7 @@ class ServingEngine:
         remaining = [0] * self.max_batch
         started = [0.0] * self.max_batch
         arrivals = [0.0] * self.max_batch
-        # The same zero token buffers the JAX engine feeds: the loop
-        # measures serving throughput, and the argmax is discarded.
-        tokens = torch.zeros((self.max_batch, self.cfg.seq_len),
-                             dtype=torch.int64, device=self.device)
-        chunk_buf = torch.zeros((1, opts.prefill_chunk), dtype=torch.int64,
-                                device=self.device)
+        tokens, chunk_buf = self._buffers()
         report = ServeReport()
         occupancy = 0
         kv_rej0 = self.kv.rejections
@@ -580,6 +734,7 @@ class ServingEngine:
                 if pf is not None and not pf.ready:
                     n = min(opts.prefill_chunk,
                             pf.req.prompt_tokens - pf.done)
+                    self._say(_PREFILL)
                     self._prefill_fn(self._params, chunk_buf).cpu()
                     pf.table.append(n)
                     pf.done += n
@@ -617,6 +772,7 @@ class ServingEngine:
                             time.sleep(min(wait, 0.05))
                     continue
                 # One decode step for the whole batch (static shape).
+                self._say(_DECODE)
                 self._step_fn(self._params, tokens).cpu()
                 self.park_step += 1
                 report.steps += 1

@@ -1,15 +1,27 @@
-"""Registered named sections around the parallel stack's collectives.
+"""Registered named sections around the parallel stack's collectives, and
+serialize mode.
 
-The counterpart of ``kubeflow_tpu/telemetry/sections.py``, trimmed to the
-sections the ported slices run. Every collective in ``parallel/ring.py``,
-``parallel/ulysses.py``, ``parallel/moe.py`` and ``parallel/pipeline.py``
-goes through
-:func:`collective`, which rejects a name that is not registered in
-``SECTION_SPECS`` and runs the op inside
+The port of ``kubeflow_tpu/telemetry/sections.py``. Every collective in
+``parallel/ring.py``, ``parallel/ulysses.py``, ``parallel/moe.py`` and
+``parallel/pipeline.py`` goes through :func:`collective`, which rejects a
+name that is not registered in ``SECTION_SPECS`` and runs the op inside
 ``torch.profiler.record_function("kftpu." + name)``, so a profiler trace
 books communication time under the same names as the JAX package's
-traces. The JAX module's serialize mode (collectives fenced from compute
-for the overlap A/B) is not ported yet.
+traces.
+
+*Serialize mode* (:func:`set_serialize_collectives`) fences every
+registered collective from compute, for the overlap A/B
+(``telemetry.overlap_fraction`` of the same step run both ways): before
+the op, the current CUDA stream's queued work finishes; after it, the
+collective itself finishes. Both waits are
+``torch.cuda.current_stream().synchronize()`` once the process has
+started CUDA; on the CPU, where an op runs to its end before it returns,
+there is nothing to wait for. It is the eager counterpart of the JAX
+module's ``optimization_barrier`` fences. The backward of every ported
+collective calls :func:`collective` again (``ring.shift`` backwards, the
+pipeline's stage hop), so both directions are fenced with no custom VJP.
+Unlike the JAX module's trace-time flag, the mode takes effect per call:
+flipping it changes the next collective a step issues, with no rebuild.
 """
 
 from __future__ import annotations
@@ -37,12 +49,38 @@ SECTION_SPECS = (
 
 SECTION_NAMES = frozenset(spec[0] for spec in SECTION_SPECS)
 
+_serialize = False
 
-def collective(name: str, op, *args, **kwargs):
-    """``op(*args, **kwargs)`` inside the registered section ``name``."""
+
+def set_serialize_collectives(on: bool) -> None:
+    """Fence every registered collective from compute (see the module's
+    docstring); takes effect at the next collective issued."""
+    global _serialize
+    _serialize = bool(on)
+
+
+def serialize_collectives() -> bool:
+    return _serialize
+
+
+def _fence() -> None:
+    """Wait for the current CUDA stream's queued work where this process
+    has started CUDA; nothing on the CPU."""
+    if torch.cuda.is_initialized():
+        torch.cuda.current_stream().synchronize()
+
+
+def collective(name: str, op, *operands, **kwargs):
+    """``op(*operands, **kwargs)`` inside the registered section ``name``;
+    in serialize mode fenced on both sides (:func:`_fence`)."""
     if name not in SECTION_NAMES:
         raise ValueError(
             f"unregistered telemetry section {name!r}; add it to "
             f"telemetry/sections.py SECTION_SPECS")
     with torch.profiler.record_function("kftpu." + name):
-        return op(*args, **kwargs)
+        if not _serialize:
+            return op(*operands, **kwargs)
+        _fence()
+        out = op(*operands, **kwargs)
+        _fence()
+        return out

@@ -56,6 +56,11 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
     assert {"kubeflow_tpu_torch/parallel/pipeline.py",
             "kubeflow_tpu_torch/models/pipelined.py",
             "kubeflow_tpu_torch/models/vision.py"} <= names
+    # The step telemetry slice.
+    assert {"kubeflow_tpu_torch/telemetry/__init__.py",
+            "kubeflow_tpu_torch/telemetry/profiler.py",
+            "kubeflow_tpu_torch/telemetry/publisher.py",
+            "kubeflow_tpu_torch/telemetry/ledger.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -83,7 +88,7 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.models.trainer, kubeflow_tpu_torch.entry, "
             "kubeflow_tpu_torch.models.longctx, "
             "kubeflow_tpu_torch.models.pipelined, "
-            "kubeflow_tpu_torch.models.vision; "
+            "kubeflow_tpu_torch.models.vision, kubeflow_tpu_torch.telemetry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -351,16 +351,43 @@ def test_explicit_cpu_keeps_weights_on_cpu():
     assert engine._params["layers"][0]["qkv"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("use_mesh", [True, False])
-def test_use_mesh_serves_from_the_engines_one_device(monkeypatch, use_mesh):
-    """Sharded serving is not ported: whatever ``use_mesh`` says and
-    however many cards there are, weights go to the engine's device."""
-    from kubeflow_tpu_torch.serving.engine import ModelRegistry
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo process group of this process alone, destroyed after."""
+    import torch.distributed as dist
 
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    registry = ModelRegistry(max_batch=2, use_mesh=use_mesh, device="cpu")
-    moved = registry._to_device({"w": torch.zeros(1)})
-    assert moved["w"].device == registry.device == torch.device("cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("use_mesh", [True, False])
+def test_use_mesh_keeps_the_whole_tree_without_a_process_group(use_mesh):
+    """No process group: the weights go whole to the engine's device,
+    whatever ``use_mesh`` says, and there is no mesh."""
+    engine = ServingEngine(TINY, max_batch=2, use_mesh=use_mesh,
+                           device="cpu")
+    engine.cold_start(seed=0)
+    qkv = engine._params["layers"][0]["qkv"]
+    assert engine.models.mesh is None and engine._ctl is None
+    assert tuple(qkv.shape) == (32, 96)
+    assert qkv.device == engine.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("use_mesh", [True, False])
+def test_use_mesh_in_a_world_of_one_keeps_the_whole_tree(world_of_one,
+                                                         use_mesh):
+    """A world of one process serves as with no group: no mesh, no
+    control group, the whole tree, the same lanes (tests/
+    test_torch_serving_sharded.py holds a world of 4)."""
+    engine = ServingEngine(TINY, max_batch=2, use_mesh=use_mesh,
+                           device="cpu")
+    engine.cold_start(seed=0)
+    assert engine.models.mesh is None and engine._ctl is None
+    assert tuple(engine._params["layers"][0]["qkv"].shape) == (32, 96)
+    report = engine.serve([Request(rid=0, arrival=0.0, tokens_out=2)])
+    assert report.steps == 2 and len(report.completions) == 1
 
 
 def test_serve_opens_one_serve_span():

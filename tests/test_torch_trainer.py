@@ -189,12 +189,93 @@ def test_fit_resumed_at_k_equals_a_straight_run():
         np.testing.assert_array_equal(a, b)
 
 
-def test_fit_refuses_the_telemetry_hooks_it_lacks():
+class _Clock:
+    """A monotonic clock the test moves by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _fit_with_telemetry(steps=5, **publisher_kw):
+    from kubeflow_tpu_torch import telemetry
+
     state, tx = _port_parts(**TRAIN)
     step = trainer.make_train_step(partial(burnin.loss_fn, cfg=CFG), tx)
-    for hooks in ({"profiler": object()}, {"publisher": object()}):
-        with pytest.raises(NotImplementedError):
-            trainer.fit(state, iter([]), steps=1, step_fn=step, **hooks)
+    prof = telemetry.StepProfiler("burnin", flops_per_step=1e9,
+                                  tokens_per_step=64, peak_flops=1e12,
+                                  window=8, environ={})
+    patches = []
+    pub = telemetry.TelemetryPublisher(patches.append, environ={},
+                                       **publisher_kw)
+    batches = [torch.from_numpy(b).long() for b in _batches(steps)]
+    final = trainer.fit(state, iter(batches), steps=steps, step_fn=step,
+                        profiler=prof, publisher=pub)
+    return final, prof, pub, patches
+
+
+def test_fit_profiles_every_step_and_keeps_the_first_apart():
+    final, prof, _, _ = _fit_with_telemetry(steps=5)
+    assert final["step"] == 5
+    summary = prof.summary()
+    assert prof.steps == summary["steps_measured"] == 4
+    assert summary["step"] == prof.last_step == 5
+    assert summary["first_step_sec"] > 0 and summary["step_p50_sec"] > 0
+    assert summary["mfu"] == pytest.approx(
+        1e9 / summary["step_p50_sec"] / 1e12)
+    assert summary["hbm_high_water_bytes"] is None      # the CPU keeps none
+
+
+def test_fit_publishes_in_the_loop_and_forces_the_last_publish():
+    from kubeflow_tpu_torch.telemetry import publisher
+
+    # A rate limit longer than the run: the first in-loop publish goes
+    # out, the others are held, and the forced flush at the end goes out.
+    clock = _Clock()
+    _, prof, pub, patches = _fit_with_telemetry(
+        steps=4, min_interval=3600.0, clock=clock, now_fn=lambda: 50.0)
+    assert pub.seq == len(patches) == 2 and pub.errors == 0
+    first, last = (publisher.decode(p["metadata"]["annotations"])
+                   for p in patches)
+    assert first["step"] == 1 and first["seq"] == 1
+    assert last["step"] == 4 and last["seq"] == 2 and last["at"] == 50.0
+    assert last["family"] == "burnin"
+    assert last["mfu"] == round(prof.mfu(), 4)
+    # Without the limit every step publishes, then the flush.
+    _, _, _, every = _fit_with_telemetry(steps=3, min_interval=0.0)
+    assert len(every) == 4
+
+
+def test_fit_telemetry_matches_the_jax_fit():
+    """The same profiler hooks through the port's fit and the JAX fit on
+    the tiny config: the summaries' keys, the measured steps and the step
+    counter agree (the times are each run's own)."""
+    from kubeflow_tpu import telemetry as jax_telemetry
+    from kubeflow_tpu_torch import telemetry
+
+    steps = 4
+    kw = dict(flops_per_step=1e9, tokens_per_step=64, peak_flops=1e12,
+              window=8, environ={})
+    tx = jax_trainer.make_optimizer(jax_trainer.TrainerConfig(**TRAIN))
+    jstep = jax.jit(jax_trainer.make_train_step(
+        partial(jax_burnin.loss_fn, cfg=JCFG), tx))
+    jprof = jax_telemetry.StepProfiler("burnin", **kw)
+    jpatches = []
+    jax_trainer.fit(jax_trainer.init_state(_jax_params(), tx),
+                    iter([jnp.asarray(b) for b in _batches(steps)]),
+                    steps=steps, step_fn=jstep, profiler=jprof,
+                    publisher=jax_telemetry.TelemetryPublisher(
+                        jpatches.append, min_interval=0.0, environ={}))
+    _, prof, _, patches = _fit_with_telemetry(steps=steps, min_interval=0.0)
+    want, got = jprof.summary(), prof.summary()
+    assert sorted(got) == sorted(want)
+    for key in ("family", "step", "steps_measured", "window", "mfu_basis"):
+        assert got[key] == want[key]
+    assert {k for k, v in got.items() if v is None} == \
+        {k for k, v in want.items() if v is None}
+    assert len(patches) == len(jpatches) == steps + 1
 
 
 def test_unknown_optimizer_raises():
