@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, sharded serving, training (with its
-step telemetry), sharded training, long-context training, MoE, vision and
-pipelined training paths on one NVIDIA GPU and hold its kernels against
-their plain versions.
+step telemetry, checkpoints, input pipeline and drain guard), sharded
+training, long-context training, MoE, vision and pipelined training paths
+on one NVIDIA GPU and hold its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -180,11 +180,29 @@ last line. With no CUDA device it exits 1 and prints no result.
    on the card, the argmax equal where the margin is clear; every rank's
    report equal, and equal to the one-process engine's (structural).
 
+28. checkpoint (run after trainer) — checkpoint, data and SDK:
+   ``trainer.fit`` with ``TrainerConfig()`` (AdamW) at ``BENCH_MODEL``'s
+   widths with 2 layers (a depth cut: 2.24 GB of params, mu and nu), batch
+   8, fed by ``ShardedLoader -> prefetch -> global_batches``; each step's
+   ``checkpoint_tree`` goes to a ``CheckpointGuard`` over a
+   ``CheckpointFabric`` (remote and staging tiers) under a drain request
+   and to a DCP ``CheckpointManager``, which both save at step 3 of 5.
+   The ack must follow the snapshot and the commit mark the upload; each
+   arm's restore onto ``abstract_state`` on the card, resumed to step 5,
+   must be bitwise the straight run. Printed: the state's bytes, each
+   arm's snapshot seconds and GB/s, commit and restore seconds and the
+   tier that served the restore, the drain's ack latency and ack to
+   commit mark, and the loader pipeline's step p50 beside pre-staged card
+   batches; launches counted from zero over the straight run: one
+   forward, one dQ and one dK/dV per layer and step. Then one step under
+   ``sdk.trace`` must leave one ``torch.profiler`` trace file. The
+   temporary directories are removed.
+
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
-``pipelined_schedule``, ``wide_heads``, ``sharded``,
+``pipelined_schedule``, ``wide_heads``, ``sharded``, ``checkpoint``,
 and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
 its 4 processes), and ``device_kernels``: the CUDA kernels behind each
 entry, by head dim and dtype), the script's wall seconds, the card line,
@@ -276,6 +294,14 @@ FIT_STEPS, FIT_ACCUM = 10, 2
 # per-step marks (the same steps, both waiting on each loss): the two
 # clocks differ by the publish and the host's work between marks.
 TOL_TELEMETRY_P50_PCT = 5.0
+# The checkpoint phase: TRAIN_MODEL's widths at 2 layers (a depth cut: the
+# AdamW state is then ~186 M parameters, 2.2 GB of f32 params, mu and nu,
+# written twice by the fabric and once by DCP), AdamW through fit, a save
+# at step CKPT_AT of CKPT_STEPS, then CKPT_TIMED steps of the loader
+# pipeline and CKPT_TIMED of pre-staged card batches.
+CKPT_MODEL = dict(TRAIN_MODEL, n_layers=2)
+CKPT_STEPS, CKPT_AT, CKPT_TIMED = 5, 3, 8
+CKPT_EXAMPLES = 16 * TRAIN_BATCH
 # The sharded step's gradients at 2 x 2 (data, model): TRAIN_MODEL's
 # widths at 2 layers (a depth cut), so each of the 4 processes that share
 # the card runs the kernels at [4, 1024, 8, 128].
@@ -698,8 +724,8 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
     name, shape, dtype, causal, q_off, k_off, given = case
     kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
     o_in, delta_in = (None, delta) if given else (o, None)
-    # The plain versions move ~20 GB a call at 8192 tokens: fewer runs.
-    plain_runs = {} if shape[1] <= 1024 else dict(warmup=1, runs=5, batch=2)
+    # The plain versions take 30-300 times the kernels' time (~20 GB a
+    # call at 8192 tokens): 5 runs of 2 calls time them, as the forward's.
     calls = {
         "dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, o_in, lse, do,
                                                  delta=delta_in, **kw),
@@ -712,7 +738,7 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
     for key, (run, plain) in calls.items():
         row[f"{key}_ms"] = time_ms(run)
         row[f"{key}_profiler_ms"] = profiled(run, torch)[0]
-        row[f"{key}_plain_ms"] = time_ms(plain, **plain_runs)
+        row[f"{key}_plain_ms"] = time_ms(plain, warmup=1, runs=5, batch=2)
         (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
          row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal, key, given)
         _rates(row, f"{key}_")
@@ -1833,6 +1859,225 @@ def phase_trainer(torch, fa, burnin, trainer, telemetry) -> dict:
     return launches
 
 
+def phase_checkpoint(torch, fa, burnin, trainer, data, checkpoint, sdk,
+                     card: str) -> dict:
+    """Checkpoint, data and SDK on the card: ``fit`` at CKPT_MODEL, AdamW
+    (``TrainerConfig()``), fed by ``ShardedLoader -> prefetch ->
+    global_batches`` and handing each step's checkpoint tree to a
+    ``CheckpointGuard`` over a ``CheckpointFabric`` (with a staging tier)
+    under a drain request, and to a DCP ``CheckpointManager``: both save
+    at step CKPT_AT (the guard's sync step; the manager's interval). The
+    guard's ack must follow the snapshot, its commit mark the upload. For
+    each arm a fresh state restored onto ``abstract_state`` on the card
+    (``load_state``) and run to CKPT_STEPS must be bitwise the straight
+    run (the fabric's resume skips the loader in O(1), the manager's
+    through fit's fast-forward). Then the loader pipeline's steps against
+    pre-staged card batches. The temporary directories are removed."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.api import notebook
+    from kubeflow_tpu_torch.models.tree import leaves, map_params
+
+    cfg = burnin.BurninConfig(**CKPT_MODEL)
+    tx = trainer.make_optimizer(trainer.TrainerConfig())
+    step = trainer.make_train_step(partial(burnin.loss_fn, cfg=cfg), tx)
+    tokens = np.random.default_rng(9).integers(
+        0, cfg.vocab, (CKPT_EXAMPLES, cfg.seq_len), dtype=np.int64)
+    params0 = burnin.init_params(cfg, seed=7, device="cuda")
+
+    def fresh():
+        return trainer.init_state(map_params(torch.clone, params0), tx)
+
+    def loader(skip=0):
+        ld = data.ShardedLoader(data.ArraySource(tokens), TRAIN_BATCH,
+                                seed=4, transform=lambda b: b[0])
+        ld.skip(skip)
+        return data.global_batches(data.prefetch(ld))
+
+    def tensors(tree) -> list:
+        if isinstance(tree, dict):
+            return [t for value in tree.values() for t in tensors(value)]
+        if isinstance(tree, (list, tuple)):
+            return [t for value in tree for t in tensors(value)]
+        return [tree]
+
+    def equal(a, b) -> bool:
+        """Params, moments, counts and step bit for bit."""
+        a, b = (tensors(trainer.checkpoint_tree(x)) for x in (a, b))
+        return len(a) == len(b) and all(map(torch.equal, a, b))
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    marks, clock = [], {}
+    try:
+        # A staging tier that holds the whole state (the default budget is
+        # 1 GiB): a same-node restore is then served from it.
+        staging = {"KFTPU_CKPT_STAGING_BYTES": str(8 << 30)}
+        fabric = checkpoint.CheckpointFabric(
+            f"{tmp}/remote", staging_dir=f"{tmp}/staging",
+            save_interval_steps=10 ** 6, environ=staging)
+        save_async = fabric.save_async
+
+        def timed_save_async(step_no, tree, *, on_progress=None,
+                             on_commit=None):
+            def committed(step_done, secs):
+                clock["fabric_commit_s"] = secs
+                on_commit(step_done, secs)
+
+            t0 = time.perf_counter()
+            handle = save_async(step_no, tree, on_progress=on_progress,
+                                on_commit=committed)
+            clock["snapshot_end"] = time.perf_counter()
+            clock["fabric_snapshot_s"] = clock["snapshot_end"] - t0
+            return handle
+
+        fabric.save_async = timed_save_async
+        ann = {notebook.DRAIN_REQUESTED_ANNOTATION: "2026-01-01T00:00:00Z",
+               notebook.DRAIN_REASON_ANNOTATION: "suspend"}
+
+        def patcher(update):
+            now = time.perf_counter()
+            if notebook.CHECKPOINTED_AT_ANNOTATION in update:
+                marks.append(("ack", now))
+            elif notebook.CHECKPOINT_COMMITTED_AT_ANNOTATION in update:
+                marks.append(("commit", now))
+            for key, value in update.items():
+                ann.pop(key, None) if value is None else \
+                    ann.__setitem__(key, value)
+
+        guard = sdk.CheckpointGuard(
+            fabric, sdk.MaintenanceWatcher(fetch=lambda: dict(ann),
+                                           interval=0.0),
+            sync_every_steps=CKPT_AT, patcher=patcher)
+        manager = checkpoint.CheckpointManager(f"{tmp}/dcp",
+                                               save_interval_steps=CKPT_AT)
+
+        class Saves:
+            """fit's checkpoints: the guard every step, the manager on its
+            interval."""
+
+            def save(self, step_no, tree):
+                clock.setdefault("guard_call", {})[step_no] = \
+                    time.perf_counter()
+                guard.step(step_no, tree)
+                t0 = time.perf_counter()
+                if manager.save(step_no, tree):
+                    clock["dcp_snapshot_s"] = time.perf_counter() - t0
+
+            def wait(self):
+                manager.wait()
+                fabric.wait()
+
+        torch.cuda.synchronize()
+        _zero_launch_counts(fa)          # ---- the main path starts here
+        straight = trainer.fit(fresh(), loader(), steps=CKPT_STEPS,
+                               step_fn=step, checkpoints=Saves(),
+                               save_every=1)
+        torch.cuda.synchronize()
+        launches = _launch_counts(fa)    # ---- the main path ends here
+        tree = trainer.checkpoint_tree(straight)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tensors(tree))
+        guard.close()
+        abstract = trainer.abstract_state(params0, tx)
+
+        t0 = time.perf_counter()
+        reader = checkpoint.CheckpointFabric(
+            f"{tmp}/remote", staging_dir=f"{tmp}/staging", environ=staging)
+        restored = reader.restore(CKPT_AT, abstract=abstract)
+        torch.cuda.synchronize()
+        fabric_restore_s = time.perf_counter() - t0
+        tier = reader.last_restore["tier"]
+        reader.close()
+        resumed = trainer.load_state(restored, tx)
+        on_card = all(t.device.type == "cuda"
+                      for t in leaves(resumed["params"]))
+        resumed = trainer.fit(resumed, loader(skip=CKPT_AT),
+                              steps=CKPT_STEPS, step_fn=step,
+                              skip_batches=False)
+        fabric_bitwise = equal(resumed, straight)
+        del restored, resumed
+
+        t0 = time.perf_counter()
+        restored = manager.restore(CKPT_AT, abstract=abstract)
+        torch.cuda.synchronize()
+        dcp_restore_s = time.perf_counter() - t0
+        dcp_commit_s = manager.last_save["commit_seconds"]
+        manager.close()
+        resumed = trainer.fit(trainer.load_state(restored, tx), loader(),
+                              steps=CKPT_STEPS, step_fn=step)
+        dcp_bitwise = equal(resumed, straight)
+        del restored, resumed
+
+        def timed_fit(state, batches) -> tuple:
+            """CKPT_TIMED more steps, each ending in a sync on its loss;
+            the step times after the first."""
+            stamps = []
+            state = trainer.fit(state, batches,
+                                steps=state["step"] + CKPT_TIMED,
+                                step_fn=step, skip_batches=False,
+                                on_step=lambda i, loss: stamps.append(
+                                    time.perf_counter()))
+            return state, [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+        state, piped = timed_fit(straight, loader(skip=CKPT_STEPS))
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        staged = [torch.randint(0, cfg.vocab, (TRAIN_BATCH, cfg.seq_len),
+                                generator=gen, device="cuda")
+                  for _ in range(CKPT_TIMED)]
+        torch.cuda.synchronize()
+        state, prestaged = timed_fit(state, iter(staged))
+        with sdk.trace(f"{tmp}/trace"):      # the card's kernels and ops
+            step(state, staged[0])
+            torch.cuda.synchronize()
+        traces = [os.path.getsize(f"{tmp}/trace/{name}")
+                  for name in os.listdir(f"{tmp}/trace")
+                  if name.endswith(".pt.trace.json")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ack = next(t for kind, t in marks if kind == "ack")
+    commit = next(t for kind, t in marks if kind == "commit")
+    call = clock["guard_call"][CKPT_AT]
+    gb = state_bytes / 1e9
+    row = {"phase": "checkpoint", "model": CKPT_MODEL,
+           "trainer_config": "TrainerConfig()", "batch": TRAIN_BATCH,
+           "steps": CKPT_STEPS, "saved_at": CKPT_AT, "card": card,
+           "state_bytes": state_bytes,
+           "fabric": {"snapshot_s": clock["fabric_snapshot_s"],
+                      "snapshot_gb_per_s": gb / clock["fabric_snapshot_s"],
+                      "commit_s": clock["fabric_commit_s"],
+                      "restore_s": fabric_restore_s, "restore_tier": tier,
+                      "resume_bitwise": fabric_bitwise},
+           "dcp": {"snapshot_s": clock["dcp_snapshot_s"],
+                   "snapshot_gb_per_s": gb / clock["dcp_snapshot_s"],
+                   "commit_s": dcp_commit_s, "restore_s": dcp_restore_s,
+                   "restore_tier": "directory",
+                   "resume_bitwise": dcp_bitwise},
+           "drain": {"ack_latency_s": ack - call,
+                     "ack_to_commit_mark_s": commit - ack,
+                     "snapshot_before_ack": clock["snapshot_end"] <= ack,
+                     "marks": [kind for kind, _ in marks]},
+           "loader_step_p50_ms": statistics.median(piped),
+           "prestaged_step_p50_ms": statistics.median(prestaged),
+           "loader_step_ms": piped, "prestaged_step_ms": prestaged,
+           "sdk_trace_bytes": traces, "launches": launches,
+           "launches_expected": cfg.n_layers * CKPT_STEPS}
+    emit(row)
+    if not (fabric_bitwise and dcp_bitwise and on_card
+            and state["step"] == CKPT_STEPS + 2 * CKPT_TIMED
+            and len(traces) == 1 and traces[0] > 0
+            and tier == "staging" and guard.drained
+            and clock["snapshot_end"] <= ack < commit
+            and launches == _burnin_counts(cfg.n_layers * CKPT_STEPS)):
+        raise AssertionError(f"checkpoint phase failed: {row}")
+    del straight, state, params0
+    torch.cuda.empty_cache()
+    return launches
+
+
 @contextmanager
 def world_of_one(torch):
     """A process group of this process alone over NCCL (a file store in
@@ -2736,7 +2981,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from kubeflow_tpu_torch import entry, telemetry
+    from kubeflow_tpu_torch import checkpoint, data, entry, sdk, telemetry
     from kubeflow_tpu_torch.models import (burnin, longctx, moe, pipelined,
                                            trainer, tree, vision)
     from kubeflow_tpu_torch.ops import _build
@@ -2785,6 +3030,8 @@ def main() -> int:
         phase_dryrun(torch, entry)
     by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer,
                                        telemetry)
+    by_path["checkpoint"] = phase_checkpoint(torch, fa, burnin, trainer,
+                                             data, checkpoint, sdk, card)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)

@@ -22,7 +22,15 @@ imports nothing of it (and no JAX). Ported so far, slice by slice:
    ``parallel.pipeline``, ``models.vision``);
 6. the sharded main path: the burn-in step data x tensor parallel, the
    trainer's sharded state and vision's data-parallel batch, on the
-   tensor-parallel pieces of ``parallel.mesh``.
+   tensor-parallel pieces of ``parallel.mesh``;
+7. sharded serving (the engine's ``use_mesh`` over a world of processes)
+   and the step telemetry (``telemetry``, ``fit``'s hooks);
+8. checkpoint, data and SDK: ``checkpoint`` (the JAX fabric's format and a
+   ``torch.distributed.checkpoint`` manager), the trainer's checkpoint
+   tree in the JAX package's layout, ``data`` (the sharded loader,
+   prefetch, each process's block on its card) and ``sdk`` (slice
+   identity, ``init_process_group`` from the env, ``torch.profiler``
+   traces, the drain-aware ``CheckpointGuard``).
 
 The kernels live in ``ops.flash_attention``, their CUDA sources in
 ``ops/csrc/``; ``entry.entry`` and ``entry.dryrun_multichip`` mirror the

@@ -26,9 +26,21 @@ norm of the global leaves. AdamW, its decoupled weight decay and the
 schedule are elementwise and run on the shards unchanged.
 
 ``fit`` takes the telemetry hooks (``telemetry.StepProfiler``,
-``telemetry.TelemetryPublisher``) as the JAX ``fit`` does. The abstract
-state of an Orbax restore and ``fit``'s ``skip_batches`` wait for the
-checkpoint and data slice (``fit`` always fast-forwards on resume).
+``telemetry.TelemetryPublisher``) as the JAX ``fit`` does.
+
+Checkpoints. The live state holds torch optimizer objects, which no
+checkpoint stores. ``checkpoint_tree`` gives the state in the JAX
+package's layout, leaf for leaf: optax's state tuples with int32 counts
+(Adam's and the schedule's), f32 moments in the params' tree, an int32
+step. Either package's fabric writes the same manifest for the same
+numbers, and a step saved by one resumes in the other.
+``abstract_state`` describes that tree without a live optimizer (the
+counterpart of ``jax.eval_shape`` for a restore), and ``load_state``
+turns a restored tree back into a live state: AdamW's per-parameter state
+made at once (torch makes it lazily at the first ``step()``), its float
+``step``, the moments, ``LambdaLR``'s ``last_epoch`` and each group's
+scheduled ``lr`` (without which a resume would run at the warmup's first
+lr, 0). ``fit`` hands its ``checkpoints`` this tree.
 """
 
 from __future__ import annotations
@@ -42,7 +54,9 @@ from typing import Callable, Iterator
 import torch
 import torch.distributed as dist
 
-from kubeflow_tpu_torch.models.tree import leaves, map_with, value_and_grad
+from kubeflow_tpu_torch.checkpoint.abstract import LeafSpec
+from kubeflow_tpu_torch.models.tree import (leaves, map_params, map_with,
+                                            value_and_grad)
 from kubeflow_tpu_torch.parallel.mesh import (axis, cuts, grad_groups,
                                               reduce_grads, shard, world_size)
 
@@ -119,16 +133,19 @@ class Optimizer:
         self.cfg = cfg
 
     def init(self, params) -> dict:
+        """The optimizer state: the torch optimizer, its schedule (None
+        for SGD) and the config (which ``checkpoint_tree`` reads)."""
         cfg = self.cfg
         tensors = leaves(params)
         if cfg.optimizer == "sgd":
             return {"optimizer": torch.optim.SGD(tensors, lr=cfg.lr),
-                    "schedule": None}
+                    "schedule": None, "config": cfg}
         opt = torch.optim.AdamW(tensors, lr=cfg.lr, betas=(0.9, 0.999),
                                 eps=1e-8, weight_decay=cfg.weight_decay)
         return {"optimizer": opt,
                 "schedule": torch.optim.lr_scheduler.LambdaLR(
-                    opt, warmup_cosine(cfg))}
+                    opt, warmup_cosine(cfg)),
+                "config": cfg}
 
     def update(self, grads: list, opt_state: dict, params,
                split: list | None = None) -> None:
@@ -197,8 +214,108 @@ def shard_state(state: dict, mesh, rules: dict) -> dict:
             and v.shape == p.shape else v
             for key, v in old.state.get(p, {}).items()}
     return {"params": params,
-            "opt_state": {"optimizer": opt, "schedule": schedule},
+            "opt_state": {"optimizer": opt, "schedule": schedule,
+                          "config": state["opt_state"]["config"]},
             "step": state["step"]}
+
+
+def _chain(cfg: TrainerConfig, inner: tuple) -> tuple:
+    """optax's state tuple around the optimizer's own: the clip's empty
+    state first where ``grad_clip`` chains it in."""
+    return ((), inner) if cfg.grad_clip else inner
+
+
+def _unchain(cfg: TrainerConfig, opt_state: tuple) -> tuple:
+    return opt_state[1] if cfg.grad_clip else opt_state
+
+
+def _count(n: int, device=None) -> torch.Tensor:
+    return torch.tensor(int(n), dtype=torch.int32, device=device)
+
+
+def checkpoint_tree(state: dict) -> dict:
+    """The train state in the JAX package's checkpoint layout:
+    ``{"params", "opt_state", "step"}`` with ``opt_state`` optax's tuples.
+    AdamW (with the clip) is ``((), ((count, mu, nu), (), (schedule
+    count,)))``, SGD ``((), ((), ()))``; without the clip the outer pair
+    is dropped. Counts and the step are int32 scalars; mu and nu are the
+    optimizer's own moment tensors in the params' tree (zeros before the
+    first step, as optax's init gives). Leaves are the live tensors: a
+    checkpointer copies them before the next step."""
+    cfg = state["opt_state"]["config"]
+    params = state["params"]
+    if cfg.optimizer == "sgd":
+        inner = ((), ())
+    else:
+        opt = state["opt_state"]["optimizer"]
+        first = opt.state.get(leaves(params)[0])
+        count = int(first["step"]) if first else 0
+
+        def moment(name):
+            return map_params(lambda p: opt.state[p][name] if first
+                              else torch.zeros_like(p), params)
+
+        inner = ((_count(count), moment("exp_avg"), moment("exp_avg_sq")),
+                 (), (_count(state["opt_state"]["schedule"].last_epoch),))
+    return {"params": params, "opt_state": _chain(cfg, inner),
+            "step": _count(state["step"])}
+
+
+def abstract_state(params, optimizer: Optimizer, *, rules=None,
+                   mesh=None) -> dict:
+    """What ``checkpoint_tree`` of a state over ``params`` holds, as
+    ``checkpoint.LeafSpec`` leaves (the counterpart of the JAX package's
+    ``jax.eval_shape`` of ``init_state``): the params' shapes, dtypes and
+    devices, with the params' dict order, so a restore rebuilds them in
+    the order the live state uses. With ``rules`` (the params' sharding
+    rules) and ``mesh``, the params and moments carry their params' rules,
+    as ``state_sharding_rules`` gives them, and a restore cuts each to this
+    process's shard; counts and the step stay replicated. ``params`` are
+    the global (unsharded) leaves."""
+    cfg = optimizer.cfg
+    if rules is None:
+        like = map_params(LeafSpec.of, params)
+    else:
+        like = map_with(lambda p, rule: LeafSpec.of(p, rule, mesh), params,
+                        rules)
+    device = leaves(params)[0].device
+    scalar = LeafSpec((), torch.int32, torch.device("cpu")
+                      if device.type == "cpu" else device)
+    if cfg.optimizer == "sgd":
+        inner = ((), ())
+    else:
+        inner = ((scalar, like, like), (), (scalar,))
+    return {"params": like, "opt_state": _chain(cfg, inner), "step": scalar}
+
+
+def load_state(tree: dict, optimizer: Optimizer) -> dict:
+    """A live train state from a checkpoint tree (``checkpoint_tree``'s
+    layout, e.g. a restore onto ``abstract_state``): its params are the
+    tree's tensors, the optimizer is built on them, AdamW's per-parameter
+    state is set from the counts and moments (its float ``step`` on the
+    CPU, as torch keeps it), and the schedule's ``last_epoch`` and every
+    group's ``lr`` are those of the schedule count."""
+    cfg = optimizer.cfg
+    params = tree["params"]
+    opt_state = optimizer.init(params)
+    if cfg.optimizer == "adamw":
+        (count, mu, nu), _, (scheduled,) = _unchain(cfg, tree["opt_state"])
+        opt = opt_state["optimizer"]
+        step = float(int(count))
+        scalar = (torch.float64 if torch.get_default_dtype() == torch.float64
+                  else torch.float32)
+        for p, m, v in zip(leaves(params), leaves(mu), leaves(nu)):
+            opt.state[p] = {"step": torch.tensor(step, dtype=scalar),
+                            "exp_avg": m, "exp_avg_sq": v}
+        schedule = opt_state["schedule"]
+        schedule.last_epoch = int(scheduled)
+        lrs = [base * fn(schedule.last_epoch)
+               for base, fn in zip(schedule.base_lrs, schedule.lr_lambdas)]
+        for group, lr in zip(opt.param_groups, lrs):
+            group["lr"] = lr
+        schedule._last_lr = lrs
+    return {"params": params, "opt_state": opt_state,
+            "step": int(tree["step"])}
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -267,17 +384,29 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
 def fit(state: dict, batches: Iterator, *, steps: int, step_fn: Callable,
         checkpoints=None, save_every: int = 100,
-        on_step: Callable | None = None, profiler=None,
-        publisher=None) -> dict:
+        on_step: Callable | None = None, skip_batches: bool = True,
+        profiler=None, publisher=None) -> dict:
     """Run ``step_fn`` until ``state["step"] == steps``, checkpointing.
 
-    Resume: pass a state restored at step k. The loop continues from its
-    step counter and fast-forwards ``batches`` past the first k elements,
-    so interrupt-at-k and a rerun over the same deterministic batch
-    sequence equal an uninterrupted run.
+    Resume: pass a state restored at step k (``load_state``). The loop
+    continues from its step counter and fast-forwards ``batches`` past the
+    first k elements, so interrupt-at-k and a rerun over the same
+    deterministic batch sequence equal an uninterrupted run.
 
-    ``checkpoints`` is any object with ``save(step, state)`` and
-    ``wait()``: ``save`` every ``save_every`` steps, ``wait`` at the end.
+    The fast-forward pulls every skipped batch (host work, and card copies
+    if the stream is placed there). A stream that can reposition itself in
+    O(1) (``kubeflow_tpu_torch.data.ShardedLoader.skip``) should do so and
+    pass ``skip_batches=False``::
+
+        loader.skip(state["step"])
+        batches = data.global_batches(data.prefetch(loader), mesh)
+        trainer.fit(state, batches, ..., skip_batches=False)
+
+    ``checkpoints`` is any object with ``save(step, tree)`` and
+    ``wait()`` (``checkpoint.CheckpointFabric``,
+    ``checkpoint.CheckpointManager``): ``save`` every ``save_every`` steps
+    with ``checkpoint_tree(state)``, ``wait`` at the end. (The JAX ``fit``
+    passes its live pytree; here the live state holds optimizer objects.)
 
     Telemetry: pass a :class:`kubeflow_tpu_torch.telemetry.StepProfiler`
     as ``profiler`` to record each step's wall time (the first step is
@@ -290,7 +419,7 @@ def fit(state: dict, batches: Iterator, *, steps: int, step_fn: Callable,
     ``KFTPU_TELEMETRY`` is off.
     """
     start = int(state["step"])
-    if start:
+    if start and skip_batches:
         batches = islice(batches, start, None)
     for i in range(start, steps):
         t0 = time.perf_counter() if profiler is not None else 0.0
@@ -303,7 +432,7 @@ def fit(state: dict, batches: Iterator, *, steps: int, step_fn: Callable,
         if on_step is not None:
             on_step(i + 1, float(loss))
         if checkpoints is not None and (i + 1) % save_every == 0:
-            checkpoints.save(i + 1, state)
+            checkpoints.save(i + 1, checkpoint_tree(state))
     if checkpoints is not None:
         checkpoints.wait()
     if profiler is not None:

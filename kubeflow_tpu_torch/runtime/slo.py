@@ -1,10 +1,11 @@
-"""SLO feed for the serving loop.
+"""SLO feed for the serving loop and checkpoint restores.
 
-A copy of the parts of ``kubeflow_tpu/runtime/slo.py`` that the serving
-engine reaches: the ``serving_latency`` row of the SLI registry, its
-objective from env, good/bad totals against the objective's threshold,
-and the module-level :func:`observe` that the engine calls once per
-completed request. With no engine installed (:func:`install`) the feed
+A copy of the parts of ``kubeflow_tpu/runtime/slo.py`` that the port
+reaches: the ``serving_latency`` and ``restore`` rows of the SLI
+registry, their objectives from env, good/bad totals against the
+objective's threshold, and the module-level :func:`observe` that the
+serving engine calls once per completed request and the checkpoint
+fabric once per restore. With no engine installed (:func:`install`) the feed
 is a no-op. The control plane's other SLIs, the time buckets, burn
 rates and the ``/debug/slo`` payload are not part of the port.
 """
@@ -26,6 +27,10 @@ SLI_SPECS = (
      2.0, 0.99,
      "per-request serving latency (arrival to completion) from the "
      "serving engine's continuous-batching loop"),
+    ("restore", "KFTPU_SLO_RESTORE",
+     30.0, 0.99,
+     "checkpoint restore wall time through the tier fallthrough "
+     "(staging or object store), including integrity-fallback reads"),
 )
 
 
@@ -121,8 +126,10 @@ def install(engine: SloEngine | None) -> SloEngine | None:
     return engine
 
 
-def observe(sli: str, seconds: float) -> None:
-    """Feed the installed engine, if any."""
+def observe(sli: str, seconds: float, *, key=None) -> None:
+    """Feed the installed engine, if any. ``key`` (the reference's
+    per-object key, e.g. a checkpoint directory) is accepted and not
+    kept: the port keeps no per-key rows."""
     engine = _current
     if engine is not None:
         engine.observe(sli, seconds)

@@ -1,5 +1,7 @@
 """The port stands alone: ``kubeflow_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package ``kubeflow_tpu``."""
+import neither JAX nor anything of the JAX package ``kubeflow_tpu``, nor
+``ml_dtypes`` (the card machine has none: bf16 checkpoints go through
+their raw bits)."""
 
 import ast
 import subprocess
@@ -11,7 +13,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "kubeflow_tpu_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "kubeflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "kubeflow_tpu", "ml_dtypes")
 
 
 def _forbidden(module: str) -> bool:
@@ -61,6 +63,20 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/telemetry/profiler.py",
             "kubeflow_tpu_torch/telemetry/publisher.py",
             "kubeflow_tpu_torch/telemetry/ledger.py"} <= names
+    # The checkpoint, data and SDK slice, and the trimmed copies the SDK
+    # needs.
+    assert {"kubeflow_tpu_torch/checkpoint/__init__.py",
+            "kubeflow_tpu_torch/checkpoint/abstract.py",
+            "kubeflow_tpu_torch/checkpoint/fabric.py",
+            "kubeflow_tpu_torch/checkpoint/manager.py",
+            "kubeflow_tpu_torch/checkpoint/store.py",
+            "kubeflow_tpu_torch/utils/checkpoint.py",
+            "kubeflow_tpu_torch/data.py",
+            "kubeflow_tpu_torch/sdk.py",
+            "kubeflow_tpu_torch/api/keys.py",
+            "kubeflow_tpu_torch/api/notebook.py",
+            "kubeflow_tpu_torch/migration/protocol.py",
+            "kubeflow_tpu_torch/runtime/objects.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -88,9 +104,11 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.models.trainer, kubeflow_tpu_torch.entry, "
             "kubeflow_tpu_torch.models.longctx, "
             "kubeflow_tpu_torch.models.pipelined, "
-            "kubeflow_tpu_torch.models.vision, kubeflow_tpu_torch.telemetry; "
+            "kubeflow_tpu_torch.models.vision, kubeflow_tpu_torch.telemetry, "
+            "kubeflow_tpu_torch.checkpoint, kubeflow_tpu_torch.data, "
+            "kubeflow_tpu_torch.sdk, kubeflow_tpu_torch.utils.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'kubeflow_tpu')); print(bad)")
+            "('jax', 'jaxlib', 'kubeflow_tpu', 'ml_dtypes')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -155,7 +155,8 @@ def test_accumulation_refuses_a_batch_it_cannot_split():
 
 
 class _Checkpoints:
-    """The duck-typed checkpoint manager fit takes: deep copies in memory."""
+    """The duck-typed checkpoint manager fit takes: deep copies in memory
+    of the checkpoint trees it is handed."""
 
     def __init__(self):
         self.saved, self.waits = {}, 0
@@ -180,7 +181,7 @@ def test_fit_resumed_at_k_equals_a_straight_run():
                         on_step=lambda i, loss: seen.append(i))
     assert sorted(ckpt.saved) == [2, 4] and ckpt.waits == 1
     assert seen == [1, 2, 3, 4] and final["step"] == 4
-    mid = ckpt.saved[2]
+    mid = trainer.load_state(ckpt.saved[2], tx)
     assert mid["step"] == 2
     resumed = trainer.fit(mid, iter(batches), steps=4, step_fn=step)
     assert resumed["step"] == 4
