@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving, sharded serving, training (with its
 step telemetry, checkpoints, input pipeline and drain guard), sharded
 training, long-context training, MoE, vision and pipelined training paths
-on one NVIDIA GPU and hold its kernels against their plain versions.
+and its slice burn-in (the probes and the kernel cache) on one NVIDIA GPU
+and hold its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -16,7 +17,14 @@ last line. With no CUDA device it exits 1 and prints no result.
 2. build   — every ``.cu`` source of the package, one ``nvcc`` each, in
    parallel; seconds, ptxas's register / spill / performance lines, and
    each library's wgmma, TMA-load and mma.sync instruction counts
-   (``cuobjdump``), the wide library's also kernel by kernel.
+   (``cuobjdump``), the wide library's also kernel by kernel; the library
+   directory's entries before and after and ``note_compile``'s verdict.
+   Then build_cache: a temporary kernel cache seeded from the build
+   directory (``utils.compilecache``), ``_build`` pointed at it with
+   ``nvcc`` made unreachable, ``build()`` compiling nothing (a hit), and
+   the forward's library loaded from there and launched once at the
+   decode shape against its plain version; the seed's seconds beside the
+   cold build's. The build directory is restored.
 3. kernels — the forward kernel against its plain PyTorch version at the
    shapes the serving and training paths give it (and the edge shapes the
    port promises, across the kernel's 128-row tiles), tolerances
@@ -198,6 +206,20 @@ last line. With no CUDA device it exits 1 and prints no result.
    ``sdk.trace`` must leave one ``torch.profiler`` trace file. The
    temporary directories are removed.
 
+29. probe (inside the world of one, after dryrun) — the slice burn-in:
+   ``run_ici_probe`` in the world of one over NCCL (no bytes cross a
+   card: bandwidth None), ``python -m kubeflow_tpu_torch.probe
+   --skip-dcn`` as a subprocess (an NCCL world of every card of the
+   machine, which it starts itself; started with the script, beside the
+   device line and the build, and waited for before the first timed
+   phase), and the DCN ring of 2 ranks over loopback, scored against the
+   A3 High estimate. Plumbing figures: no NVLink or NIC rate.
+30. worlds_probe (the world of 4, after serving_sharded_world) — the
+   all-reduce probe over the 4 processes that share the card over gloo
+   on CUDA tensors, 64 MB, scored against a 4-card share: the same
+   report on every rank, the fraction of peak equal to the bandwidth over
+   the estimate. Through the host: no NVLink rate.
+
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
@@ -245,6 +267,15 @@ SERVING_SHARDED_MODEL = dict(MODEL, n_layers=2)
 # the model axis round elsewhere than one process's products (the tiny
 # bf16 rehearsal on the CPU gave 0.0073).
 TOL_SERVING_LOGITS_REL_L2 = 1e-2
+
+# The slice burn-in's probes: the node type they score against (A3 High),
+# the all-reduce's and the loopback ring's size, and the probe in the world
+# of 4 processes that share the card (scored against a 4-card share).
+PROBE_ACCELERATOR = "nvidia-h100-80gb"
+PROBE_MBYTES = 64.0
+WORLD_PROBE_MBYTES = 64.0
+WORLD_PROBE_ITERS = 5
+WORLD_PROBE_SHAPE = "1x4"
 
 # Kernel shapes: the decode step's, the prefill chunk's, several tiles
 # past the JAX block (s > 1024), and the f32 / head-dim-64 / full path.
@@ -2152,8 +2183,10 @@ def phase_dryrun(torch, entry) -> None:
                       f"process over NCCL, and this machine has "
                       f"{torch.cuda.device_count()}")
     emit(row)
+    # Each block's loss (the probes' reports, at n >= 2, are dicts).
     if not all(math.isfinite(v) for key in ("n_1", "n_4")
-               if isinstance(row[key], dict) for v in row[key].values()):
+               if isinstance(row[key], dict) for v in row[key].values()
+               if not isinstance(v, dict)):
         raise AssertionError(f"dryrun phase failed: {row}")
 
 
@@ -2250,23 +2283,30 @@ def phase_sharded_grads(torch, tree, ranks: list, ref: dict,
 
 def _world_rank(rank: int, grads_model: dict, seed: int,
                 serving_model: dict) -> dict:
-    """One process of the world of 4 that ``sharded_grads`` and
-    ``serving_sharded_world`` share (one spawn: each process takes
-    seconds to reach the card): the sharded step, then the sharded
-    engine, each with its launches counted from zero."""
+    """One process of the world of 4 that ``sharded_grads``,
+    ``serving_sharded_world`` and ``worlds_probe`` share (one spawn: each
+    process takes seconds to reach the card): the sharded step, then the
+    sharded engine, each with its launches counted from zero, then the
+    all-reduce probe over the world."""
     import torch
+
+    from kubeflow_tpu_torch.probe.ici import run_ici_probe
 
     grads = _sharded_grads_rank(rank, grads_model, seed)
     torch.cuda.empty_cache()
-    return {"sharded_grads": grads,
-            "serving_sharded_world": _serving_world_rank(rank,
-                                                         serving_model)}
+    serving = _serving_world_rank(rank, serving_model)
+    torch.cuda.empty_cache()
+    probe = run_ici_probe(mbytes=WORLD_PROBE_MBYTES, iters=WORLD_PROBE_ITERS,
+                          accelerator=PROBE_ACCELERATOR,
+                          topology=WORLD_PROBE_SHAPE)
+    return {"sharded_grads": grads, "serving_sharded_world": serving,
+            "probe": probe.to_dict()}
 
 
 def phase_worlds(torch, burnin, tree, engine_mod, launch) -> dict:
-    """``sharded_grads`` and ``serving_sharded_world`` over one world of 4
-    processes on the card: both references on the card first, then the
-    world, then each phase's row and checks."""
+    """``sharded_grads``, ``serving_sharded_world`` and ``worlds_probe``
+    over one world of 4 processes on the card: both references on the card
+    first, then the world, then each phase's row and checks."""
     grads_ref = _sharded_grads_reference(torch, burnin, tree)
     serving_ref = _serving_world_reference(torch, burnin, engine_mod)
     torch.cuda.empty_cache()
@@ -2281,9 +2321,196 @@ def phase_worlds(torch, burnin, tree, engine_mod, launch) -> dict:
         "serving_sharded_world": phase_serving_sharded_world(
             torch, [r["serving_sharded_world"] for r in ranks], serving_ref,
             world_sec)}
+    phase_worlds_probe([r["probe"] for r in ranks])
     del ranks, grads_ref, serving_ref
     torch.cuda.empty_cache()
     return by_path
+
+
+def phase_worlds_probe(reports: list) -> None:
+    """The all-reduce probe in the world of 4 processes that share the
+    card over gloo on CUDA tensors: every rank's report the same (the
+    slowest rank's mean), a positive bus bandwidth, and the fraction of
+    peak equal to it over the ``1x4`` share's estimate. The GB/s go
+    through the host: no NVLink rate."""
+    from kubeflow_tpu_torch.gpu.topology import GpuSlice
+
+    got = reports[0]
+    peak = GpuSlice.parse(PROBE_ACCELERATOR,
+                          WORLD_PROBE_SHAPE).allreduce_algo_bandwidth_gbps()
+    row = {"phase": "worlds_probe", "report": got,
+           "backend": "gloo on CUDA tensors (4 processes, one card)",
+           "shape": WORLD_PROBE_SHAPE, "peak_estimate_gbps": peak,
+           "note": "gloo through the host, no NVLink rate"}
+    emit(row)
+    if not (all(r == got for r in reports) and got["devices"] == 4
+            and got["backend"] == "gloo" and got["algo_bandwidth_gbps"] > 0
+            and got["peak_estimate_gbps"] == peak
+            and math.isclose(got["fraction_of_peak"],
+                             got["algo_bandwidth_gbps"] / peak,
+                             abs_tol=1e-4)):
+        raise AssertionError(f"worlds_probe phase failed: {row}")
+
+
+def _stop_group(proc) -> None:
+    """Kill a process started in a session of its own, and everything it
+    started, unless it has ended."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def start_probe_cli(torch) -> tuple:
+    """Start ``python -m kubeflow_tpu_torch.probe --skip-dcn`` (the probe
+    CLI as a user runs it: one NCCL process a local card, which it starts
+    itself) beside the device line and the build, where no timed work
+    runs: each of its two processes takes seconds to reach the card. Its
+    output goes to temporary files; it is stopped at exit if it has not
+    ended."""
+    import atexit
+    import tempfile
+
+    out, err = (tempfile.TemporaryFile(mode="w+") for _ in range(2))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.probe", "--skip-dcn",
+         "--mbytes", str(PROBE_MBYTES), "--accelerator", PROBE_ACCELERATOR,
+         "--topology", f"1x{torch.cuda.device_count()}"],
+        stdout=out, stderr=err, text=True, start_new_session=True)
+    atexit.register(_stop_group, proc)
+    return proc, out, err, time.perf_counter()
+
+
+def finish_probe_cli(cli: tuple) -> dict:
+    """Wait for the probe CLI (before the first timed phase) and parse its
+    JSON; ``cli_sec`` is its wall time, ``waited_sec`` what the script
+    waited for it after the build."""
+    proc, out, err, started = cli
+    t0 = time.perf_counter()
+    proc.wait(timeout=300)
+    waited = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    text, errors = out.read(), err.read()
+    if proc.returncode:
+        raise AssertionError(f"probe CLI failed:\n{text}\n{errors}")
+    return {"report": json.loads(text.strip().splitlines()[-1]),
+            "cli_sec": time.perf_counter() - started, "waited_sec": waited}
+
+
+def phase_probe(torch, cli: dict) -> dict:
+    """The slice burn-in on the card, inside the world of one over NCCL:
+    ``run_ici_probe`` there (world 1: no bytes cross a card, bandwidth
+    None, as the reference gives at one chip); the probe CLI's report
+    (``start_probe_cli``), whose ``ici`` must come from an NCCL world of
+    ``torch.cuda.device_count()`` processes; and the DCN loopback ring of
+    2 ranks scored against the A3 High estimate (loopback is no
+    network)."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.gpu.topology import MultiSlice
+    from kubeflow_tpu_torch.probe import dcn
+    from kubeflow_tpu_torch.probe.ici import run_ici_probe
+
+    t0 = time.perf_counter()
+    here = run_ici_probe(mbytes=PROBE_MBYTES, accelerator=PROBE_ACCELERATOR,
+                         topology="1x1").to_dict()
+    here_sec = time.perf_counter() - t0
+    cli_report = cli["report"]
+    t0 = time.perf_counter()
+    ring = dcn.run_local_ring(world=2, mbytes=PROBE_MBYTES, iters=4,
+                              base_port=dcn.free_base_port(2))
+    ring_sec = time.perf_counter() - t0
+    scored = dcn.score_reports(ring, multi=MultiSlice.parse(
+        PROBE_ACCELERATOR, "1x8", num_slices=2)).to_dict()
+    row = {"phase": "probe", "world_of_one": here,
+           "world_of_one_backend": dist.get_backend(),
+           "world_of_one_sec": here_sec, "cli": cli_report,
+           "cli_sec": cli["cli_sec"], "cli_waited_sec": cli["waited_sec"],
+           "dcn_loopback": scored,
+           "dcn_loopback_ranks": ring, "dcn_sec": ring_sec,
+           "note": "world 1 moves no bytes between cards; the DCN ring runs "
+                   "over loopback, which is no network: neither is an "
+                   "NVLink or NIC rate"}
+    emit(row)
+    ici = cli_report["ici"]
+    if not (here["devices"] == 1 and here["backend"] == "nccl"
+            and here["algo_bandwidth_gbps"] is None and here["mean_seconds"] > 0
+            and set(cli_report) == {"ici"}
+            and ici["devices"] == torch.cuda.device_count()
+            and ici["backend"] == "nccl" and ici["mean_seconds"] > 0
+            and (ici["devices"] == 1) == (ici["algo_bandwidth_gbps"] is None)
+            and scored["world"] == 2 and scored["min_gbps"] > 0
+            and scored["peak_estimate_gbps"] == 100.0
+            and scored["fraction_of_peak"] > 0):
+        raise AssertionError(f"probe phase failed: {row}")
+    return row
+
+
+def phase_build_cache(torch, fa, build, compilecache, build_sec: float,
+                      entries: dict) -> None:
+    """The kernel cache's seed round trip on the card, with no ``nvcc``: a
+    temporary cache seeded from the build directory, ``_build`` pointed
+    at it, ``build()`` compiling nothing (a hit), and the forward's
+    library loaded from there and launched once at the decode shape,
+    held against the plain version at TOL_O / TOL_LSE. The build
+    directory is restored and the temporary one removed."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    name, shape, dtype, causal = next(c for c in KERNEL_CASES
+                                      if c[0] == "decode")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(getattr(torch, dtype)) for _ in range(3))
+    home, real_nvcc = build.BUILD_DIR, build._nvcc
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cache-")
+
+    def no_nvcc():
+        raise RuntimeError("a seeded cache must not run nvcc")
+
+    build._nvcc = no_nvcc
+    try:
+        t0 = time.perf_counter()
+        seeded = compilecache.seed_cache(str(home), tmp)
+        enabled = compilecache.enable_persistent_cache(tmp)
+        before = compilecache.cache_entries(tmp)
+        compiled = build.build()
+        verdict = compilecache.note_compile(
+            before, compilecache.cache_entries(tmp))
+        seed_sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        first_launch_sec = time.perf_counter() - t0
+        loaded_from = str(Path(build.load(fa.SOURCE)._name).parent)
+    finally:
+        build._nvcc = real_nvcc
+        build.set_library_dir(home)
+        shutil.rmtree(tmp, ignore_errors=True)
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    row = {"phase": "build_cache", "case": name, "shape": list(shape),
+           "dtype": dtype, "entries": entries, "seeded": seeded,
+           "enabled": enabled == tmp, "compiled": compiled,
+           "verdict": verdict, "counters": compilecache.cache_stats(),
+           "loaded_from_seeded_dir": loaded_from == tmp,
+           "build_sec": build_sec, "seed_sec": seed_sec,
+           "first_launch_sec": first_launch_sec,
+           "max_err_o": err_o, "max_err_lse": err_lse,
+           "tol_o": TOL_O[dtype], "tol_lse": TOL_LSE,
+           "restored": build.BUILD_DIR == home}
+    emit(row)
+    if not (seeded["seeded"] >= len(build.sources()) and seeded["ready"]
+            and row["enabled"] and compiled == [] and verdict == "hit"
+            and row["loaded_from_seeded_dir"] and row["restored"]
+            and bool(torch.isfinite(o).all()) and err_o <= TOL_O[dtype]
+            and err_lse <= TOL_LSE):
+        raise AssertionError(f"build_cache phase failed: {row}")
 
 
 def partial_bound_ms(shape, dtype: str, q_offset: int, k_offset: int):
@@ -2992,7 +3219,9 @@ def main() -> int:
     from kubeflow_tpu_torch.parallel import ring
     from kubeflow_tpu_torch.serving import engine as engine_mod
     from kubeflow_tpu_torch.serving import loadgen
+    from kubeflow_tpu_torch.utils import compilecache
 
+    probe_cli = start_probe_cli(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3002,9 +3231,14 @@ def main() -> int:
           "cuda": torch.version.cuda, "allow_tf32": False})
 
     t0 = time.perf_counter()
+    entries = {"before": compilecache.cache_entries(str(_build.BUILD_DIR))}
     compiled = _build.build()
+    build_sec = time.perf_counter() - t0
+    entries["after"] = compilecache.cache_entries(str(_build.BUILD_DIR))
+    entries["verdict"] = compilecache.note_compile(entries["before"],
+                                                   entries["after"])
     emit({"phase": "build", "sources": _build.sources(), "compiled": compiled,
-          "build_sec": time.perf_counter() - t0,
+          "build_sec": build_sec, "cache_entries": entries,
           "sass": {src: sass_counts(_build.library_path(src))
                    for src in (fa.SOURCE, fa.BWD_SOURCE, fa.WIDE_SOURCE)},
           "sass_wide_by_kernel": sass_counts(
@@ -3013,6 +3247,8 @@ def main() -> int:
                     for line in log.splitlines()
                     if "registers" in line or "spill" in line
                     or "entry function" in line or "C75" in line]})
+    phase_build_cache(torch, fa, _build, compilecache, build_sec, entries)
+    probe_cli = finish_probe_cli(probe_cli)
 
     kernels = phase_kernels(torch, fa)
     bwd_rows = phase_bwd_kernels(torch, fa)
@@ -3028,6 +3264,7 @@ def main() -> int:
             torch, fa, burnin, engine_mod, loadgen)["launches"]}
         by_path["sharded"] = phase_sharded(torch, fa, burnin, tree, pmesh)
         phase_dryrun(torch, entry)
+        phase_probe(torch, probe_cli)
     by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer,
                                        telemetry)
     by_path["checkpoint"] = phase_checkpoint(torch, fa, burnin, trainer,

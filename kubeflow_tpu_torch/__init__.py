@@ -30,7 +30,13 @@ imports nothing of it (and no JAX). Ported so far, slice by slice:
    tree in the JAX package's layout, ``data`` (the sharded loader,
    prefetch, each process's block on its card) and ``sdk`` (slice
    identity, ``init_process_group`` from the env, ``torch.profiler``
-   traces, the drain-aware ``CheckpointGuard``).
+   traces, the drain-aware ``CheckpointGuard``);
+9. the slice burn-in on GPU nodes: ``gpu`` (node shapes, the node env of
+   one process per card, peak estimates), ``webhooks.gpu`` (the node rank
+   per pod ordinal), ``testing.distributed_worker``, ``probe`` (the
+   all-reduce and DCN ring probes, ``python -m kubeflow_tpu_torch.probe``)
+   and ``utils.compilecache`` (the kernel library cache a warm pod
+   seeds).
 
 The kernels live in ``ops.flash_attention``, their CUDA sources in
 ``ops/csrc/``; ``entry.entry`` and ``entry.dryrun_multichip`` mirror the

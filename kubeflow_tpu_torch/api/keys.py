@@ -1,7 +1,8 @@
 """The wire strings of ``kubeflow_tpu/api/keys.py`` that the port's SDK
-sends or reads: the apiserver path of a notebook, the drain protocol's
-annotation keys, and the warm-pool claim. A trimmed copy: the values are
-the JAX package's (a test holds them equal)."""
+and per-ordinal webhook send or read: the apiserver path of a notebook,
+the drain protocol's annotation keys, the warm-pool claim and the
+pod-template slice annotations. A trimmed copy: the values are the JAX
+package's (a test holds them equal)."""
 
 NOTEBOOKS_API_PATH_PREFIX = "/apis/kubeflow.org/v1/namespaces/"
 
@@ -30,3 +31,10 @@ NOTEBOOK_RESTORE_TIER = "notebooks.kubeflow.org/restore-tier"
 
 # Warm pod pools: the claim the pool's claim protocol stamps on a pod.
 TPU_WARM_CLAIM = "tpu.kubeflow.org/warm-claim"
+
+# Pod-template slice wiring the controller stamps (the CR's keys are the
+# same for GPU shapes: webhooks/gpu.py reads them).
+TPU_ACCELERATOR = "tpu.kubeflow.org/accelerator"
+TPU_TOPOLOGY = "tpu.kubeflow.org/topology"
+TPU_SLICE_ID = "tpu.kubeflow.org/slice-id"
+TPU_NUM_SLICES = "tpu.kubeflow.org/num-slices"

@@ -13,13 +13,19 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.gpu.topology import MultiSlice
 from kubeflow_tpu_torch.models import burnin, longctx, moe, pipelined
 from kubeflow_tpu_torch.models.burnin import BurninConfig, forward, init_params
 from kubeflow_tpu_torch.parallel.launch import run_world
 from kubeflow_tpu_torch.parallel.mesh import make_mesh, plan_mesh, shard
+from kubeflow_tpu_torch.probe.dcn import (free_base_port, run_local_ring,
+                                          score_reports)
+from kubeflow_tpu_torch.probe.ici import run_ici_probe
 
 # Seconds that the processes of a spawned dryrun share.
 DRYRUN_TIMEOUT = 600.0
+# The node type the dryrun's probes score against (A3 High).
+PROBE_ACCELERATOR = "nvidia-h100-80gb"
 
 
 def entry(device=None):
@@ -40,9 +46,11 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     processes, at the JAX package's dryrun configs (its seeds aside), each
     held to a finite loss: burn-in data x tensor parallel on
     ``plan_mesh(n, max_model=4)``; with n >= 2 the long-context model on
-    (data, seq), the pipelined model on (data, stage) (x model at n >= 8)
-    and the MoE model on (data, expert); with n >= 4 and even the
-    multislice burn-in on (2, n / 2). Returns each block's loss.
+    (data, seq), the pipelined model on (data, stage) (x model at n >= 8),
+    the all-reduce probe over the world and the MoE model on (data,
+    expert); with n >= 4 and even the multislice burn-in on (2, n / 2) and
+    the DCN ring probe for its two slices. Returns each block's loss, and
+    the probes' reports (``"ici"``, ``"dcn"``) as dicts.
 
     Inside an initialized world of ``n_devices`` processes, it runs the
     blocks on this process. Otherwise it starts ``n_devices`` processes:
@@ -144,6 +152,36 @@ def _blocks(n: int, device) -> dict:
         burnin_step("multislice", ms_mesh,
                     BurninConfig(seq_len=16, d_model=64, n_layers=1,
                                  d_ff=128, n_heads=4), 4, seed=4)
+
+        # The DCN scoring path for the same two slices: the native ring
+        # runs one rank a slice (loopback here, node 0 of each slice in a
+        # multislice job) on rank 0, scored against the MultiSlice
+        # estimate, and rank 0 hands the report to every process. Loopback
+        # numbers are no network rate; what is held is that the probe
+        # runs, reports and scores.
+        report = [None]
+        if dist.get_rank() == 0:
+            dcn = score_reports(
+                run_local_ring(world=2, mbytes=4.0, iters=2,
+                               base_port=free_base_port(2)),
+                multi=MultiSlice.parse(PROBE_ACCELERATOR, "1x8",
+                                       num_slices=2))
+            if not (dcn.min_gbps > 0 and dcn.peak_estimate_gbps is not None
+                    and dcn.fraction_of_peak is not None):
+                raise RuntimeError(f"DCN probe scored nothing: {dcn}")
+            report = [dcn.to_dict()]
+        dist.broadcast_object_list(report, src=0)
+        losses["dcn"] = report[0]
+
+    # The all-reduce probe over this world, scored against two whole
+    # nodes: the fraction-of-peak path runs in the gate, not only in unit
+    # tests. Over gloo or one shared card its numbers are no NVLink rate.
+    ici = run_ici_probe(mbytes=1.0, iters=2, warmup=1,
+                        accelerator=PROBE_ACCELERATOR, topology="2x8",
+                        device=dev)
+    if not (ici.algo_bandwidth_gbps > 0 and ici.fraction_of_peak is not None):
+        raise RuntimeError(f"all-reduce probe scored nothing: {ici}")
+    losses["ici"] = ici.to_dict()
 
     # Expert parallel: data x expert (the two all-to-alls); the batch
     # splits over both axes.

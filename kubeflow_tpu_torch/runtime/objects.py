@@ -1,5 +1,6 @@
-"""RFC3339 timestamps as the apiserver writes them: ``fmt_iso`` and
-``parse_iso``, copied from ``kubeflow_tpu/runtime/objects.py``."""
+"""Object helpers copied from ``kubeflow_tpu/runtime/objects.py``: RFC3339
+timestamps as the apiserver writes them (``fmt_iso``, ``parse_iso``) and
+a dict-shaped object's metadata (``get_meta``, ``name_of``)."""
 
 from __future__ import annotations
 
@@ -27,3 +28,11 @@ def parse_iso(value: str) -> float | None:
         return calendar.timegm(time.strptime(value, ISO_FORMAT)) + frac
     except ValueError:
         return None
+
+
+def get_meta(obj: dict) -> dict:
+    return obj.setdefault("metadata", {})
+
+
+def name_of(obj: dict) -> str:
+    return get_meta(obj).get("name", "")

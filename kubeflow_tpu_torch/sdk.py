@@ -23,17 +23,19 @@ What has no JAX in it is copied: ``SliceInfo`` (the same env names),
 patch, ``telemetry_publisher`` and the guard's drain protocol. What runs
 on the device is torch's:
 
-- ``initialize_distributed`` calls ``init_process_group`` from the same
-  env (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
-  ``JAX_PROCESS_ID``): NCCL on the card, where it sets this process's
-  device, gloo only for ``device="cpu"``;
+- ``initialize_distributed`` calls ``init_process_group`` from the GPU
+  node env (``gpu/topology.py``: one process per card, torchrun's names)
+  or the JAX package's (``JAX_COORDINATOR_ADDRESS``,
+  ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``): NCCL on the card, where it
+  sets this process's device, gloo only for ``device="cpu"``;
 - ``trace`` and ``capture_profile`` are ``torch.profiler`` contexts whose
   ``tensorboard_trace_handler`` writes under the same logdir;
 - ``CheckpointGuard`` agrees on the drain and maintenance verdict by a
   broadcast from rank 0 on a gloo group of its own, and process 0 is the
   one writer of annotations;
-- ``warm_idle`` attaches the card and builds the kernels (the port's
-  compile phase) before it parks.
+- ``warm_idle`` enables and seeds the kernel cache
+  (``utils/compilecache``), attaches the card and builds the kernels (the
+  port's compile phase) before it parks.
 
 ``start_profiler_server`` has no counterpart: TensorBoard's capture button
 speaks the TF profiler's gRPC, which torch does not serve.
@@ -60,6 +62,7 @@ from kubeflow_tpu_torch.api.notebook import (
     SUSPEND_ANNOTATION,
 )
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.gpu import topology as _gpu
 from kubeflow_tpu_torch.migration import protocol as _migration
 from kubeflow_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -84,7 +87,16 @@ _log = logging.getLogger(__name__)
 @dataclass(frozen=True)
 class SliceInfo:
     """This worker's place in the slice/multislice, parsed from the env
-    contract in tpu/topology.py worker_env / MultiSlice.worker_env."""
+    contract of ``gpu/topology.py`` (``GpuSlice.worker_env`` /
+    ``MultiSlice.worker_env``, the per-ordinal ``PET_NODE_RANK``).
+
+    The process space is read in this order: a ``torchrun`` child's
+    ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR:MASTER_PORT``; else the
+    node's env (``PET_NNODES`` ...), where a process launched per card
+    sets ``LOCAL_RANK`` and is rank ``node_rank * cards_per_node +
+    LOCAL_RANK`` of ``nodes * cards_per_node``, and a process without
+    ``LOCAL_RANK`` is its node's one rank; else the JAX package's names
+    (``JAX_PROCESS_ID`` ...), as the reference reads them."""
 
     worker_id: int
     num_workers: int
@@ -111,14 +123,15 @@ class SliceInfo:
         if len(parts) == 3 and parts[0] == "notebook":
             ns, name = parts[1], parts[2]
         worker_id = int(environ.get("TPU_WORKER_ID") or 0)
+        process_id, num_processes, coordinator = _process_space(
+            environ, worker_id, max(len(hostnames), 1))
         return cls(
             worker_id=worker_id,
             num_workers=max(len(hostnames), 1),
             hostnames=hostnames,
-            process_id=int(environ.get("JAX_PROCESS_ID") or worker_id),
-            num_processes=int(
-                environ.get("JAX_NUM_PROCESSES") or max(len(hostnames), 1)),
-            coordinator_address=environ.get("JAX_COORDINATOR_ADDRESS"),
+            process_id=process_id,
+            num_processes=num_processes,
+            coordinator_address=coordinator,
             slice_id=int(environ.get("MEGASCALE_SLICE_ID") or 0),
             num_slices=int(environ.get("MEGASCALE_NUM_SLICES") or 1),
             accelerator_type=environ.get("TPU_ACCELERATOR_TYPE"),
@@ -132,6 +145,36 @@ class SliceInfo:
         return self.process_id == 0
 
 
+def _address(host: str | None, port: str | None) -> str | None:
+    return f"{host}:{port}" if host and port else None
+
+
+def _process_space(environ, worker_id: int,
+                   num_workers: int) -> tuple[int, int, str | None]:
+    """``(rank, world size, rendezvous host:port)`` of this process, in
+    :class:`SliceInfo`'s order of env contracts."""
+    if environ.get("RANK") and environ.get("WORLD_SIZE"):
+        return (int(environ["RANK"]), int(environ["WORLD_SIZE"]),
+                _address(environ.get("MASTER_ADDR"),
+                         environ.get("MASTER_PORT")))
+    if environ.get(_gpu.NNODES_ENV):
+        nodes = int(environ[_gpu.NNODES_ENV])
+        node = int(environ.get(_gpu.NODE_RANK_ENV) or 0)
+        address = _address(environ.get(_gpu.MASTER_ADDR_ENV),
+                           environ.get(_gpu.MASTER_PORT_ENV))
+        local = environ.get("LOCAL_RANK")
+        if local is None:
+            return node, nodes, address
+        per_node = int(environ.get(_gpu.NPROC_PER_NODE_ENV) or 1)
+        if not 0 <= int(local) < per_node:
+            raise ValueError(f"LOCAL_RANK {local} outside the node's "
+                             f"{per_node} processes")
+        return node * per_node + int(local), nodes * per_node, address
+    return (int(environ.get("JAX_PROCESS_ID") or worker_id),
+            int(environ.get("JAX_NUM_PROCESSES") or num_workers),
+            environ.get("JAX_COORDINATOR_ADDRESS"))
+
+
 def initialize_distributed(environ=os.environ, *, device=None) -> bool:
     """``torch.distributed.init_process_group`` from the injected env.
     Returns True when a multi-process world was initialized, False for
@@ -141,7 +184,9 @@ def initialize_distributed(environ=os.environ, *, device=None) -> bool:
     On the card (``device=None``) the group is NCCL and this process takes
     card ``LOCAL_RANK`` (default: its process id modulo the cards it
     sees); without a card it raises. ``device="cpu"`` forms a gloo group.
-    The coordinator address (``host:port``) is the TCP rendezvous."""
+    The coordinator address (``host:port``) is the TCP rendezvous; under
+    ``torchrun`` (``TORCHELASTIC_USE_AGENT_STORE``) the agent already
+    serves the store there, and the group joins it through ``env://``."""
     dev = resolve_device(device)
     info = SliceInfo.from_env(environ)
     if info.num_processes <= 1 or not info.coordinator_address:
@@ -152,9 +197,11 @@ def initialize_distributed(environ=os.environ, *, device=None) -> bool:
         local = environ.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None
                               else info.process_id % torch.cuda.device_count())
+    agent_store = environ.get("TORCHELASTIC_USE_AGENT_STORE") == "True"
     dist.init_process_group(
         "nccl" if dev.type == "cuda" else "gloo",
-        init_method=f"tcp://{info.coordinator_address}",
+        init_method=("env://" if agent_store
+                     else f"tcp://{info.coordinator_address}"),
         world_size=info.num_processes, rank=info.process_id)
     return True
 
@@ -353,16 +400,25 @@ def warm_idle(*, environ=os.environ, poll_seconds: float = 1.0,
               max_wait: float | None = None, _sleep=time.sleep) -> str | None:
     """Hold a warm-pool pod fully started until it is claimed.
 
-    This is what makes a warm pod actually WARM: the card is attached and
-    the port's kernels are built (``ops._build.build``: the nvcc runs a
-    cold pod pays at its first launch), so a claimed pod has already paid
-    the interpreter, import, device-attach and kernel-build phases of the
-    cold-start waterfall. Then it parks, polling the downward-API
+    This is what makes a warm pod actually WARM: the kernel cache is
+    enabled and seeded from the image's libraries
+    (``utils/compilecache.seed_cache``), the card is attached and the
+    port's kernels are built (``ops._build.build``: the nvcc runs a cold
+    pod pays at its first launch, none where the seed holds them), so a
+    claimed pod has already paid the interpreter, import, device-attach
+    and kernel-build phases of the cold-start waterfall. Then it parks, polling the downward-API
     annotations file for the claim annotation the claim protocol stamps
     (:data:`kubeflow_tpu_torch.api.keys.TPU_WARM_CLAIM`). Returns the claim
     value (``"<ns>/<name>/<nonce>"``) — the shim then execs the real
     notebook server with the injected env — or None when ``max_wait``
     expires (tests; production pods wait forever)."""
+    from kubeflow_tpu_torch.utils import compilecache
+
+    cache_dir = compilecache.enable_persistent_cache()
+    seeded = compilecache.seed_cache(cache_dir=cache_dir)
+    _log.info(
+        "warm idle: kernel cache %s ready=%s (seeded %d, skipped %d)",
+        cache_dir, seeded["ready"], seeded["seeded"], seeded["skipped"])
     if init_devices:
         try:
             from kubeflow_tpu_torch.ops import _build

@@ -37,6 +37,46 @@ def test_build_of_nothing_compiles_nothing():
     assert _build.build([]) == []
 
 
+def test_the_library_key_holds_the_toolkit(monkeypatch, tmp_path):
+    """A library seeded from another nvcc is another library: the key
+    hashes ``nvcc --version``, read once a process, and an empty string
+    where no nvcc is found, so the name still resolves."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!/bin/sh\necho x >> {calls}\n"
+                    "echo 'Cuda compilation tools, release 12.8, V12.8.93'\n")
+    fake.chmod(0o755)
+    try:
+        _build.toolkit.cache_clear()
+        monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+        assert _build.toolkit() == ""
+        bare = _build.library_path(fa.SOURCE)
+        _build.toolkit.cache_clear()
+        monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+        assert "release 12.8" in _build.toolkit()
+        assert "release 12.8" in _build.toolkit()
+        assert calls.read_text() == "x\n"  # once a process
+        with_12_8 = _build.library_path(fa.SOURCE)
+        _build.toolkit.cache_clear()
+        fake.write_text("#!/bin/sh\necho 'release 12.9, V12.9.41'\n")
+        with_12_9 = _build.library_path(fa.SOURCE)
+    finally:
+        _build.toolkit.cache_clear()
+    assert len({bare, with_12_8, with_12_9}) == 3
+    assert bare.parent == with_12_8.parent == _build.BUILD_DIR
+    assert bare.name.startswith("flash_attention_fwd-")
+
+
+def test_the_library_dir_moves_and_keys_each_load(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    before = _build.library_path(fa.SOURCE)
+    assert _build.set_library_dir(tmp_path) == before.parent
+    assert _build.library_path(fa.SOURCE) == tmp_path / before.name
+
+
 def test_compare_script_needs_a_card(capsys):
     if torch.cuda.is_available():
         return

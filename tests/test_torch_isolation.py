@@ -77,6 +77,19 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/api/notebook.py",
             "kubeflow_tpu_torch/migration/protocol.py",
             "kubeflow_tpu_torch/runtime/objects.py"} <= names
+    # The slice burn-in on GPU nodes: node shapes and env, the per-ordinal
+    # webhook, the bootstrap worker, the probes and the kernel cache.
+    assert {"kubeflow_tpu_torch/gpu/__init__.py",
+            "kubeflow_tpu_torch/gpu/topology.py",
+            "kubeflow_tpu_torch/webhooks/__init__.py",
+            "kubeflow_tpu_torch/webhooks/gpu.py",
+            "kubeflow_tpu_torch/testing/__init__.py",
+            "kubeflow_tpu_torch/testing/distributed_worker.py",
+            "kubeflow_tpu_torch/probe/__init__.py",
+            "kubeflow_tpu_torch/probe/__main__.py",
+            "kubeflow_tpu_torch/probe/ici.py",
+            "kubeflow_tpu_torch/probe/dcn.py",
+            "kubeflow_tpu_torch/utils/compilecache.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -106,7 +119,11 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.models.pipelined, "
             "kubeflow_tpu_torch.models.vision, kubeflow_tpu_torch.telemetry, "
             "kubeflow_tpu_torch.checkpoint, kubeflow_tpu_torch.data, "
-            "kubeflow_tpu_torch.sdk, kubeflow_tpu_torch.utils.checkpoint; "
+            "kubeflow_tpu_torch.sdk, kubeflow_tpu_torch.utils.checkpoint, "
+            "kubeflow_tpu_torch.gpu, kubeflow_tpu_torch.webhooks.gpu, "
+            "kubeflow_tpu_torch.probe.dcn, kubeflow_tpu_torch.probe.__main__, "
+            "kubeflow_tpu_torch.testing.distributed_worker, "
+            "kubeflow_tpu_torch.utils.compilecache; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu', 'ml_dtypes')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -117,13 +117,12 @@ def _longctx_world(rank, trees, tokens):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world():
     tokens = _tokens()
     trees = {attention: _jax_params(longctx.LongContextConfig(
         **BASE, attention=attention))[1]
         for attention, *_ in STEPS.values()}
-    ranks = run_world(_longctx_world, tmp_path_factory.mktemp("longctx"),
-                      trees, tokens)
+    ranks = run_world(_longctx_world, trees, tokens)
     return tokens, trees, ranks
 
 

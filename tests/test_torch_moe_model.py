@@ -192,12 +192,11 @@ def _moe_world(rank, tree, tokens):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world():
     cfg = moe.MoEConfig(**{**BASE, "aux_weight": WORLD_AUX_WEIGHT})
     _, tree = _jax_params(cfg)
     tokens = _tokens(WORLD_BATCH, seed=23)
-    ranks = run_world(_moe_world, tmp_path_factory.mktemp("moe"), tree,
-                      tokens)
+    ranks = run_world(_moe_world, tree, tokens)
     for r in ranks:
         for case in MESHES:
             r[case]["params"] = _to_numpy(r[case]["params"])

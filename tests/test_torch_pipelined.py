@@ -217,12 +217,11 @@ def _pipelined_world(rank, tree, tokens):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world():
     cfg = pipelined.PipelinedConfig(**BASE)
     tree = _jax_params(cfg)
     tokens = _tokens(WORLD_BATCH, seed=33)
-    ranks = run_world(_pipelined_world, tmp_path_factory.mktemp("pp"), tree,
-                      tokens, timeout=90)
+    ranks = run_world(_pipelined_world, tree, tokens, timeout=90)
     for r in ranks:
         for case in MESHES:
             r[case]["params"] = _to_numpy(r[case]["params"])

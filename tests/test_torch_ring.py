@@ -89,13 +89,12 @@ def _ring_world(rank, q, k, v, do, k_late, v_late):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world():
     q, k, v, do = _inputs()
     k_late, v_late = k.copy(), v.copy()
     k_late[:, -1] += 100.0
     v_late[:, -1] += 100.0
-    ranks = run_world(_ring_world, tmp_path_factory.mktemp("ring"),
-                      q, k, v, do, k_late, v_late)
+    ranks = run_world(_ring_world, q, k, v, do, k_late, v_late)
     return (q, k, v, do), ranks
 
 

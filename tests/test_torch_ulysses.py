@@ -97,11 +97,10 @@ def _ulysses_world(rank, q, k, v, do, long_qkv):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world():
     q, k, v, do = _inputs()
     long_qkv = _inputs(LONG, n=3, seed=11)
-    ranks = run_world(_ulysses_world, tmp_path_factory.mktemp("ulysses"),
-                      q, k, v, do, long_qkv)
+    ranks = run_world(_ulysses_world, q, k, v, do, long_qkv)
     return (q, k, v, do), long_qkv, ranks
 
 
