@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, sharded serving, training (with its
 step telemetry, checkpoints, input pipeline and drain guard), sharded
-training, long-context training, MoE, vision and pipelined training paths
-and its slice burn-in (the probes and the kernel cache) on one NVIDIA GPU
-and hold its kernels against their plain versions.
+training, long-context training, MoE, vision and pipelined training paths,
+its slice burn-in (the probes and the kernel cache) and its notebook
+spawn path on one NVIDIA GPU and hold its kernels against their plain
+versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -114,7 +115,9 @@ last line. With no CUDA device it exits 1 and prints no result.
    and the wide_heads step's [8, 1024, 8, 256]) the forward, dQ and dK/dV
    (at d = 256 also the partial, and the simple dQ through the plan
    (0, 1) beside the wgmma one) timed beside their bounds, plain versions
-   and SDPA.
+   and SDPA; then the simple kernels' routes, f32 at d = 256 and bf16 at
+   d = 320 ([1, 1024, 8, d]), the forward, partial, dQ and dK/dV timed
+   the same way.
 15. moe_grads — ``MOE_MODEL`` (bench.py's, uncut) at batch 8: the loss
    of ``attention="flash"`` against the dense path, the share of tokens
    whose top-1 expert differs between the two, and the gradients against
@@ -219,6 +222,23 @@ last line. With no CUDA device it exits 1 and prints no result.
    on CUDA tensors, 64 MB, scored against a 4-card share: the same
    report on every rank, the fraction of peak equal to the bandwidth over
    the estimate. Through the host: no NVLink rate.
+31. spawn (last) — the notebook spawn path on GPU nodes: the port's
+   control plane (``testing.FakeKube``, ``webhooks.register_all``, the
+   ``Manager`` with ``setup_notebook_controller`` and NetworkPolicies on,
+   ``testing.PodSimulator``) renders three ``nvidia-h100-80gb``
+   notebooks, ``1x1``, ``2x8`` and two slices of ``1x8``, each timed on
+   the host's clock from its create to every pod Running, with its
+   reconciles and API requests, its StatefulSets, selectors, card
+   requests, node ranks and status held to ``gpu/topology.py``. Pod
+   ``nb-0`` of the ``1x1`` notebook, its env as admission gave it and
+   ``PET_MASTER_ADDR`` moved to 127.0.0.1 (no cluster DNS here), runs
+   ``python -m kubeflow_tpu_torch.probe --skip-dcn`` (an NCCL world of
+   one, scored against the ``1x1`` estimate, inf) and a child that calls
+   ``sdk.initialize_distributed()`` (at one card the SDK's no-op), forms
+   the one-rank NCCL group at the env's rendezvous and all-reduces on
+   the card; beside the probe, the ``2x8`` notebook's two pods' env runs
+   two ``testing.distributed_worker`` processes over gloo, each of which
+   must print ``PSUM_RESULT 3.0 NPROC 2``.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
@@ -478,14 +498,19 @@ WIDE_REPEAT = (8, 1024, 16, 256)
 MANY_HEADS = ("bh66560", (1040, 64, 64, 16))
 # Timed: a d = 32 training shape (b*h = 512 heads of 1024 tokens), a
 # d = 20 one (zero-padded to 24: the copies timed apart) and two d = 256
-# ones (the wide library, also the partial and the simple dQ):
-# [8, 1024, 16, 256], and the wide_heads step's [8, 1024, 8, 256].
+# ones (the wide library's wgmma kernels, also the partial and the simple
+# dQ): [8, 1024, 16, 256], and the wide_heads step's [8, 1024, 8, 256].
+# Then the wide library's simple kernels, the route of f32 heads wider
+# than 128 and of bf16 heads wider than 256: f32 at d = 256 and bf16 at
+# d = 320, each at [1, 1024, 8, d] (also the partial).
 HEAD_DIM_TIMED = [
     ("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0, False),
     ("d20_train", (8, 1024, 64, 20), "bfloat16", True, 0, 0, False),
     ("d256_train", (8, 1024, 16, 256), "bfloat16", True, 0, 0, False),
     # The shape the wide_heads step gives them: 8 heads of 256.
     ("wide_heads", (8, 1024, 8, 256), "bfloat16", True, 0, 0, False),
+    ("d256_f32", (1, 1024, 8, 256), "float32", True, 0, 0, False),
+    ("d320_bf16", (1, 1024, 8, 320), "bfloat16", True, 0, 0, False),
 ]
 # The simple dQ (the wide library's plan (0, 1)), timed beside the wgmma
 # dQ at the d = 256 shapes: tens of ms a call, so fewer calls.
@@ -911,7 +936,8 @@ def phase_head_dims(torch, fa) -> dict:
     statistics and the wgmma dQ's and dK/dV's bitwise repeat; the
     forward, dQ and dK/dV timed at d = 32, 20 and 256 training shapes
     beside their bounds, their plain versions and SDPA (and at d = 256 the
-    partial, and the simple dQ beside the wgmma one)."""
+    partial, and the simple dQ beside the wgmma one), and on the simple
+    kernels' routes (f32 at d = 256, bf16 at d = 320) with the partial."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(97531)
@@ -984,8 +1010,9 @@ def phase_head_dims(torch, fa) -> dict:
         delta = fa.attention_delta(o, do)
         row = {"phase": "head_dims_timed", "case": name,
                "shape": list(shape), "dtype": dtype, "causal": causal,
-               "kernels": "wide" if shape[3] > fa.TILE_MAX_HEAD_DIM
-               else "hopper"}
+               "kernels": "hopper" if shape[3] <= fa.TILE_MAX_HEAD_DIM
+               else {"wgmma": "wide", "simple": "wide_simple"}[
+                   fa._wide_plan(shape[3], q.dtype).kernels]}
 
         def run():
             return fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -1006,7 +1033,7 @@ def phase_head_dims(torch, fa) -> dict:
             row["pad_copy_fwd_ms"] = time_ms(lambda: fa._pad_heads(q, k, v))
             row["pad_copy_bwd_ms"] = time_ms(
                 lambda: fa._pad_heads(q, k, v, o, do))
-        if row["kernels"] == "wide":   # the partial at offsets (0, 0)
+        if row["kernels"] != "hopper":   # the partial at offsets (0, 0)
 
             def hop():
                 return fa.flash_attention_partial(q, k, v, 0, 0)
@@ -2352,6 +2379,265 @@ def phase_worlds_probe(reports: list) -> None:
         raise AssertionError(f"worlds_probe phase failed: {row}")
 
 
+# The spawn phase: the port's notebook control plane in the fake apiserver
+# (admission, the manager with the notebook controller, the kubelet
+# simulator), three GPU notebooks (namespace, topology, slices): one card,
+# two whole nodes, and two slices of one node. Pod nb-0 of the one-card
+# notebook and the two pods of the 2x8 one run on this machine under the
+# env admission gave them, the rendezvous moved to 127.0.0.1 (cluster DNS
+# does not resolve here).
+SPAWN_NOTEBOOKS = (("card", "1x1", 1), ("ns", "2x8", 1), ("multi", "1x8", 2))
+SPAWN_RENDEZVOUS = "127.0.0.1"
+SPAWN_TIMEOUT = 180
+# The child that joins the one-card pod's world on the card: the SDK's
+# initialize_distributed() from the env, which at a world of one process
+# is the SDK's single-process no-op (it returns False), then a one-rank
+# NCCL group at the same env's rendezvous, and an all-reduce on the card.
+SPAWN_NCCL_CHILD = """
+import json, torch, torch.distributed as dist
+from kubeflow_tpu_torch import sdk
+info = sdk.SliceInfo.from_env()
+joined = sdk.initialize_distributed()
+if not joined:
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method="tcp://" + info.coordinator_address,
+        world_size=info.num_processes, rank=info.process_id,
+        device_id=torch.device("cuda", 0))
+x = torch.full((1 << 20,), float(dist.get_rank() + 1), device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print(json.dumps({"sdk_joined": joined, "backend": dist.get_backend(),
+                  "world": dist.get_world_size(), "rank": dist.get_rank(),
+                  "coordinator": info.coordinator_address,
+                  "sum": float(x[0]), "elements": x.numel()}))
+dist.destroy_process_group()
+"""
+
+
+async def _spawn_notebooks() -> dict:
+    """Create each SPAWN_NOTEBOOKS notebook in the port's harness, time it
+    from the create to every pod Running (the host's clock), count the
+    reconciles and API requests it took, and read back its children, its
+    status and its pods' env after admission."""
+    import asyncio
+
+    from kubeflow_tpu_torch.api import notebook as nbapi
+    from kubeflow_tpu_torch.controllers.notebook import (
+        NotebookOptions, setup_notebook_controller)
+    from kubeflow_tpu_torch.gpu.topology import MultiSlice
+    from kubeflow_tpu_torch.runtime.manager import Manager
+    from kubeflow_tpu_torch.runtime.metrics import Registry
+    from kubeflow_tpu_torch.testing import FakeKube, PodSimulator
+    from kubeflow_tpu_torch.webhooks import register_all
+
+    kube = FakeKube()
+    register_all(kube)
+    mgr = Manager(kube, registry=Registry())
+    setup_notebook_controller(mgr, NotebookOptions(
+        create_network_policies=True))
+    sim = PodSimulator(kube)
+    await mgr.start()
+    await sim.start()
+
+    def counts():
+        return (mgr.reconcile_seconds.snapshot(controller="notebook")["count"],
+                sum(kube.requests.values()))
+
+    out = {}
+    try:
+        for ns, topology, slices in SPAWN_NOTEBOOKS:
+            ms = MultiSlice.parse(PROBE_ACCELERATOR, topology, slices)
+            reconciles, requests = counts()
+            t0 = time.perf_counter()
+            await kube.create("Notebook", nbapi.new(
+                "nb", ns, accelerator=PROBE_ACCELERATOR, topology=topology,
+                num_slices=slices))
+            while True:
+                pods = await kube.list("Pod", ns)
+                if len(pods) == ms.total_hosts and all(
+                        p.get("status", {}).get("phase") == "Running"
+                        for p in pods):
+                    break
+                if time.perf_counter() - t0 > SPAWN_TIMEOUT:
+                    raise AssertionError(f"spawn of {ns}/nb timed out")
+                await asyncio.sleep(0.001)
+            running_sec = time.perf_counter() - t0
+            for _ in range(6):   # the status write after the pods ran
+                await mgr.wait_idle(timeout=20)
+                await asyncio.sleep(0.02)
+            reconciles_after, requests_after = counts()
+            out[ns] = {
+                "topology": topology, "slices": slices,
+                "create_to_running_sec": running_sec,
+                "reconciles": reconciles_after - reconciles,
+                "api_requests": requests_after - requests,
+                "children": {kind: [o["metadata"]["name"]
+                                    for o in await kube.list(kind, ns)]
+                             for kind in ("StatefulSet", "Service",
+                                          "NetworkPolicy")},
+                "sts": await kube.list("StatefulSet", ns),
+                "services": await kube.list("Service", ns),
+                "policy": await kube.list("NetworkPolicy", ns),
+                "status": (await kube.get("Notebook", "nb", ns))["status"],
+                "env": {p["metadata"]["name"]: {
+                    e["name"]: e.get("value")
+                    for e in p["spec"]["containers"][0]["env"]}
+                    for p in await kube.list("Pod", ns)}}
+        out["api_requests_by_verb"] = dict(kube.requests)
+    finally:
+        await sim.stop()
+        await mgr.stop()
+        kube.close_watches()
+    return out
+
+
+def _pod_process_env(pod_env: dict) -> dict:
+    """This process's env without any rank or slice wiring of its own,
+    under a pod's env, its rendezvous moved to SPAWN_RENDEZVOUS."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PET_", "TPU_", "JAX_", "MEGASCALE_",
+                                "KFTPU_"))
+           and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT")}
+    env.update({k: v for k, v in pod_env.items() if v is not None})
+    env["PET_MASTER_ADDR"] = SPAWN_RENDEZVOUS
+    return env
+
+
+def _run_children(argvs_envs: list) -> list:
+    """Run the children together; every one must exit 0. Each starts in a
+    session of its own and is stopped at exit if it has not ended."""
+    import atexit
+    from pathlib import Path
+
+    procs = []
+    for argv, env in argvs_envs:
+        proc = subprocess.Popen(
+            [sys.executable, *argv], env=env, cwd=Path(__file__).parent,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        atexit.register(_stop_group, proc)
+        procs.append(proc)
+    outs = []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=SPAWN_TIMEOUT)
+        finally:
+            _stop_group(proc)
+        if proc.returncode:
+            raise AssertionError(f"spawned pod process {proc.args} failed "
+                                 f"({proc.returncode}):\n{out}\n{err}")
+        outs.append(out)
+    return outs
+
+
+def phase_spawn(card: str) -> None:
+    """The notebook spawn path on GPU nodes (module docstring, item 31):
+    the three notebooks rendered in the fake apiserver and checked
+    against gpu/topology, the one-card pod's env running the probe CLI
+    and the NCCL child on the card, and the 2x8 pair's env forming a
+    world of 2 over gloo."""
+    import asyncio
+
+    from kubeflow_tpu_torch.gpu.topology import GpuSlice, MultiSlice
+
+    t0 = time.perf_counter()
+    spawned = asyncio.run(_spawn_notebooks())
+    render_sec = time.perf_counter() - t0
+    checks = {}
+    for ns, topology, slices in SPAWN_NOTEBOOKS:
+        got = spawned[ns]
+        ms = MultiSlice.parse(PROBE_ACCELERATOR, topology, slices)
+        gpu = ms.slice
+        names = [ms.slice_sts_name("nb", j) for j in range(slices)]
+        tmpl = [sts["spec"]["template"]["spec"] for sts in got["sts"]]
+        ranks = sorted(env.get("PET_NODE_RANK") for env in got["env"].values())
+        checks[ns] = (
+            [s["metadata"]["name"] for s in got["sts"]] == names
+            and all(s["spec"]["replicas"] == gpu.num_hosts for s in got["sts"])
+            and all(t["nodeSelector"] == gpu.node_selectors() for t in tmpl)
+            and all(t["containers"][0]["resources"]["requests"]
+                    == gpu.resource_requests() for t in tmpl)
+            and ranks == [str(r) for r in range(ms.total_hosts)]
+            and all(env["PET_NNODES"] == str(ms.total_hosts)
+                    and env["PET_NPROC_PER_NODE"] == str(gpu.chips_per_host)
+                    for env in got["env"].values())
+            and got["status"]["gpu"]["hosts"] == ms.total_hosts
+            and got["status"]["readyReplicas"] == ms.total_hosts)
+    pair = spawned["ns"]
+    pair_env = pair["env"]["nb-1"]
+    checks["ns_main_path"] = (
+        [s["spec"]["replicas"] for s in pair["sts"]] == [2]
+        and pair["sts"][0]["spec"]["template"]["spec"]["containers"][0][
+            "resources"]["requests"] == {"nvidia.com/gpu": "8"}
+        and sorted(pair["children"]["Service"]) == ["nb", "nb-workers"]
+        and next(s for s in pair["services"] if s["metadata"]["name"] == "nb")[
+            "spec"]["selector"]["statefulset.kubernetes.io/pod-name"] == "nb-0"
+        and {"from": [{"podSelector": {"matchLabels": {
+            "notebook-name": "nb"}}}]} in pair["policy"][0]["spec"]["ingress"]
+        and pair_env["PET_NODE_RANK"] == "1" and pair_env["PET_NNODES"] == "2"
+        and pair_env["PET_NPROC_PER_NODE"] == "8"
+        and pair_env["PET_MASTER_ADDR"]
+        == "nb-0.nb-workers.ns.svc.cluster.local")
+
+    card_env = _pod_process_env(spawned["card"]["env"]["nb-0"])
+    pair_envs = [_pod_process_env(pair["env"][f"nb-{i}"]) for i in range(2)]
+    t0 = time.perf_counter()
+    outs = _run_children(
+        [(["-m", "kubeflow_tpu_torch.probe", "--skip-dcn"], card_env)]
+        + [(["-m", "kubeflow_tpu_torch.testing.distributed_worker"], env)
+           for env in pair_envs])
+    probe_and_gloo_sec = time.perf_counter() - t0
+    probe = json.loads(outs[0].strip().splitlines()[-1])
+    gloo = [[line for line in out.splitlines()
+             if line.startswith(("PSUM_RESULT", "RANK "))] for out in outs[1:]]
+    t0 = time.perf_counter()
+    nccl = json.loads(_run_children([(["-c", SPAWN_NCCL_CHILD], card_env)])[0]
+                      .strip().splitlines()[-1])
+    nccl_sec = time.perf_counter() - t0
+    # The pod env's shape, which the probe CLI scores against: one card,
+    # whose estimate is inf (a world of one moves no bytes between cards),
+    # and which the report writes as null (JSON has no Infinity).
+    estimate = GpuSlice.parse(card_env["KFTPU_ACCELERATOR"],
+                              card_env["TPU_TOPOLOGY"]) \
+        .allreduce_algo_bandwidth_gbps()
+    ici = probe["ici"]
+    row = {"phase": "spawn", "card": card,
+           "clock": "host seconds (the fake apiserver and the kubelet "
+                    "simulator in this process; no card work)",
+           "notebooks": {ns: {k: spawned[ns][k] for k in (
+               "topology", "slices", "create_to_running_sec", "reconciles",
+               "api_requests", "children")} for ns, _, _ in SPAWN_NOTEBOOKS},
+           "api_requests_by_verb": spawned["api_requests_by_verb"],
+           "render_sec": render_sec,
+           "override": {"PET_MASTER_ADDR": SPAWN_RENDEZVOUS,
+                        "was": spawned["card"]["env"]["nb-0"][
+                            "PET_MASTER_ADDR"]},
+           "probe_estimate_gbps": str(estimate),
+           "card_pod_env": {k: v for k, v in card_env.items()
+                            if k.startswith(("PET_", "TPU_", "KFTPU_"))},
+           "probe": probe, "nccl_child": nccl, "gloo_pair": gloo,
+           "probe_and_gloo_sec": probe_and_gloo_sec, "nccl_sec": nccl_sec,
+           "checks": checks}
+    emit(row)
+    if not (all(checks.values())
+            and set(probe) == {"ici"} and ici["backend"] == "nccl"
+            and ici["devices"] == 1 and ici["mean_seconds"] > 0
+            and estimate == float("inf") and ici["peak_estimate_gbps"] is None
+            and ici["algo_bandwidth_gbps"] is None
+            and ici["fraction_of_peak"] is None
+            and nccl["backend"] == "nccl" and nccl["world"] == 1
+            and nccl["sdk_joined"] is False and nccl["sum"] == 1.0
+            and nccl["coordinator"] == f"{SPAWN_RENDEZVOUS}:29500"
+            and all(lines[0] == "PSUM_RESULT 3.0 NPROC 2" for lines in gloo)
+            and sorted(lines[1] for lines in gloo)
+            == ["RANK 0 OF 2", "RANK 1 OF 2"]):
+        raise AssertionError(f"spawn phase failed: {row}")
+
+
 def _stop_group(proc) -> None:
     """Kill a process started in a session of its own, and everything it
     started, unless it has ended."""
@@ -3283,6 +3569,7 @@ def main() -> int:
                                                     card, True)
     by_path["wide_heads"] = phase_wide_heads(torch, fa, burnin, card)
     by_path.update(phase_worlds(torch, burnin, tree, engine_mod, launch))
+    phase_spawn(card)
 
     def launches(kernel):
         return {path: counts.get(kernel, 0)

@@ -1,2 +1,14 @@
-"""The control plane's wire names the port's SDK speaks (trimmed copies
-of ``kubeflow_tpu.api``)."""
+"""API types of the port's notebook control plane (the counterpart of
+``kubeflow_tpu.api``).
+
+Objects are plain dicts shaped like their Kubernetes wire form; this
+package holds the *semantics*: constants, defaulting, validation, and
+typed accessors for each CRD the port serves — ``Notebook`` (with its
+``spec.gpu`` block), ``Profile`` (with ``spec.gpuQuota``) and
+``PodDefault`` — and the wire keys (``keys``) the controller, the
+webhooks and the SDK share.
+"""
+
+from kubeflow_tpu_torch.api import notebook, poddefault, profile
+
+__all__ = ["notebook", "poddefault", "profile"]

@@ -1,0 +1,16 @@
+"""Reconcilers of the port's notebook control plane (the counterpart of
+``kubeflow_tpu.controllers``; the notebook controller alone so far).
+
+One module per controller, mirroring the reference's component split
+(SURVEY.md §2.1) but collapsed to a single manager process — the reference's
+two-controller lock dance (notebook-controller + odh-notebook-controller) is
+deliberately absent (SURVEY.md §7 hard-part (c): one controller + one webhook
+deletes that entire class of races).
+
+The port's copy of ``kubeflow_tpu/controllers/__init__.py``: it keeps its
+own so that it imports nothing of the JAX package.
+"""
+
+from kubeflow_tpu_torch.controllers.notebook import NotebookReconciler, setup_notebook_controller
+
+__all__ = ["NotebookReconciler", "setup_notebook_controller"]

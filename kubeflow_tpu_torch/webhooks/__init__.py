@@ -1,3 +1,23 @@
-"""Admission for GPU pods: the port's counterpart of
-``kubeflow_tpu.webhooks.tpu`` (``gpu.mutate_pod``, the per-ordinal node
-env)."""
+"""Admission layer: pure mutation/validation engines + their registrations
+(the port of ``kubeflow_tpu.webhooks``).
+
+Each engine is a pure function over dict-shaped objects, registered on the
+apiserver's admission chain (FakeKube in tests): Notebook defaulting,
+validation and the card quota (``notebook``), PodDefault injection
+(``poddefault``) and the per-node GPU env (``gpu``), wired in order by
+``register_all``.
+"""
+
+from kubeflow_tpu_torch.webhooks.poddefault import (
+    apply_poddefaults,
+    filter_poddefaults,
+    safe_to_apply,
+)
+from kubeflow_tpu_torch.webhooks.register import register_all
+
+__all__ = [
+    "apply_poddefaults",
+    "filter_poddefaults",
+    "safe_to_apply",
+    "register_all",
+]

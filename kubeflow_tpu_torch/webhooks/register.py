@@ -1,0 +1,89 @@
+"""Wire every admission engine onto an apiserver admission chain: the
+port of ``kubeflow_tpu/webhooks/register.py``.
+
+Order matters and is fixed here (the reference's implicit multi-webhook
+ordering made explicit): CR defaulting/validation first, then pod-level
+PodDefault injection, then the per-node GPU env (which must see the final
+pod name and the template annotations, and must win over anything a
+PodDefault set for ``TPU_WORKER_ID`` or ``PET_NODE_RANK``).
+
+The chain holds the kinds the port has controllers or consumers for:
+Notebook, PodDefault and Profile. The reference also registers
+Tensorboard, PVCViewer and (with ``KFTPU_SERVING`` on) InferenceService;
+those come with their controllers. A fleet source (``KFTPU_FLEET`` or
+``KFTPU_FLEET_CONFIGMAP``) is refused here: the reference's capacity gate
+reads it through the fleet scheduler, which the port does not have yet,
+and admitting gangs that fleet would refuse is not the same result.
+"""
+
+from __future__ import annotations
+
+import os
+
+from kubeflow_tpu_torch.api import notebook as nbapi
+from kubeflow_tpu_torch.api import poddefault as pdapi
+from kubeflow_tpu_torch.api import profile as profileapi
+from kubeflow_tpu_torch.webhooks import gpu as gpu_webhook
+from kubeflow_tpu_torch.webhooks import notebook as nb_webhook
+from kubeflow_tpu_torch.webhooks import poddefault as pd_webhook
+
+
+def register_all(kube) -> None:
+    """Register mutators/validators on a FakeKube-compatible admission chain.
+
+    ``kube.add_mutator(kind_glob, fn)`` / ``add_validator`` — fns may be sync
+    or async, called with (obj, request_info).
+    """
+    for env in (nb_webhook.FLEET_ENV, nb_webhook.FLEET_CONFIGMAP_ENV):
+        if os.environ.get(env, "").strip():
+            raise NotImplementedError(
+                f"{env} is set, but the fleet half of the notebook capacity "
+                "gate needs the fleet scheduler in GPU units, which "
+                "kubeflow_tpu_torch does not have yet (ROADMAP.md queue 1, "
+                "item 11); unset it to admit against the Profile's "
+                "spec.gpuQuota alone")
+
+    # CR defaulting (mutators run before validators). The Notebook mutator
+    # also enforces restart blocking (webhooks/notebook.py).
+    kube.add_mutator("Notebook", nb_webhook.mutate)
+
+    # Image-alias resolution from the catalog ConfigMap (odh's ImageStream
+    # resolution, notebook_webhook.go:539-645, without OpenShift).
+    async def image_resolver(nb: dict, info: dict) -> None:
+        if info.get("operation") in (None, "CREATE", "UPDATE"):
+            await nb_webhook.resolve_image_from_catalog(kube, nb)
+
+    kube.add_mutator("Notebook", image_resolver)
+
+    # Profiles applied at an old served version are normalized to storage at
+    # admission (same contract as the Notebook mutator's normalization).
+    def profile_normalizer(p: dict, _info: dict) -> None:
+        if p.get("apiVersion") in profileapi.SERVED_API_VERSIONS:
+            p["apiVersion"] = profileapi.STORAGE_API_VERSION
+
+    kube.add_mutator("Profile", profile_normalizer)
+
+    # CR validation. Notebooks additionally fast-fail (CREATE only) when
+    # the card request can never fit the namespace gpuQuota ceiling
+    # (webhooks/notebook.py validate_capacity) — an impossible gang must
+    # be rejected with an actionable message, not queue forever.
+    async def notebook_validator(nb: dict, info: dict) -> None:
+        nbapi.validate(nb)
+        if info.get("operation") in (None, "CREATE"):
+            await nb_webhook.validate_capacity(kube, nb)
+
+    kube.add_validator("Notebook", notebook_validator)
+    kube.add_validator("PodDefault", lambda pd, _i: pdapi.validate(pd))
+    kube.add_validator("Profile", lambda p, _i: profileapi.validate(p))
+
+    # Pod mutation: PodDefault injection, then the per-node GPU env.
+    async def poddefault_mutator(pod: dict, info: dict) -> None:
+        if info.get("operation") == "CREATE":
+            await pd_webhook.mutate_pod(kube, pod)
+
+    def gpu_mutator(pod: dict, info: dict) -> None:
+        if info.get("operation") == "CREATE":
+            gpu_webhook.mutate_pod(pod)
+
+    kube.add_mutator("Pod", poddefault_mutator)
+    kube.add_mutator("Pod", gpu_mutator)

@@ -90,6 +90,25 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/probe/ici.py",
             "kubeflow_tpu_torch/probe/dcn.py",
             "kubeflow_tpu_torch/utils/compilecache.py"} <= names
+    # The notebook spawn path on GPU nodes: the controller runtime, the
+    # fake apiserver and pod simulator, the Notebook, Profile and
+    # PodDefault APIs, the admission chain and the notebook controller.
+    assert {f"kubeflow_tpu_torch/runtime/{m}.py" for m in (
+        "errors", "aiotasks", "scheme", "queue", "informer", "apply",
+        "events", "timeline", "manager", "sharding", "deployment",
+        "leaderelection", "metrics", "objects", "tracing", "slo")} <= names
+    assert {"kubeflow_tpu_torch/testing/fakekube.py",
+            "kubeflow_tpu_torch/testing/podsim.py",
+            "kubeflow_tpu_torch/api/profile.py",
+            "kubeflow_tpu_torch/api/poddefault.py",
+            "kubeflow_tpu_torch/api/convert.py",
+            "kubeflow_tpu_torch/webhooks/notebook.py",
+            "kubeflow_tpu_torch/webhooks/poddefault.py",
+            "kubeflow_tpu_torch/webhooks/register.py",
+            "kubeflow_tpu_torch/controllers/__init__.py",
+            "kubeflow_tpu_torch/controllers/common.py",
+            "kubeflow_tpu_torch/controllers/notebook.py",
+            "kubeflow_tpu_torch/migration/__init__.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -123,7 +142,13 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.gpu, kubeflow_tpu_torch.webhooks.gpu, "
             "kubeflow_tpu_torch.probe.dcn, kubeflow_tpu_torch.probe.__main__, "
             "kubeflow_tpu_torch.testing.distributed_worker, "
-            "kubeflow_tpu_torch.utils.compilecache; "
+            "kubeflow_tpu_torch.utils.compilecache, "
+            "kubeflow_tpu_torch.controllers.notebook, "
+            "kubeflow_tpu_torch.webhooks.register, "
+            "kubeflow_tpu_torch.testing.fakekube, "
+            "kubeflow_tpu_torch.testing.podsim, "
+            "kubeflow_tpu_torch.runtime.sharding, "
+            "kubeflow_tpu_torch.api.convert, kubeflow_tpu_torch.migration; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu', 'ml_dtypes')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

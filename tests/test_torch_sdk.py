@@ -65,7 +65,8 @@ def test_the_wire_names_and_patches_equal_the_reference():
     assert names and all(getattr(keys, n) == getattr(jax_keys, n)
                          for n in names)
     consts = [n for n in dir(notebook) if n.endswith("_ANNOTATION")]
-    assert len(consts) == 14
+    assert consts == [n for n in dir(jax_nb) if n.endswith("_ANNOTATION")]
+    assert len(consts) == 34
     assert all(getattr(notebook, n) == getattr(jax_nb, n) for n in consts)
     for now in (0.0, 1.7e9, 1.7e9 + 0.25):
         assert objects.fmt_iso(now) == jax_objects.fmt_iso(now)

@@ -1,0 +1,138 @@
+"""The notebook control plane's harness for the port's tests: the fake
+apiserver, the admission chain, the manager with the notebook controller
+and the kubelet simulator, built from either package — the reference's
+(``kubeflow_tpu``) or the port's (``kubeflow_tpu_torch``) — as
+tests/test_notebook_controller.py builds the reference's.
+
+Each package keeps its own metric registry and tracer, so the tests
+compare children and status, never metric names or trace ids.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import importlib
+import os
+import socket
+import subprocess
+import sys
+from types import SimpleNamespace
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = "kubeflow_tpu_torch"
+REFERENCE = "kubeflow_tpu"
+WORKER_TIMEOUT = 120
+
+
+def clear_kftpu_env(monkeypatch) -> None:
+    """``NotebookOptions``, the migration switch and the admission chain
+    read ``KFTPU_*`` at construction: clear them, so that both packages'
+    harnesses run the defaults."""
+    for key in list(os.environ):
+        if key.startswith("KFTPU_"):
+            monkeypatch.delenv(key)
+
+
+def modules(pkg: str = PORT) -> SimpleNamespace:
+    def load(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    return SimpleNamespace(
+        nbapi=load("api.notebook"), controller=load("controllers.notebook"),
+        manager=load("runtime.manager"), metrics=load("runtime.metrics"),
+        fakekube=load("testing.fakekube"), podsim=load("testing.podsim"),
+        webhooks=load("webhooks"))
+
+
+class Harness:
+    def __init__(self, pkg, kube, mgr, sim):
+        self.m = modules(pkg)
+        self.kube = kube
+        self.mgr = mgr
+        self.sim = sim
+
+    async def settle(self, rounds: int = 6) -> None:
+        # Let podsim + controller exchange a few rounds of events.
+        for _ in range(rounds):
+            await self.mgr.wait_idle(timeout=20)
+            await asyncio.sleep(0.02)
+        await self.mgr.wait_idle(timeout=20)
+
+    async def stop(self) -> None:
+        await self.sim.stop()
+        await self.mgr.stop()
+        self.kube.close_watches()
+
+    async def pod_env(self, name: str, ns: str = "ns") -> dict:
+        """The server container's env of a pod, after admission."""
+        pod = await self.kube.get("Pod", name, ns)
+        return {e["name"]: e.get("value")
+                for e in pod["spec"]["containers"][0]["env"]}
+
+    async def annotations(self, name: str, ns: str = "ns") -> dict:
+        nb = await self.kube.get("Notebook", name, ns)
+        return nb["metadata"].get("annotations") or {}
+
+    async def wait_for(self, predicate, what: str, timeout: float = 15.0):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while True:
+            value = await predicate()
+            if value:
+                return value
+            assert asyncio.get_running_loop().time() < deadline, \
+                f"timed out: {what}"
+            await asyncio.sleep(0.01)
+
+
+async def make_harness(pkg: str = PORT, *, sim_kwargs=None,
+                       **opts) -> Harness:
+    m = modules(pkg)
+    kube = m.fakekube.FakeKube()
+    m.webhooks.register_all(kube)
+    mgr = m.manager.Manager(kube, registry=m.metrics.Registry())
+    m.controller.setup_notebook_controller(
+        mgr, m.controller.NotebookOptions(**opts))
+    sim = m.podsim.PodSimulator(kube, **(sim_kwargs or {}))
+    await mgr.start()
+    await sim.start()
+    return Harness(pkg, kube, mgr, sim)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(pod_envs: list, **overrides) -> list:
+    """Run ``kubeflow_tpu_torch.testing.distributed_worker`` once per pod,
+    each under that pod's env as admission rendered it, with
+    ``overrides`` on top; return each worker's stdout. Every worker is
+    reaped even when an early one fails (a dead rank 0 leaves the rest in
+    the collective until the timeout)."""
+    procs = []
+    for pod_env in pod_envs:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("PET_", "TPU_", "JAX_", "MEGASCALE_",
+                                    "KFTPU_"))
+               and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                             "MASTER_ADDR", "MASTER_PORT")}
+        env.update({k: v for k, v in pod_env.items() if v is not None})
+        env.update(overrides)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m",
+             "kubeflow_tpu_torch.testing.distributed_worker"],
+            env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WORKER_TIMEOUT)
+            assert p.returncode == 0, f"worker failed:\n{out}\n{err}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
