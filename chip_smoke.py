@@ -2,9 +2,9 @@
 """Drive the PyTorch port's serving, sharded serving, training (with its
 step telemetry, checkpoints, input pipeline and drain guard), sharded
 training, long-context training, MoE, vision and pipelined training paths,
-its slice burn-in (the probes and the kernel cache) and its notebook
-spawn path on one NVIDIA GPU and hold its kernels against their plain
-versions.
+its slice burn-in (the probes and the kernel cache), its notebook
+spawn path and its fleet scheduler and warm pods on one NVIDIA GPU and
+hold its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -230,21 +230,61 @@ last line. With no CUDA device it exits 1 and prints no result.
    the host's clock from its create to every pod Running, with its
    reconciles and API requests, its StatefulSets, selectors, card
    requests, node ranks and status held to ``gpu/topology.py``. Pod
-   ``nb-0`` of the ``1x1`` notebook, its env as admission gave it and
-   ``PET_MASTER_ADDR`` moved to 127.0.0.1 (no cluster DNS here), runs
+   ``nb-0`` of the ``1x1`` notebook, its env as admission gave it (a
+   one-node gang's ``PET_MASTER_ADDR`` is its own 127.0.0.1), runs
    ``python -m kubeflow_tpu_torch.probe --skip-dcn`` (an NCCL world of
    one, scored against the ``1x1`` estimate, inf) and a child that calls
    ``sdk.initialize_distributed()`` (at one card the SDK's no-op), forms
    the one-rank NCCL group at the env's rendezvous and all-reduces on
-   the card; beside the probe, the ``2x8`` notebook's two pods' env runs
+   the card; beside the probe, the ``2x8`` notebook's two pods' env
+   (node 0's DNS name moved to 127.0.0.1: both run on this machine) runs
    two ``testing.distributed_worker`` processes over gloo, each of which
    must print ``PSUM_RESULT 3.0 NPROC 2``.
+32. fleet (run right after checkpoint, whose straight run it reuses) —
+   the fleet scheduler in GPU units, the profile controller's card quota
+   and the warm pod pools. The control plane (``register_all``, the
+   ``Manager`` with the notebook and profile controllers, a
+   ``GpuFleetScheduler``, the ``PodSimulator``) runs on an event loop of
+   its own thread; the card work stays on the main thread. (a)
+   preempt-to-checkpoint on a fleet of one ``nvidia-h100-80gb:1x8`` node:
+   a Profile with ``spec.gpuQuota: 8`` (its ResourceQuota must hold
+   ``requests.nvidia.com/gpu: "8"``); notebook ``train`` (priority low)
+   admitted, its pod's rendezvous its own 127.0.0.1; ``fit`` at
+   ``CKPT_MODEL`` with a ``CheckpointGuard`` over a ``CheckpointFabric``
+   whose ``fetch`` and ``patcher`` read and patch ``train``'s
+   annotations; after step 1 notebook ``urgent`` (high) is created and
+   must queue while the scheduler stamps a ``preempt:priority`` drain on
+   ``train``; the guard saves at step 3 and acks; ``train`` must park
+   (stop annotation, 0 replicas, cards released) and ``urgent`` admit
+   with ``nvidia.com/gpu: "8"``; ``train`` restarted queues, ``urgent``
+   deleted, ``train`` re-admitted with the restore path and step in its
+   pod env, from which a restore onto ``abstract_state`` resumed to step
+   5 must be bitwise the checkpoint phase's straight run. Host seconds
+   from the waiter's creation to the drain request, the ack, the waiter's
+   admission and the victim's re-admission; reconciles and API requests
+   by verb. (b) the warm pod: ``KFTPU_WARM_POOLS`` with one ``1x1`` pod
+   over a fleet of two ``1x1`` shares; the replenisher's slot pod's
+   command and env (as the fake apiserver holds them) run as a process on
+   the card, started beside the build with a fresh kernel cache seeded
+   from the build directory; a ``1x1`` notebook of the pool's image must
+   win the CAS claim on that pod; its annotations written to the
+   process's downward-API file, the SDK's warm-idle shim must return the
+   claim, and the same process launches the forward kernel at the decode
+   shape against its plain version with no ``nvcc`` compile. Host
+   seconds from the create to the claim and from the claim to the
+   kernel's result. (c) on the host: a spot ``1x8`` node beside a
+   reserved one, a revocation taint: the spot pool's gang drained with
+   the spot-reclaim reason, released, re-queued at its priority and
+   re-admitted when the taint clears, the ledger consistent after every
+   arbitration pass. Launches: (a)'s one forward, dQ and dK/dV per layer
+   and step, and (b)'s one forward.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
 ``pipelined_schedule``, ``wide_heads``, ``sharded``, ``checkpoint``,
+``fleet``,
 and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
 its 4 processes), and ``device_kernels``: the CUDA kernels behind each
 entry, by head dim and dtype), the script's wall seconds, the card line,
@@ -262,6 +302,7 @@ import time
 from contextlib import contextmanager
 from dataclasses import replace
 from functools import partial
+from types import SimpleNamespace
 
 from kubeflow_tpu_torch.ops.compare import sass_counts, time_ms
 
@@ -1918,7 +1959,7 @@ def phase_trainer(torch, fa, burnin, trainer, telemetry) -> dict:
 
 
 def phase_checkpoint(torch, fa, burnin, trainer, data, checkpoint, sdk,
-                     card: str) -> dict:
+                     card: str) -> tuple:
     """Checkpoint, data and SDK on the card: ``fit`` at CKPT_MODEL, AdamW
     (``TrainerConfig()``), fed by ``ShardedLoader -> prefetch ->
     global_batches`` and handing each step's checkpoint tree to a
@@ -1930,7 +1971,10 @@ def phase_checkpoint(torch, fa, burnin, trainer, data, checkpoint, sdk,
     (``load_state``) and run to CKPT_STEPS must be bitwise the straight
     run (the fabric's resume skips the loader in O(1), the manager's
     through fit's fast-forward). Then the loader pipeline's steps against
-    pre-staged card batches. The temporary directories are removed."""
+    pre-staged card batches. The temporary directories are removed.
+    Returns the straight run's launches, and what the fleet phase reuses:
+    the model, optimizer, step, loader and initial params, and a copy of
+    the straight run's state tensors to hold a resumed run to."""
     import os
     import shutil
     import tempfile
@@ -2037,6 +2081,8 @@ def phase_checkpoint(torch, fa, burnin, trainer, data, checkpoint, sdk,
         torch.cuda.synchronize()
         launches = _launch_counts(fa)    # ---- the main path ends here
         tree = trainer.checkpoint_tree(straight)
+        # Before the timed steps below move the straight state on.
+        straight_tensors = [t.clone() for t in tensors(tree)]
         state_bytes = sum(t.numel() * t.element_size()
                           for t in tensors(tree))
         guard.close()
@@ -2131,8 +2177,749 @@ def phase_checkpoint(torch, fa, burnin, trainer, data, checkpoint, sdk,
             and clock["snapshot_end"] <= ack < commit
             and launches == _burnin_counts(cfg.n_layers * CKPT_STEPS)):
         raise AssertionError(f"checkpoint phase failed: {row}")
-    del straight, state, params0
+    del straight, state
     torch.cuda.empty_cache()
+    reuse = SimpleNamespace(
+        cfg=cfg, tx=tx, step=step, fresh=fresh, loader=loader,
+        tensors=tensors, abstract=trainer.abstract_state(params0, tx),
+        staging=staging, straight=straight_tensors)
+    return launches, reuse
+
+
+# ---- the fleet phase: the scheduler, the profile quota and the warm pods ----
+
+# Part (a): one H100 node in the fleet, a Profile whose card quota covers
+# it, a low-priority training notebook the scheduler drains to a
+# checkpoint for a high-priority one.
+FLEET_SPEC = f"a3={PROBE_ACCELERATOR}:1x8:1"
+FLEET_QUOTA = 8
+# Part (b): a pool of one warm 1x1 pod, over a fleet of two 1x1 shares
+# (the slot holds one of them in the scheduler's ledger).
+WARM_IMAGE = "kubeflow-tpu-torch/notebook:smoke"
+WARM_POOLS = f"ns/{WARM_IMAGE}@{PROBE_ACCELERATOR}:1x1:1"
+WARM_FLEET_SPEC = f"w={PROBE_ACCELERATOR}:1x1:2"
+# Part (c): a spot node beside a reserved one.
+SPOT_FLEET_SPEC = (f"res={PROBE_ACCELERATOR}:1x8:1,"
+                   f"cheap={PROBE_ACCELERATOR}:1x8:1:spot")
+# Every wait on the control plane is bounded by this; none sleeps against
+# a grace.
+FLEET_TIMEOUT = 60.0
+
+# The warm pod's process: the slot's container (its command and env as
+# the fake apiserver holds them), started beside the build. It imports
+# what the pod's interpreter would, waits for the word that the build
+# directory (its kernel cache's seed) is complete, then runs the slot's
+# ``python -m`` command in this process: the SDK's warm-idle shim seeds
+# the cache, attaches the card, builds the kernels and returns the claim
+# from the downward-API file. The same process then launches the forward
+# kernel at the decode shape (a claimed notebook's first launch) and
+# holds it against the plain version. Every nvcc compile goes through
+# ``_build.build``, which this process records.
+WARM_POD_CHILD = r"""
+import json, os, runpy, sys, time
+import torch
+from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.utils import compilecache
+
+sys.stdin.readline()
+compiled, build = [], _build.build
+
+def recorded(items=None):
+    done = build(items)
+    compiled.extend(done)
+    return done
+
+_build.build = recorded
+argv = json.loads(os.environ["SMOKE_POD_COMMAND"])
+assert argv[:2] == ["python", "-m"], argv
+sys.argv = [argv[2], *argv[3:]]
+runpy.run_module(argv[2], run_name="__main__", alter_sys=True)
+claimed_at = time.time()
+shape, dtype, causal = json.loads(os.environ["SMOKE_WARM_CASE"])
+gen = torch.Generator(device="cuda").manual_seed(4321)
+q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+           .to(getattr(torch, dtype)) for _ in range(3))
+fa.LAUNCHES = 0
+o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+torch.cuda.synchronize()
+result_at = time.time()
+launches = fa.LAUNCHES
+ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+print(json.dumps({
+    "shim_returned_at": claimed_at, "result_at": result_at,
+    "launches": launches,
+    "max_err_o": (o.float() - ro.float()).abs().max().item(),
+    "max_err_lse": (lse - rlse).abs().max().item(),
+    "finite": bool(torch.isfinite(o).all()),
+    "compiled": compiled, "nvcc_compiles": len(_build.BUILD_LOG),
+    "library_dir": str(_build.BUILD_DIR),
+    "cache": compilecache.cache_stats(),
+    "cache_entries": compilecache.cache_entries(str(_build.BUILD_DIR))}),
+    flush=True)
+"""
+
+
+class ControlPlane:
+    """The port's control plane (the fake apiserver with the admission
+    chain, a manager running the notebook controller and optionally the
+    profile controller, the kubelet simulator) on an event loop of its
+    own thread. The card work stays on the main thread and reaches the
+    control plane through :meth:`call`; the loop never waits on the
+    card."""
+
+    def __init__(self, scheduler, *, profiles=False, environ=None):
+        import asyncio
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="control-plane", daemon=True)
+        self.thread.start()
+        self.call(self._start(scheduler, profiles, environ or {}))
+
+    def call(self, coro, timeout: float = FLEET_TIMEOUT):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    async def _start(self, scheduler, profiles, environ) -> None:
+        import os
+
+        from kubeflow_tpu_torch.controllers.notebook import (
+            NotebookOptions, setup_notebook_controller)
+        from kubeflow_tpu_torch.controllers.profile import (
+            setup_profile_controller)
+        from kubeflow_tpu_torch.runtime.manager import Manager
+        from kubeflow_tpu_torch.runtime.metrics import Registry
+        from kubeflow_tpu_torch.testing import FakeKube, PodSimulator
+        from kubeflow_tpu_torch.webhooks import register_all
+
+        self.kube = FakeKube()
+        register_all(self.kube)
+        self.mgr = Manager(self.kube, registry=Registry())
+        self.sched = scheduler(self.kube, self.mgr.registry)
+        saved = {key: os.environ.get(key) for key in environ}
+        os.environ.update(environ)      # the setup reads them, once
+        try:
+            self.rec = setup_notebook_controller(
+                self.mgr, NotebookOptions(), scheduler=self.sched)
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+        if profiles:
+            setup_profile_controller(self.mgr)
+        self.sim = PodSimulator(self.kube)
+        await self.mgr.start()
+        await self.sim.start()
+
+    async def _stop(self) -> None:
+        if self.rec._warmpool is not None:
+            self.rec._warmpool.stop()
+        await self.sim.stop()
+        await self.mgr.stop()
+        self.kube.close_watches()
+
+    def close(self) -> None:
+        try:
+            self.call(self._stop())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=FLEET_TIMEOUT)
+            self.loop.close()
+
+    async def wait_for(self, predicate, what: str):
+        """Poll an async predicate until it returns a truthy value."""
+        import asyncio
+
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while True:
+            value = await predicate()
+            if value:
+                return value
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet phase timed out: {what}")
+            await asyncio.sleep(0.002)
+
+    async def annotations(self, name: str) -> dict:
+        nb = await self.kube.get("Notebook", name, "ns")
+        return dict(nb["metadata"].get("annotations") or {})
+
+    async def patch_annotations(self, name: str, update: dict) -> None:
+        await self.kube.patch("Notebook", name,
+                              {"metadata": {"annotations": update}}, "ns")
+
+    async def state(self, name: str) -> str | None:
+        nb = await self.kube.get_or_none("Notebook", name, "ns")
+        return (((nb or {}).get("status") or {}).get("scheduler")
+                or {}).get("state")
+
+    def mark_when(self, predicate, what: str):
+        """Start waiting for ``predicate`` on the loop; the returned
+        future gives the host time (``time.time``) it first held, so a
+        mark is not delayed by the main thread's card work."""
+        import asyncio
+
+        async def mark():
+            await self.wait_for(predicate, what)
+            return time.time()
+
+        return asyncio.run_coroutine_threadsafe(mark(), self.loop)
+
+    async def settle(self) -> None:
+        import asyncio
+
+        for _ in range(4):
+            await self.mgr.wait_idle(timeout=FLEET_TIMEOUT)
+            await asyncio.sleep(0.01)
+
+    def counts(self) -> dict:
+        return {"reconciles": self.mgr.reconcile_seconds.snapshot(
+                    controller="notebook")["count"],
+                "api_requests_by_verb": dict(sorted(
+                    self.kube.requests.items()))}
+
+
+def _gpu_notebook(name: str, topology: str, priority: str | None = None,
+                  image: str | None = None) -> dict:
+    from kubeflow_tpu_torch.api import notebook as nbapi
+
+    nb = nbapi.new(name, "ns", accelerator=PROBE_ACCELERATOR,
+                   topology=topology, **({"image": image} if image else {}))
+    if priority:
+        nb["metadata"].setdefault("annotations", {})[
+            nbapi.PRIORITY_ANNOTATION] = priority
+    return nb
+
+
+def start_warm_pod() -> dict:
+    """Part (b)'s first half, beside the build: a control plane whose
+    notebook controller reads ``KFTPU_WARM_POOLS`` (a pool of one warm
+    ``1x1`` pod) over a GPU fleet scheduler, the replenisher's one slot,
+    and the slot pod's container started as a process on the card (its
+    command and env as the fake apiserver holds them, a fresh kernel
+    cache seeded from the build directory, the downward-API annotations
+    in a temporary file). The process waits for the build; it is
+    stopped at exit if it has not ended."""
+    import atexit
+    import os
+    import tempfile
+
+    from kubeflow_tpu_torch.api import keys
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.scheduler import (Fleet, GpuFleetScheduler,
+                                              SchedulerOptions)
+    from kubeflow_tpu_torch.utils import compilecache
+
+    plane = ControlPlane(
+        lambda kube, registry: GpuFleetScheduler(
+            kube, SchedulerOptions(queued_requeue_seconds=0.05),
+            fleet=Fleet.parse(WARM_FLEET_SPEC), registry=registry),
+        environ={"KFTPU_WARM_POOLS": WARM_POOLS})
+
+    async def slot_pod():
+        pods = [p for p in await plane.kube.list("Pod", "ns")
+                if keys.TPU_WARM_POOL_LABEL in (
+                    p["metadata"].get("labels") or {})]
+        return pods[0] if len(pods) == 1 and (pods[0].get("status") or {}) \
+            .get("phase") == "Running" else None
+
+    pod = plane.call(plane.wait_for(slot_pod, "the warm slot's pod"))
+    slots = plane.call(plane.kube.list("StatefulSet", "ns"))
+    reserved = [list(a.key)
+                for a in plane.sched.policy.ledger.allocations.values()
+                if a.workload == "warmpool"]
+    ctr = pod["spec"]["containers"][0]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-warm-")
+    claim_file = os.path.join(tmp, "annotations")
+    open(claim_file, "w", encoding="utf-8").close()     # no claim yet
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PET_", "TPU_", "KFTPU_"))}
+    env.update({e["name"]: e["value"] for e in ctr.get("env", [])
+                if "value" in e})
+    case, shape, dtype, causal = next(c for c in KERNEL_CASES
+                                      if c[0] == "decode")
+    env.update({
+        compilecache.ENV_VAR: os.path.join(tmp, "kernel-cache"),
+        compilecache.SEED_DIR_ENV: str(_build.BUILD_DIR),
+        "KFTPU_WARM_CLAIM_FILE": claim_file,
+        "SMOKE_POD_COMMAND": json.dumps(ctr["command"]),
+        "SMOKE_WARM_CASE": json.dumps([list(shape), dtype, causal])})
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", WARM_POD_CHILD], env=env,
+        stdin=subprocess.PIPE, stdout=out, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    atexit.register(_stop_group, proc)
+    return {"plane": plane, "proc": proc, "out": out, "tmp": tmp,
+            "claim_file": claim_file, "pod": pod["metadata"]["name"],
+            "command": ctr["command"], "slot_env": sorted(
+                e["name"] for e in ctr.get("env", [])),
+            "slots": [s["metadata"]["name"] for s in slots],
+            "reserved": reserved, "case": case, "dtype": dtype}
+
+
+def warm_pod_go(warm: dict) -> None:
+    """The build directory is complete: the warm pod may seed from it."""
+    warm["proc"].stdin.write("go\n")
+    warm["proc"].stdin.flush()
+
+
+def _fleet_warm(warm: dict) -> dict:
+    """Part (b)'s second half: a ``1x1`` notebook of the pool's image,
+    the controller's CAS claim on the slot's pod, the pod's annotations
+    written to the process's downward-API file, and the process's claim
+    and first launch."""
+    import os
+    import shutil
+
+    from kubeflow_tpu_torch.api import keys
+    from kubeflow_tpu_torch.api import notebook as nbapi
+
+    plane, proc = warm["plane"], warm["proc"]
+    try:
+        before = plane.counts()
+        created = time.time()
+        plane.call(plane.kube.create("Notebook", _gpu_notebook(
+            "warm", "1x1", image=WARM_IMAGE)))
+
+        async def claimed():
+            ann = await plane.annotations("warm")
+            return ann.get(nbapi.WARM_CLAIMED_ANNOTATION)
+
+        pod_name = plane.call(plane.wait_for(claimed, "the warm claim"))
+        claimed_at = time.time()
+        pod = plane.call(plane.kube.get("Pod", pod_name, "ns"))
+        ann = pod["metadata"].get("annotations") or {}
+        staged = warm["claim_file"] + ".new"
+        with open(staged, "w", encoding="utf-8") as fh:
+            fh.writelines(f"{k}={json.dumps(v)}\n" for k, v in ann.items())
+        os.replace(staged, warm["claim_file"])   # the kubelet's swap
+        proc.wait(timeout=FLEET_TIMEOUT)
+        warm["out"].seek(0)
+        text = warm["out"].read()
+        if proc.returncode:
+            raise AssertionError(f"warm pod process failed:\n{text}")
+        lines = [json.loads(line) for line in text.splitlines()
+                 if line.startswith("{")]
+        shim, child = lines[-2], lines[-1]
+        plane.call(plane.settle())
+        nb = plane.call(plane.kube.get("Notebook", "warm", "ns"))
+        adopted = plane.call(plane.kube.get("Pod", pod_name, "ns"))
+        ledger = plane.sched.policy.ledger
+        ledger.assert_consistent()
+        return {
+            "slot_pod": warm["pod"], "claimed_pod": pod_name,
+            "command": warm["command"], "slot_env": warm["slot_env"],
+            "slots_before": warm["slots"],
+            "reserved_before": warm["reserved"],
+            "claim": ann.get(keys.TPU_WARM_CLAIM),
+            "shim_claim": shim.get("claimed"),
+            "owner": [r["kind"] for r in adopted["metadata"].get(
+                "ownerReferences") or []],
+            "warm_pool_status": ((nb.get("status") or {}).get("gpu")
+                                 or {}).get("warmPool"),
+            "admitted": [list(k) for k, a in ledger.allocations.items()
+                         if a.workload == "notebook"],
+            "create_to_claim_sec": claimed_at - created,
+            "claim_to_shim_return_sec": child["shim_returned_at"]
+            - claimed_at,
+            "claim_to_kernel_result_sec": child["result_at"] - claimed_at,
+            "case": warm["case"], "dtype": warm["dtype"], **child,
+            "cache_hit": child["compiled"] == []
+            and child["nvcc_compiles"] == 0 and child["cache"]["seeded"] > 0,
+            "ledger_violations": ledger.violations,
+            **_counts_since(before, plane.counts())}
+    finally:
+        _stop_group(proc)
+        plane.close()
+        shutil.rmtree(warm["tmp"], ignore_errors=True)
+
+
+def _fleet_spot_reclaim() -> dict:
+    """Part (c), on the host: a spot node beside a reserved one, a gang
+    on each, then a revocation taint on the spot node. Every gang
+    resident on the spot pool must be drained with the spot-reclaim
+    reason, released and re-queued at its priority once it acks; the
+    reserved pool's gang stays; the ledger must hold after every
+    arbitration pass; clearing the taint re-admits the gang."""
+    from kubeflow_tpu_torch.api import notebook as nbapi
+    from kubeflow_tpu_torch.migration import protocol as migration
+    from kubeflow_tpu_torch.scheduler import (Fleet, GpuFleetScheduler,
+                                              SchedulerOptions, elastic)
+    from kubeflow_tpu_torch.scheduler.fleet import (GKE_NODEPOOL_LABEL,
+                                                    GKE_SPOT_LABEL)
+
+    passes = [0]
+
+    def scheduler(kube, registry):
+        sched = GpuFleetScheduler(kube, SchedulerOptions(
+            queued_requeue_seconds=0.05, enable_migration=True,
+            drain_grace_seconds=FLEET_TIMEOUT,
+            commit_grace_seconds=FLEET_TIMEOUT, enable_elastic=True,
+            fleet_refresh_seconds=0.05),
+            fleet=Fleet.parse(SPOT_FLEET_SPEC), registry=registry)
+        schedule = sched.policy.schedule
+
+        def checked(now):
+            result = schedule(now)
+            sched.policy.ledger.assert_consistent()
+            passes[0] += 1
+            return result
+
+        sched.policy.schedule = checked
+        return sched
+
+    plane = ControlPlane(scheduler)
+
+    async def run() -> dict:
+        kube, sched = plane.kube, plane.sched
+        ledger = sched.policy.ledger
+        await kube.create("Node", {
+            "apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": "cheap-0", "labels": {
+                GKE_NODEPOOL_LABEL: "cheap", GKE_SPOT_LABEL: "true",
+                "cloud.google.com/gke-accelerator": PROBE_ACCELERATOR}}})
+        for name, priority in (("a", "low"), ("b", "high")):
+            await kube.create("Notebook", _gpu_notebook(name, "1x8",
+                                                        priority))
+        await plane.settle()
+        ledger.assert_consistent()
+        resident = {k: a.priority for k, a in ledger.allocations.items()
+                    if "cheap" in a.placements}
+        stays = {k for k, a in ledger.allocations.items()
+                 if "res" in a.placements}
+        await kube.patch("Node", "cheap-0", {"spec": {"taints": [
+            {"key": elastic.RECLAIM_TAINTS[0], "effect": "NoSchedule"}]}})
+        reasons = {}
+        for key in resident:
+            async def drained(key=key):
+                return (await plane.annotations(key[1])).get(
+                    nbapi.DRAIN_REASON_ANNOTATION)
+
+            reasons[key[1]] = await plane.wait_for(drained, "the drain")
+            ledger.assert_consistent()
+            ann = await plane.annotations(key[1])
+            await plane.patch_annotations(key[1], migration.ack_patch(
+                f"/checkpoints/{key[1]}", 1, time.time(),
+                for_request=ann[nbapi.DRAIN_REQUESTED_ANNOTATION]))
+
+        async def requeued():
+            return all(k in sched.policy.pending for k in resident)
+
+        await plane.wait_for(requeued, "the reclaimed gangs re-queued")
+        await plane.settle()
+        ledger.assert_consistent()
+        priorities = {k: sched.policy.pending[k].priority for k in resident}
+        released = not any(k in ledger.allocations for k in resident)
+        closed = "cheap" in ledger.unavailable
+        await kube.patch("Node", "cheap-0", {"spec": {"taints": None}})
+
+        async def readmitted():
+            return all(k in ledger.allocations
+                       and not ledger.allocations[k].draining
+                       for k in resident)
+
+        await plane.wait_for(readmitted, "the reclaimed gangs re-admitted")
+        await plane.settle()
+        ledger.assert_consistent()
+        return {
+            "resident": {f"{k[0]}/{k[1]}": p for k, p in resident.items()},
+            "drain_reasons": reasons,
+            "requeued_priority": {f"{k[0]}/{k[1]}": p
+                                  for k, p in priorities.items()},
+            "priorities_kept": priorities == resident,
+            "released": released, "pool_closed_while_signalled": closed,
+            "stayed": sorted(f"{k[0]}/{k[1]}" for k in stays
+                             if k in ledger.allocations
+                             and not ledger.allocations[k].draining),
+            "readmitted": True,
+            "spot_reclaims": sched.m_spot_reclaims.labels().value,
+            "drain_fallbacks": sched.m_drain_fallback.labels().value,
+            "violations": ledger.violations, "passes_checked": passes[0]}
+
+    try:
+        return plane.call(run(), timeout=4 * FLEET_TIMEOUT)
+    finally:
+        plane.close()
+
+
+def _fleet_preempt(torch, fa, trainer, checkpoint, sdk, reuse) -> dict:
+    """Part (a): preempt-to-checkpoint through the control plane, the
+    victim's trainer on the card (module docstring, item 32)."""
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.api import notebook as nbapi
+    from kubeflow_tpu_torch.migration import protocol as migration
+    from kubeflow_tpu_torch.scheduler import (Fleet, GpuFleetScheduler,
+                                              SchedulerOptions)
+
+    plane = ControlPlane(
+        lambda kube, registry: GpuFleetScheduler(kube, SchedulerOptions(
+            queued_requeue_seconds=0.05, enable_migration=True,
+            drain_grace_seconds=FLEET_TIMEOUT,
+            commit_grace_seconds=FLEET_TIMEOUT),
+            fleet=Fleet.parse(FLEET_SPEC), registry=registry),
+        profiles=True)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    marks: dict = {}
+    try:
+        from kubeflow_tpu_torch.api import profile as profileapi
+
+        async def quota():
+            rq = await plane.kube.get_or_none(
+                "ResourceQuota", "kf-resource-quota", "ns")
+            return ((rq or {}).get("spec") or {}).get("hard")
+
+        plane.call(plane.kube.create("Profile", profileapi.new(
+            "ns", "owner@example.com", gpu_quota=FLEET_QUOTA)))
+        hard = plane.call(plane.wait_for(quota, "the ResourceQuota"))
+        plane.call(plane.kube.create("Notebook", _gpu_notebook(
+            "train", "1x8", "low")))
+
+        async def admitted(name):
+            return await plane.state(name) == "Admitted"
+
+        async def running(name):
+            pod = await plane.kube.get_or_none("Pod", f"{name}-0", "ns")
+            return ((pod or {}).get("status") or {}).get("phase") \
+                == "Running"
+
+        plane.call(plane.wait_for(lambda: admitted("train"), "train admitted"))
+        plane.call(plane.wait_for(lambda: running("train"), "train running"))
+        train_env = plane.call(_pod_env(plane, "train-0"))
+        plane.call(plane.settle())
+        before = plane.counts()
+
+        fabric = checkpoint.CheckpointFabric(
+            f"{tmp}/remote", staging_dir=f"{tmp}/staging",
+            save_interval_steps=10 ** 6, environ=reuse.staging)
+
+        def fetch():
+            return plane.call(plane.annotations("train"))
+
+        def patcher(update):
+            if nbapi.CHECKPOINTED_AT_ANNOTATION in update:
+                marks["ack"] = time.time()
+                marks["ack_step"] = int(update[nbapi.CHECKPOINT_STEP_ANNOTATION])
+            plane.call(plane.patch_annotations("train", update))
+
+        guard = sdk.CheckpointGuard(
+            fabric, sdk.MaintenanceWatcher(fetch=fetch, interval=0.0),
+            sync_every_steps=CKPT_AT, patcher=patcher)
+
+        class Saves:
+            def save(self, step_no, tree):
+                guard.step(step_no, tree)
+
+            def wait(self):
+                fabric.wait()
+
+        def on_step(step_no, _loss):
+            if step_no != 1:
+                return
+            # The waiter arrives while the victim trains.
+            marks["waiter_created"] = time.time()
+            plane.call(plane.kube.create("Notebook", _gpu_notebook(
+                "urgent", "1x8", "high")))
+            marks["waiter_admitted"] = plane.mark_when(
+                lambda: admitted("urgent"), "urgent admitted")
+
+            async def drain_requested():
+                return (await plane.annotations("train")).get(
+                    nbapi.DRAIN_REQUESTED_ANNOTATION)
+
+            plane.call(plane.wait_for(drain_requested, "the drain request"))
+            marks["drain_requested"] = time.time()
+
+            async def waiter_state():
+                return await plane.state("urgent")
+
+            # The waiter's status lands at the end of the reconcile that
+            # stamped the drain; no ack can come before step 3.
+            marks["waiter_state_while_draining"] = plane.call(
+                plane.wait_for(waiter_state, "the waiter's verdict"))
+
+        torch.cuda.synchronize()
+        _zero_launch_counts(fa)          # ---- the main path starts here
+        trained = trainer.fit(reuse.fresh(), reuse.loader(), steps=CKPT_AT,
+                              step_fn=reuse.step, checkpoints=Saves(),
+                              save_every=1, on_step=on_step)
+        torch.cuda.synchronize()
+        guard.close()
+        del trained
+        marks["waiter_admitted"] = marks["waiter_admitted"].result(
+            FLEET_TIMEOUT)
+        plane.call(plane.settle())
+        ann = plane.call(plane.annotations("train"))
+        train_sts = plane.call(plane.kube.get("StatefulSet", "train", "ns"))
+        urgent_sts = plane.call(plane.kube.get("StatefulSet", "urgent", "ns"))
+        parked = {
+            "stop_annotation": nbapi.STOP_ANNOTATION in ann,
+            "replicas": train_sts["spec"]["replicas"],
+            "cards_released": ("ns", "train")
+            not in plane.sched.policy.ledger.allocations,
+            "drain_reason": ann.get(nbapi.DRAIN_REASON_ANNOTATION),
+            "checkpoint": [ann.get(nbapi.CHECKPOINT_PATH_ANNOTATION),
+                           ann.get(nbapi.CHECKPOINT_STEP_ANNOTATION)]}
+        urgent_requests = urgent_sts["spec"]["template"]["spec"][
+            "containers"][0]["resources"]["requests"]
+        # The user restarts the victim: it queues behind the waiter and
+        # is re-admitted when the waiter is deleted.
+        plane.call(plane.patch_annotations("train", {
+            nbapi.STOP_ANNOTATION: None}))
+
+        async def queued():
+            return await plane.state("train") == "Queued"
+
+        plane.call(plane.wait_for(queued, "train queued behind urgent"))
+        readmitted = plane.mark_when(lambda: admitted("train"),
+                                     "train re-admitted")
+        plane.call(plane.kube.delete("Notebook", "urgent", "ns"))
+        marks["victim_readmitted"] = readmitted.result(FLEET_TIMEOUT)
+        plane.call(plane.wait_for(lambda: running("train"),
+                                  "train running again"))
+        plane.call(plane.settle())
+        resumed_env = plane.call(_pod_env(plane, "train-0"))
+        counts = _counts_since(before, plane.counts())
+        plane.sched.policy.ledger.assert_consistent()
+
+        path = resumed_env.get(migration.RESTORE_PATH_ENV)
+        step_no = int(resumed_env.get(migration.RESTORE_STEP_ENV, -1))
+        reader = checkpoint.CheckpointFabric(
+            path, staging_dir=f"{tmp}/staging", environ=reuse.staging)
+        restored = reader.restore(step_no, abstract=reuse.abstract)
+        reader.close()
+        resumed = trainer.fit(trainer.load_state(restored, reuse.tx),
+                              reuse.loader(skip=step_no), steps=CKPT_STEPS,
+                              step_fn=reuse.step, skip_batches=False)
+        torch.cuda.synchronize()
+        launches = _launch_counts(fa)    # ---- the main path ends here
+        got = reuse.tensors(trainer.checkpoint_tree(resumed))
+        bitwise = len(got) == len(reuse.straight) and all(
+            map(torch.equal, got, reuse.straight))
+        del restored, resumed, got
+    finally:
+        plane.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = marks["waiter_created"]
+    return {
+        "fleet": FLEET_SPEC, "quota_hard": hard,
+        "train_pod_rendezvous": train_env.get("PET_MASTER_ADDR"),
+        "host_sec": {"to_drain_request": marks["drain_requested"] - t0,
+                     "to_ack": marks["ack"] - t0,
+                     "to_waiter_admitted": marks["waiter_admitted"] - t0,
+                     "to_victim_readmitted": marks["victim_readmitted"] - t0},
+        "waiter_state_while_draining": marks["waiter_state_while_draining"],
+        "parked": parked, "urgent_requests": urgent_requests,
+        "restore_env": {migration.RESTORE_PATH_ENV: path,
+                        migration.RESTORE_STEP_ENV: step_no},
+        "fabric_directory": fabric.directory,
+        "ack_step": marks["ack_step"], "bitwise": bitwise,
+        **counts,
+        "drain_fallbacks": plane.sched.m_drain_fallback.labels().value,
+        "violations": plane.sched.policy.ledger.violations,
+        "launches": launches}
+
+
+def _counts_since(before: dict, after: dict) -> dict:
+    """Reconciles and API requests by verb between two ``counts()``."""
+    was = before["api_requests_by_verb"]
+    return {"reconciles": after["reconciles"] - before["reconciles"],
+            "api_requests_by_verb": {
+                verb: n - was.get(verb, 0)
+                for verb, n in after["api_requests_by_verb"].items()
+                if n - was.get(verb, 0)}}
+
+
+async def _pod_env(plane, name: str) -> dict:
+    pod = await plane.kube.get("Pod", name, "ns")
+    return {e["name"]: e.get("value")
+            for e in pod["spec"]["containers"][0].get("env", [])}
+
+
+def phase_fleet(torch, fa, trainer, checkpoint, sdk, reuse, warm: dict,
+                card: str) -> dict:
+    """The fleet scheduler, the profile quota and the warm pods on the
+    card (module docstring, item 32): part (a) preempt-to-checkpoint,
+    (b) the warm pod's claim and first launch, (c) a spot reclaim. Any
+    failed check raises. Returns the launches of (a) and (b)."""
+    from kubeflow_tpu_torch.gpu.topology import LOOPBACK_ADDR, GPU_RESOURCE
+    from kubeflow_tpu_torch.scheduler import elastic
+
+    t0 = time.perf_counter()
+    preempt = _fleet_preempt(torch, fa, trainer, checkpoint, sdk, reuse)
+    preempt_sec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warmed = _fleet_warm(warm)
+    warm_sec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spot = _fleet_spot_reclaim()
+    spot_sec = time.perf_counter() - t0
+    n = reuse.cfg.n_layers * CKPT_STEPS
+    launches = {key: preempt["launches"].get(key, 0)
+                + (warmed["launches"] if key == "fwd" else 0)
+                for key in ("fwd", "dq", "dkv", "partial")}
+    tol_o = TOL_O[warmed["dtype"]]
+    row = {"phase": "fleet", "card": card,
+           "clock": "host seconds (time.time) for the control plane's "
+                    "marks; the card work between them is the trainer's",
+           "preempt": preempt, "warm": warmed, "spot_reclaim": spot,
+           "preempt_sec": preempt_sec, "warm_sec": warm_sec,
+           "spot_sec": spot_sec, "launches": launches,
+           "launches_expected": {"fwd": n + 1, "dq": n, "dkv": n,
+                                 "partial": 0},
+           "tol_o": tol_o, "tol_lse": TOL_LSE}
+    emit(row)
+    checks = {
+        "quota": preempt["quota_hard"]
+        == {f"requests.{GPU_RESOURCE}": str(FLEET_QUOTA)},
+        "one_node_rendezvous": preempt["train_pod_rendezvous"]
+        == LOOPBACK_ADDR,
+        "waiter_queued": preempt["waiter_state_while_draining"] == "Queued",
+        "drain_reason": preempt["parked"]["drain_reason"]
+        == "preempt:priority",
+        "parked": preempt["parked"]["stop_annotation"]
+        and preempt["parked"]["replicas"] == 0
+        and preempt["parked"]["cards_released"],
+        "waiter_cards": preempt["urgent_requests"] == {GPU_RESOURCE: "8"},
+        "restore_env": list(preempt["restore_env"].values())
+        == [preempt["fabric_directory"], CKPT_AT],
+        "ack_step": preempt["ack_step"] == CKPT_AT,
+        "bitwise": preempt["bitwise"],
+        "no_fallback": preempt["drain_fallbacks"] == 0
+        and preempt["violations"] == 0,
+        "order": 0 < preempt["host_sec"]["to_drain_request"]
+        < preempt["host_sec"]["to_ack"]
+        < preempt["host_sec"]["to_waiter_admitted"]
+        < preempt["host_sec"]["to_victim_readmitted"],
+        "warm_claim": warmed["claimed_pod"] == warmed["slot_pod"]
+        and warmed["shim_claim"] == warmed["claim"]
+        and (warmed["claim"] or "").startswith("ns/warm/")
+        and warmed["owner"] == ["Notebook"]
+        and warmed["reserved_before"] != []
+        and ["ns", "warm"] in warmed["admitted"],
+        "warm_command": warmed["command"] == [
+            "python", "-m", "kubeflow_tpu_torch.sdk", "--warm-idle"],
+        "warm_no_nvcc": warmed["cache_hit"],
+        "warm_kernel": warmed["launches"] == 1 and warmed["finite"]
+        and warmed["max_err_o"] <= tol_o
+        and warmed["max_err_lse"] <= TOL_LSE,
+        "spot": spot["resident"] != {} and spot["released"]
+        and set(spot["drain_reasons"].values())
+        == {elastic.SPOT_RECLAIM_REASON}
+        and spot["priorities_kept"] and spot["pool_closed_while_signalled"]
+        and spot["stayed"] != [] and spot["violations"] == 0
+        and spot["drain_fallbacks"] == 0 and spot["passes_checked"] > 0,
+        "launches": launches == row["launches_expected"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"fleet phase failed: {checks}")
     return launches
 
 
@@ -2387,7 +3174,10 @@ def phase_worlds_probe(reports: list) -> None:
 # env admission gave them, the rendezvous moved to 127.0.0.1 (cluster DNS
 # does not resolve here).
 SPAWN_NOTEBOOKS = (("card", "1x1", 1), ("ns", "2x8", 1), ("multi", "1x8", 2))
-SPAWN_RENDEZVOUS = "127.0.0.1"
+# The 2x8 notebook's two nodes run here as two processes of one machine,
+# where its node 0's cluster DNS name does not resolve: they meet on the
+# loopback instead. (A one-node pod's env names the loopback itself.)
+PAIR_RENDEZVOUS = "127.0.0.1"
 SPAWN_TIMEOUT = 180
 # The child that joins the one-card pod's world on the card: the SDK's
 # initialize_distributed() from the env, which at a world of one process
@@ -2492,9 +3282,10 @@ async def _spawn_notebooks() -> dict:
     return out
 
 
-def _pod_process_env(pod_env: dict) -> dict:
+def _pod_process_env(pod_env: dict, master_addr: str | None = None) -> dict:
     """This process's env without any rank or slice wiring of its own,
-    under a pod's env, its rendezvous moved to SPAWN_RENDEZVOUS."""
+    under a pod's env, its rendezvous moved to ``master_addr`` where one
+    is given."""
     import os
 
     env = {k: v for k, v in os.environ.items()
@@ -2503,7 +3294,8 @@ def _pod_process_env(pod_env: dict) -> dict:
            and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                          "MASTER_PORT")}
     env.update({k: v for k, v in pod_env.items() if v is not None})
-    env["PET_MASTER_ADDR"] = SPAWN_RENDEZVOUS
+    if master_addr is not None:
+        env["PET_MASTER_ADDR"] = master_addr
     return env
 
 
@@ -2542,7 +3334,8 @@ def phase_spawn(card: str) -> None:
     world of 2 over gloo."""
     import asyncio
 
-    from kubeflow_tpu_torch.gpu.topology import GpuSlice, MultiSlice
+    from kubeflow_tpu_torch.gpu.topology import (LOOPBACK_ADDR, GpuSlice,
+                                                 MultiSlice)
 
     t0 = time.perf_counter()
     spawned = asyncio.run(_spawn_notebooks())
@@ -2584,7 +3377,8 @@ def phase_spawn(card: str) -> None:
         == "nb-0.nb-workers.ns.svc.cluster.local")
 
     card_env = _pod_process_env(spawned["card"]["env"]["nb-0"])
-    pair_envs = [_pod_process_env(pair["env"][f"nb-{i}"]) for i in range(2)]
+    pair_envs = [_pod_process_env(pair["env"][f"nb-{i}"], PAIR_RENDEZVOUS)
+                 for i in range(2)]
     t0 = time.perf_counter()
     outs = _run_children(
         [(["-m", "kubeflow_tpu_torch.probe", "--skip-dcn"], card_env)]
@@ -2613,9 +3407,10 @@ def phase_spawn(card: str) -> None:
                "api_requests", "children")} for ns, _, _ in SPAWN_NOTEBOOKS},
            "api_requests_by_verb": spawned["api_requests_by_verb"],
            "render_sec": render_sec,
-           "override": {"PET_MASTER_ADDR": SPAWN_RENDEZVOUS,
-                        "was": spawned["card"]["env"]["nb-0"][
-                            "PET_MASTER_ADDR"]},
+           "card_pod_rendezvous": card_env["PET_MASTER_ADDR"],
+           "pair_rendezvous": {"PET_MASTER_ADDR": PAIR_RENDEZVOUS,
+                               "was": pair["env"]["nb-0"][
+                                   "PET_MASTER_ADDR"]},
            "probe_estimate_gbps": str(estimate),
            "card_pod_env": {k: v for k, v in card_env.items()
                             if k.startswith(("PET_", "TPU_", "KFTPU_"))},
@@ -2631,7 +3426,8 @@ def phase_spawn(card: str) -> None:
             and ici["fraction_of_peak"] is None
             and nccl["backend"] == "nccl" and nccl["world"] == 1
             and nccl["sdk_joined"] is False and nccl["sum"] == 1.0
-            and nccl["coordinator"] == f"{SPAWN_RENDEZVOUS}:29500"
+            and card_env["PET_MASTER_ADDR"] == LOOPBACK_ADDR
+            and nccl["coordinator"] == f"{LOOPBACK_ADDR}:29500"
             and all(lines[0] == "PSUM_RESULT 3.0 NPROC 2" for lines in gloo)
             and sorted(lines[1] for lines in gloo)
             == ["RANK 0 OF 2", "RANK 1 OF 2"]):
@@ -3508,6 +4304,7 @@ def main() -> int:
     from kubeflow_tpu_torch.utils import compilecache
 
     probe_cli = start_probe_cli(torch)
+    warm = start_warm_pod()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3533,6 +4330,7 @@ def main() -> int:
                     for line in log.splitlines()
                     if "registers" in line or "spill" in line
                     or "entry function" in line or "C75" in line]})
+    warm_pod_go(warm)
     phase_build_cache(torch, fa, _build, compilecache, build_sec, entries)
     probe_cli = finish_probe_cli(probe_cli)
 
@@ -3553,8 +4351,12 @@ def main() -> int:
         phase_probe(torch, probe_cli)
     by_path["trainer"] = phase_trainer(torch, fa, burnin, trainer,
                                        telemetry)
-    by_path["checkpoint"] = phase_checkpoint(torch, fa, burnin, trainer,
-                                             data, checkpoint, sdk, card)
+    by_path["checkpoint"], reuse = phase_checkpoint(
+        torch, fa, burnin, trainer, data, checkpoint, sdk, card)
+    by_path["fleet"] = phase_fleet(torch, fa, trainer, checkpoint, sdk,
+                                   reuse, warm, card)
+    del reuse
+    torch.cuda.empty_cache()
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)

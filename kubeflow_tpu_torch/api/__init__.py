@@ -5,10 +5,11 @@ Objects are plain dicts shaped like their Kubernetes wire form; this
 package holds the *semantics*: constants, defaulting, validation, and
 typed accessors for each CRD the port serves — ``Notebook`` (with its
 ``spec.gpu`` block), ``Profile`` (with ``spec.gpuQuota``) and
-``PodDefault`` — and the wire keys (``keys``) the controller, the
-webhooks and the SDK share.
+``PodDefault`` — the wire keys (``keys``) the controller, the webhooks
+and the SDK share, and the two serving-replica helpers the fleet
+scheduler reads (``inferenceservice``).
 """
 
-from kubeflow_tpu_torch.api import notebook, poddefault, profile
+from kubeflow_tpu_torch.api import inferenceservice, notebook, poddefault, profile
 
-__all__ = ["notebook", "poddefault", "profile"]
+__all__ = ["inferenceservice", "notebook", "poddefault", "profile"]

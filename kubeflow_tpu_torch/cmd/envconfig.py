@@ -1,0 +1,120 @@
+"""Env-var configuration of the port's fleet scheduler and warm pod
+pools: a trimmed copy of ``kubeflow_tpu/cmd/envconfig.py``.
+
+Every knob is an env var with a default, mapped onto the typed Options
+dataclasses the controllers take. The port reads the same ``KFTPU_*``
+names as the reference; the rest of the reference's contract (the
+notebook, serving, culling, profile and web-app options) comes with its
+entrypoints.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+def env_bool(name: str, default: bool) -> bool:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
+def env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    try:
+        return float(raw) if raw is not None else default
+    except ValueError:
+        return default
+
+
+# Re-exported from runtime so every layer shares one definition without
+# importing this cmd wiring module.
+from kubeflow_tpu_torch.runtime.deployment import controller_namespace  # noqa: E402,F401
+
+
+def scheduler_options():
+    """Fleet-scheduler env contract (the reference's docs/operations.md
+    "TPU fleet scheduler" + "Elastic fleet"). The on/off switch itself is
+    KFTPU_SCHEDULER, read by kubeflow_tpu_torch.scheduler.scheduler_enabled;
+    the elastic subsystem has its own KFTPU_ELASTIC (and KFTPU_DEFRAG)
+    underneath it."""
+    from kubeflow_tpu_torch.migration import protocol as migration
+    from kubeflow_tpu_torch.scheduler import elastic
+    from kubeflow_tpu_torch.scheduler.runtime import SchedulerOptions
+
+    weights: dict[str, float] = {}
+    for entry in env_str("KFTPU_SCHEDULER_WEIGHTS", "").split(","):
+        name, sep, value = entry.strip().partition("=")
+        if not sep or not name:
+            continue
+        try:
+            weights[name] = float(value)
+        except ValueError:
+            continue
+    return SchedulerOptions(
+        fleet_spec=env_str("KFTPU_FLEET", "").strip(),
+        fleet_configmap=os.environ.get("KFTPU_FLEET_CONFIGMAP") or None,
+        controller_namespace=controller_namespace(),
+        weights=weights,
+        aging_seconds=env_float("KFTPU_SCHEDULER_AGING_SECONDS", 300.0),
+        starvation_reserve_seconds=env_float(
+            "KFTPU_SCHEDULER_STARVATION_SECONDS", 900.0),
+        enable_preemption=env_bool("KFTPU_SCHEDULER_PREEMPTION", True),
+        idle_preempt_after_seconds=env_float(
+            "KFTPU_SCHEDULER_IDLE_AFTER_SECONDS", 1800.0),
+        queued_requeue_seconds=env_float(
+            "KFTPU_SCHEDULER_QUEUED_REQUEUE_SECONDS", 10.0),
+        # Preempt-to-checkpoint (KFTPU_MIGRATION, default on): preemption
+        # drains victims and frees their GPUs only on the checkpoint ack or
+        # the KFTPU_DRAIN_GRACE deadline. The dataclass default is off so
+        # bare construction keeps immediate-stop semantics; production
+        # gets it from here.
+        enable_migration=migration.migration_enabled(),
+        drain_grace_seconds=migration.drain_grace_seconds(),
+        # Checkpoint fabric (KFTPU_COMMIT_GRACE, defaults to the drain
+        # grace): how long the post-ack background upload may run before
+        # the park is marked commit-dirty.
+        commit_grace_seconds=migration.commit_grace_seconds(),
+        # Elastic fleet (KFTPU_ELASTIC, default on): scale-up intents,
+        # flex placement, spot reclaim, defrag. =off restores the
+        # pre-elastic scheduler byte-for-byte; KFTPU_DEFRAG=off disables
+        # only the defragmenter.
+        enable_elastic=elastic.elastic_enabled(),
+        enable_defrag=elastic.defrag_enabled(),
+        scale_up_ttl_seconds=env_float(
+            "KFTPU_SCALE_UP_TTL", elastic.DEFAULT_SCALE_UP_TTL_SECONDS),
+        defrag_interval_seconds=env_float(
+            "KFTPU_DEFRAG_INTERVAL",
+            elastic.DEFAULT_DEFRAG_INTERVAL_SECONDS),
+        defrag_idle_seconds=env_float(
+            "KFTPU_DEFRAG_IDLE_SECONDS",
+            elastic.DEFAULT_DEFRAG_IDLE_SECONDS),
+        defrag_max_moves=int(env_float(
+            "KFTPU_DEFRAG_MAX_MOVES", elastic.DEFAULT_DEFRAG_MAX_MOVES)),
+        fleet_refresh_seconds=env_float("KFTPU_FLEET_REFRESH_SECONDS",
+                                        30.0),
+    )
+
+
+def warm_pool_options():
+    """Warm pod pools env contract (docs/operations.md "Warm pools &
+    cold-start"). No KFTPU_WARM_POOLS spec and no ConfigMap source means
+    the whole subsystem is off — the cold path byte-for-byte."""
+    from kubeflow_tpu_torch.controllers.warmpool import (
+        DEFAULT_REPLENISH_SECONDS,
+        WarmPoolOptions,
+    )
+
+    return WarmPoolOptions(
+        spec=env_str("KFTPU_WARM_POOLS", "").strip(),
+        configmap=os.environ.get("KFTPU_WARM_POOLS_CONFIGMAP") or None,
+        controller_namespace=controller_namespace(),
+        replenish_seconds=env_float("KFTPU_WARM_REPLENISH_SECONDS",
+                                    DEFAULT_REPLENISH_SECONDS),
+        refresh_seconds=env_float("KFTPU_FLEET_REFRESH_SECONDS", 30.0),
+    )

@@ -1,5 +1,6 @@
 """Reconcilers of the port's notebook control plane (the counterpart of
-``kubeflow_tpu.controllers``; the notebook controller alone so far).
+``kubeflow_tpu.controllers``: the notebook and profile controllers and
+the warm pod pools so far).
 
 One module per controller, mirroring the reference's component split
 (SURVEY.md §2.1) but collapsed to a single manager process — the reference's

@@ -35,15 +35,16 @@ TPU-native redesign this keeps; only the accelerator layer differs):
   an NCCL world cannot take back a restarted rank, so the reconciler
   deletes *all* worker pods when any of them enters a terminal failure
   state and lets the StatefulSet rebuild the slice.
-- The fleet scheduler and the warm pod pools are not ported yet:
-  :func:`setup_notebook_controller` wires neither and refuses a setup
-  that asks for one.
+- The capacity stage asks the GPU fleet scheduler
+  (:mod:`kubeflow_tpu_torch.scheduler`) for gang admission, and a
+  single-node gang may be placed on a warm pod
+  (:mod:`kubeflow_tpu_torch.controllers.warmpool`); both are wired in
+  :func:`setup_notebook_controller` as the reference wires them.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import time
 from dataclasses import dataclass
 
@@ -497,9 +498,9 @@ class NotebookReconciler:
         return capacity_pending, capacity_requeue, admission, warm
 
     async def _scheduler_gate(self, nb: dict, ms):
-        """Consult the TPU fleet scheduler (the ``schedule``/``admit``/
+        """Consult the GPU fleet scheduler (the ``schedule``/``admit``/
         ``preempt`` spans live inside it). Returns the current
-        :class:`~kubeflow_tpu.scheduler.runtime.Admission`, or None when
+        :class:`~kubeflow_tpu_torch.scheduler.runtime.Admission`, or None when
         no scheduler is wired / no fleet is configured / the notebook is
         CPU-only — all of which mean "admit unconditionally".
 
@@ -2404,7 +2405,7 @@ def _scheduler_condition(sched_status: dict) -> dict:
     state = sched_status["state"]
     if state == "Queued":
         message = (f"position {sched_status.get('position', 0)}, waiting "
-                   f"for {sched_status.get('waitingChips', 0)} TPU chips")
+                   f"for {sched_status.get('waitingChips', 0)} GPUs")
     elif state == "Preempted":
         message = (f"preempted ({sched_status.get('reason', 'reclaimed')}); "
                    "restart to re-queue")
@@ -2412,12 +2413,12 @@ def _scheduler_condition(sched_status: dict) -> dict:
         message = (f"checkpointing before preemption "
                    f"({sched_status.get('reason', 'reclaimed')})")
     else:
-        message = "admitted by the TPU fleet scheduler"
+        message = "admitted by the GPU fleet scheduler"
     return {
         "type": state,
         "status": "True",
         "lastProbeTime": now_iso(),
-        "reason": "TpuFleetScheduler",
+        "reason": "GpuFleetScheduler",
         "message": message,
     }
 
@@ -2485,45 +2486,18 @@ def event_to_notebook(event: dict) -> list[tuple]:
     return [(event.get("metadata", {}).get("namespace"), base)]
 
 
-# The env that asks the reference's manager for a fleet scheduler or warm
-# pod pools (cmd/envconfig.py scheduler_options / warm_pool_options).
-FLEET_ENVS = ("KFTPU_FLEET", "KFTPU_FLEET_CONFIGMAP")
-WARM_POOL_ENVS = ("KFTPU_WARM_POOLS", "KFTPU_WARM_POOLS_CONFIGMAP")
-_NOT_PORTED = ("kubeflow_tpu_torch has no {what} in GPU units yet "
-               "(ROADMAP.md queue 1, item 11); a notebook must not spawn "
-               "without the gang admission that was asked for")
-
-
-def _refuse_unported(scheduler, warmpool) -> None:
-    """The fleet scheduler and the warm pod pools are not ported: a setup
-    that asks for either (an argument, or the env the reference reads)
-    raises instead of spawning gangs past an admission it skipped."""
-    if scheduler is not None:
-        raise NotImplementedError(
-            "setup_notebook_controller(scheduler=...): "
-            + _NOT_PORTED.format(what="fleet scheduler"))
-    if warmpool is not None:
-        raise NotImplementedError(
-            "setup_notebook_controller(warmpool=...): "
-            + _NOT_PORTED.format(what="warm pod pool"))
-    for envs, what in ((FLEET_ENVS, "fleet scheduler"),
-                       (WARM_POOL_ENVS, "warm pod pool")):
-        for env in envs:
-            if os.environ.get(env, "").strip():
-                raise NotImplementedError(
-                    f"{env} is set: " + _NOT_PORTED.format(what=what))
+_SCHEDULER_FROM_ENV = object()  # sentinel: build from KFTPU_* env vars
+_WARMPOOL_FROM_ENV = object()   # sentinel: build from KFTPU_WARM_POOLS
 
 
 def setup_notebook_controller(
     mgr: Manager, options: NotebookOptions | None = None,
-    *, scheduler=None, warmpool=None,
+    *, scheduler=_SCHEDULER_FROM_ENV, warmpool=_WARMPOOL_FROM_ENV,
 ) -> NotebookReconciler:
-    """Wire the reconciler onto the manager. With no fleet and no warm
-    pools (the reference's behaviour without ``KFTPU_FLEET`` and
-    ``KFTPU_WARM_POOLS``) admission passes through and every notebook
-    takes the cold path; asking for either raises
-    ``NotImplementedError``."""
-    _refuse_unported(scheduler, warmpool)
+    """Wire the reconciler onto the manager. Without arguments the fleet
+    scheduler and the warm pod pools come from ``KFTPU_*`` (with no fleet
+    configured, admission passes through; with no ``KFTPU_WARM_POOLS``,
+    every notebook takes the cold path); ``None`` wires neither."""
     rec = NotebookReconciler(mgr.kube, options, registry=mgr.registry)
     # Durable lifecycle timelines + SLO feeds (runtime/{timeline,slo}.py)
     # ride the manager's shared recorder/engine.
@@ -2531,6 +2505,43 @@ def setup_notebook_controller(
     # /debug/telemetry data source: the reconciler's per-notebook fold of
     # the telemetry annotation.
     mgr.telemetry = rec.telemetry_debug_info
+    if scheduler is _SCHEDULER_FROM_ENV:
+        # KFTPU_SCHEDULER=off is the kill switch: the capacity stage then
+        # runs exactly the pre-scheduler gate. On (default), the
+        # scheduler stays a transparent pass-through until a fleet is
+        # configured (KFTPU_FLEET / ConfigMap / node inference).
+        from kubeflow_tpu_torch.scheduler import scheduler_enabled
+
+        if scheduler_enabled():
+            from kubeflow_tpu_torch.cmd.envconfig import scheduler_options
+            from kubeflow_tpu_torch.scheduler import GpuFleetScheduler
+
+            scheduler = GpuFleetScheduler(
+                mgr.kube, scheduler_options(), registry=mgr.registry)
+        else:
+            scheduler = None
+    rec._scheduler = scheduler
+    if warmpool is _WARMPOOL_FROM_ENV:
+        # Warm pod pools: no KFTPU_WARM_POOLS spec (and no ConfigMap
+        # source) means no manager at all — the claim gate is a None
+        # check and the cold path is byte-for-byte untouched.
+        from kubeflow_tpu_torch.cmd.envconfig import warm_pool_options
+        from kubeflow_tpu_torch.controllers.warmpool import WarmPoolManager
+
+        wp_opts = warm_pool_options()
+        warmpool = (WarmPoolManager(mgr.kube, wp_opts,
+                                    registry=mgr.registry)
+                    if wp_opts.enabled else None)
+    rec._warmpool = warmpool
+    if warmpool is not None:
+        # One card ledger: every warm slot holds a scheduler reservation
+        # (the first preemption victim), and the scheduler's teardown
+        # callback routes cannibalized slots back to the replenisher.
+        warmpool.scheduler = rec._scheduler
+        if rec._scheduler is not None:
+            rec._scheduler.on_warm_reclaimed(warmpool.note_reclaimed)
+        mgr.warmpool = warmpool
+        mgr.add_background(warmpool.run_replenisher)
     owned_kinds = ["StatefulSet", "Service"] + (
         ["VirtualService"] if rec.opts.use_istio else [])
     mgr.add_controller(
@@ -2560,6 +2571,33 @@ def setup_notebook_controller(
     rec._sts_informer = mgr.informer_for("StatefulSet")
     rec._nb_informer = mgr.informer_for("Notebook")
     rec._nb_informer.add_indexer(NAMESPACE_INDEX, index_by_namespace)
+    if rec._scheduler is not None:
+        # A freshly admitted (or preempted) gang reconciles NOW — the
+        # queued requeue_after is only the safety net. The Notebook
+        # informer saves the scheduler a GET when it events a peer.
+        rec._scheduler.on_admitted(lambda key: mgr.enqueue("notebook", key))
+        rec._scheduler._nb_informer = rec._nb_informer
+        if getattr(rec._scheduler.options, "fleet_spec", "") == "auto":
+            rec._scheduler._node_informer = mgr.informer_for("Node")
+        if getattr(rec._scheduler.options, "enable_elastic", False):
+            # Elastic fleet: spot pools are reclaim-aware — the
+            # revocation signal is a Node taint, so the scheduler needs
+            # node events even for env/ConfigMap fleets (the auto
+            # informer above only exists for label inference). The
+            # informer handle also lets a lazily-activated fleet
+            # re-scan cached nodes for signals its handler dropped
+            # pre-activation.
+            rec._scheduler._node_informer = mgr.informer_for("Node")
+            sched_ref = rec._scheduler
+
+            def spot_node_handler(event: str, node: dict) -> None:
+                if event == "DELETED":
+                    sched_ref.note_node_gone(node)
+                else:
+                    sched_ref.note_node_event(node)
+
+            mgr.informer_for("Node").add_handler(spot_node_handler)
+        mgr.scheduler = rec._scheduler
     rec._pod_informer = mgr.informer_for("Pod")
     rec._pod_informer.add_indexer(
         NB_POD_INDEX, index_by_label(nbapi.NOTEBOOK_NAME_LABEL))

@@ -19,8 +19,11 @@ carries what ``torchrun`` reads with no flags:
   ordinal`` (the counterpart of ``JAX_PROCESS_ID``); the per-ordinal
   webhook (``webhooks/gpu.py``) injects it;
 - ``PET_NPROC_PER_NODE``: the cards a node;
-- ``PET_MASTER_ADDR`` / ``PET_MASTER_PORT``: the rendezvous, node 0 of
-  slice 0 through the headless Service, on torchrun's default port.
+- ``PET_MASTER_ADDR`` / ``PET_MASTER_PORT``: the rendezvous on
+  torchrun's default port: node 0 of slice 0 through the headless
+  Service, or the loopback address where the whole slice set is one node
+  (the controller creates the headless Service for multi-node shapes
+  only, so a one-node gang's own DNS name never resolves).
 
 ``torchrun`` gives each child ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT``; a process launched per card by other
@@ -46,6 +49,8 @@ GPU_RESOURCE = "nvidia.com/gpu"
 
 # torchrun's default --master-port, where node 0 serves the rendezvous.
 MASTER_PORT = 29500
+# The rendezvous of a slice set of one node: its own loopback.
+LOOPBACK_ADDR = "127.0.0.1"
 
 NNODES_ENV = "PET_NNODES"
 NODE_RANK_ENV = "PET_NODE_RANK"
@@ -234,7 +239,8 @@ class GpuSlice:
             NPROC_PER_NODE_ENV: str(self.chips_per_host),
         }
         if hostnames:
-            env[MASTER_ADDR_ENV] = hostnames[0]
+            env[MASTER_ADDR_ENV] = (LOOPBACK_ADDR if self.num_hosts == 1
+                                    else hostnames[0])
             env[MASTER_PORT_ENV] = str(MASTER_PORT)
             env[NNODES_ENV] = str(self.num_hosts)
             env[NODE_RANK_ENV] = str(worker_id)

@@ -13,15 +13,14 @@ accidental restart doesn't bounce one pod, it bounces every node of the
 slice and re-forms the whole ``torch.distributed`` world.
 
 The port of ``kubeflow_tpu/webhooks/notebook.py``. Its capacity gate
-checks the namespace's card quota (Profile ``spec.gpuQuota``); the
-reference's second ceiling, the configured fleet, needs the fleet
-scheduler, which the port does not have yet: ``register.register_all``
-refuses a fleet source rather than admit gangs it would refuse.
+checks the namespace's card quota (Profile ``spec.gpuQuota``) and the
+declared GPU fleet's ceiling for the gang's shape.
 """
 
 from __future__ import annotations
 
 import time
+import os
 import weakref
 
 from kubeflow_tpu_torch.api import notebook as nbapi
@@ -30,9 +29,9 @@ from kubeflow_tpu_torch.runtime.objects import annotations_of, deep_get, deepcop
 
 UPDATE_PENDING_ANNOTATION = nbapi.UPDATE_PENDING_ANNOTATION
 
-# Fleet source knobs of the reference's fleet scheduler (docs/operations.md
-# "TPU fleet scheduler"): the port has no scheduler to read them, so
-# register_all refuses them (webhooks/register.py).
+# Fleet source knobs, shared with scheduler_options()/the scheduler
+# runtime (the reference's docs/operations.md "TPU fleet scheduler"): the
+# webhook reads them directly because admission runs in its own process.
 FLEET_ENV = "KFTPU_FLEET"
 FLEET_CONFIGMAP_ENV = "KFTPU_FLEET_CONFIGMAP"
 
@@ -81,10 +80,15 @@ def mutate(nb: dict, info: dict) -> None:
 # ---- capacity fast-fail ------------------------------------------------------
 #
 # A card request that can NEVER be satisfied must die at admission with an
-# actionable message, not sit behind a ResourceQuota forever. The
-# namespace's Profile ``spec.gpuQuota`` (the per-tenant card ceiling the
-# profile controller materialises as a ResourceQuota) is checkable
-# synchronously.
+# actionable message, not sit in the fleet scheduler's queue (or behind a
+# ResourceQuota) forever. Two ceilings are checkable synchronously:
+#
+# - the namespace's Profile ``spec.gpuQuota`` (the per-tenant card
+#   ceiling the profile controller materialises as a ResourceQuota);
+# - the configured fleet's whole-cluster capacity for the requested slice
+#   shape (``KFTPU_FLEET`` — an auto-inferred fleet is deliberately NOT
+#   checked here: node pools come and go, and a transient empty fleet
+#   must not reject CRs that would queue and then run).
 #
 # CREATE-only: rejecting UPDATEs against a later-lowered ceiling would
 # freeze the controller's own annotation/status patches on the CR.
@@ -100,8 +104,8 @@ async def validate_capacity(kube, nb: dict) -> None:
     cards = ms.num_chips
     if ns and kube is not None:
         # Profiles are cluster-scoped and named after their namespace.
-        # TTL-cached: an admission burst must not GET the same Profile
-        # once per CREATE.
+        # TTL-cached like the fleet ConfigMap: an admission burst must
+        # not GET the same Profile once per CREATE.
         profile = await _ttl_cached(
             _profile_cache, kube, ns,
             lambda: kube.get_or_none("Profile", ns))
@@ -113,8 +117,76 @@ async def validate_capacity(kube, nb: dict) -> None:
                 f"namespace ceiling (Profile {ns} spec.gpuQuota) is "
                 f"{quota} — shrink spec.gpu.topology/numSlices or raise "
                 "the quota")
+    from kubeflow_tpu_torch.scheduler import scheduler_enabled
+
+    if not scheduler_enabled():
+        # KFTPU_SCHEDULER=off must restore the pre-scheduler behavior
+        # end to end: a stale KFTPU_FLEET left in the deployment env
+        # must not keep rejecting CRs the capacity gate would run.
+        return
+    fleet = await _declared_fleet(kube)
+    if fleet is not None and fleet.pools:
+        acc = ms.slice.accelerator.name
+        topo = ms.slice.topology_str
+        ceiling = fleet.total_slices(acc, topo)
+        if ceiling < ms.num_slices and not _flex_schedulable(fleet, ms):
+            detail = (
+                f"no configured node pool hosts {acc}:{topo} slices"
+                if ceiling == 0 else
+                f"the fleet holds at most {ceiling} {acc}:{topo} "
+                f"slice(s), the gang needs {ms.num_slices}")
+            raise Invalid(
+                f"Notebook {name}: can never be scheduled — {detail}. "
+                "Pick a shape from the configured fleet (KFTPU_FLEET) "
+                "or reduce spec.gpu.numSlices")
 
 
+def _flex_schedulable(fleet, ms) -> bool:
+    """With the elastic fleet on, a single-node gang can borrow a node
+    from a same-accelerator pool (scheduler/elastic.py flex placement) —
+    the shape ceiling alone must not fast-fail it. One shared predicate
+    (elastic.flex_capable) keeps this aligned with the scheduler's own
+    eligibility rule."""
+    from kubeflow_tpu_torch.scheduler import elastic
+
+    if not elastic.elastic_enabled():
+        return False
+    return elastic.flex_capable(fleet, ms.slice,
+                                num_slices=ms.num_slices)
+
+
+async def _declared_fleet(kube):
+    """The operator-declared fleet for the fast-fail ceiling: the
+    KFTPU_FLEET env spec, else the KFTPU_FLEET_CONFIGMAP ConfigMap
+    (TTL-cached — admission bursts must not GET it per CREATE). An
+    auto-inferred fleet (`KFTPU_FLEET=auto`) is deliberately excluded:
+    node pools come and go, and a transiently empty fleet must not
+    reject CRs that would queue and then run. Returns None when nothing
+    is declared or the spec is broken (a bad spec must not block
+    admissions)."""
+    from kubeflow_tpu_torch.scheduler.fleet import Fleet, FleetConfigError
+    from kubeflow_tpu_torch.scheduler.runtime import load_fleet_from_configmap
+
+    spec = os.environ.get(FLEET_ENV, "").strip()
+    if spec == "auto":
+        return None
+    if not spec:
+        configmap = os.environ.get(FLEET_CONFIGMAP_ENV)
+        if not configmap or kube is None:
+            return None
+        from kubeflow_tpu_torch.runtime.deployment import controller_namespace
+
+        ns = controller_namespace()
+        return await _ttl_cached(
+            _fleet_cache, kube, (ns, configmap),
+            lambda: load_fleet_from_configmap(kube, configmap, ns))
+    try:
+        return Fleet.parse(spec)
+    except FleetConfigError:
+        return None
+
+
+_fleet_cache: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 _profile_cache: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
@@ -159,7 +231,7 @@ _catalog_cache: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 async def _ttl_cached(cache, kube, key, loader):
     """Per-client TTL memo for ConfigMap-backed admission lookups (the
-    image catalog and the Profile quota share it). Weak client
+    image catalog and the declared-fleet ceiling share it). Weak client
     keys so a test's FakeKube doesn't pin stale entries for the next
     test; a non-weakrefable client just skips caching."""
     now = time.monotonic()

@@ -10,15 +10,10 @@ PodDefault set for ``TPU_WORKER_ID`` or ``PET_NODE_RANK``).
 The chain holds the kinds the port has controllers or consumers for:
 Notebook, PodDefault and Profile. The reference also registers
 Tensorboard, PVCViewer and (with ``KFTPU_SERVING`` on) InferenceService;
-those come with their controllers. A fleet source (``KFTPU_FLEET`` or
-``KFTPU_FLEET_CONFIGMAP``) is refused here: the reference's capacity gate
-reads it through the fleet scheduler, which the port does not have yet,
-and admitting gangs that fleet would refuse is not the same result.
+those come with their controllers.
 """
 
 from __future__ import annotations
-
-import os
 
 from kubeflow_tpu_torch.api import notebook as nbapi
 from kubeflow_tpu_torch.api import poddefault as pdapi
@@ -34,15 +29,6 @@ def register_all(kube) -> None:
     ``kube.add_mutator(kind_glob, fn)`` / ``add_validator`` — fns may be sync
     or async, called with (obj, request_info).
     """
-    for env in (nb_webhook.FLEET_ENV, nb_webhook.FLEET_CONFIGMAP_ENV):
-        if os.environ.get(env, "").strip():
-            raise NotImplementedError(
-                f"{env} is set, but the fleet half of the notebook capacity "
-                "gate needs the fleet scheduler in GPU units, which "
-                "kubeflow_tpu_torch does not have yet (ROADMAP.md queue 1, "
-                "item 11); unset it to admit against the Profile's "
-                "spec.gpuQuota alone")
-
     # CR defaulting (mutators run before validators). The Notebook mutator
     # also enforces restart blocking (webhooks/notebook.py).
     kube.add_mutator("Notebook", nb_webhook.mutate)
@@ -64,9 +50,10 @@ def register_all(kube) -> None:
     kube.add_mutator("Profile", profile_normalizer)
 
     # CR validation. Notebooks additionally fast-fail (CREATE only) when
-    # the card request can never fit the namespace gpuQuota ceiling
-    # (webhooks/notebook.py validate_capacity) — an impossible gang must
-    # be rejected with an actionable message, not queue forever.
+    # the card request can never fit the namespace gpuQuota ceiling or
+    # the configured GPU fleet (webhooks/notebook.py validate_capacity)
+    # — an impossible gang must be rejected with an actionable message,
+    # not queue forever.
     async def notebook_validator(nb: dict, info: dict) -> None:
         nbapi.validate(nb)
         if info.get("operation") in (None, "CREATE"):

@@ -109,6 +109,16 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/controllers/common.py",
             "kubeflow_tpu_torch/controllers/notebook.py",
             "kubeflow_tpu_torch/migration/__init__.py"} <= names
+    # The fleet scheduler in GPU units, the profile controller and the
+    # warm pod pools, with the trimmed copies they need.
+    assert {f"kubeflow_tpu_torch/scheduler/{m}.py" for m in (
+        "__init__", "fleet", "policy", "elastic", "runtime")} <= names
+    assert {"kubeflow_tpu_torch/controllers/profile.py",
+            "kubeflow_tpu_torch/controllers/warmpool.py",
+            "kubeflow_tpu_torch/cmd/__init__.py",
+            "kubeflow_tpu_torch/cmd/envconfig.py",
+            "kubeflow_tpu_torch/api/inferenceservice.py",
+            "kubeflow_tpu_torch/utils/fswatch.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -148,7 +158,12 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.testing.fakekube, "
             "kubeflow_tpu_torch.testing.podsim, "
             "kubeflow_tpu_torch.runtime.sharding, "
-            "kubeflow_tpu_torch.api.convert, kubeflow_tpu_torch.migration; "
+            "kubeflow_tpu_torch.api.convert, kubeflow_tpu_torch.migration, "
+            "kubeflow_tpu_torch.scheduler, kubeflow_tpu_torch.cmd.envconfig, "
+            "kubeflow_tpu_torch.controllers.profile, "
+            "kubeflow_tpu_torch.controllers.warmpool, "
+            "kubeflow_tpu_torch.api.inferenceservice, "
+            "kubeflow_tpu_torch.utils.fswatch; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu', 'ml_dtypes')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

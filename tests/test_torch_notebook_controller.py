@@ -8,9 +8,11 @@ The cases of tests/test_notebook_controller.py (spawn, resources and
 selectors, distinct worker ids, the stop annotation, the slice-atomic
 restart, pod events, Istio, the invalid spec, PodDefaults) and of
 tests/test_multislice.py (one StatefulSet a slice, the gang restart, the
-scale-in GC) with the same asserts on GPU shapes, then admission, queued
-provisioning, the suspend drain, and a world formed from the env the
-pods were admitted with.
+scale-in GC) with the same asserts on GPU shapes, then admission, the
+fleet and warm-pool sources each building its GPU fleet scheduler or
+warm pod pool at registration and setup, queued provisioning, the
+suspend drain, and a world formed from the env the pods were admitted
+with.
 """
 
 import time
@@ -31,6 +33,7 @@ from kubeflow_tpu_torch.migration import protocol as migration
 from kubeflow_tpu_torch.runtime.errors import Invalid
 from kubeflow_tpu_torch.runtime.manager import Manager
 from kubeflow_tpu_torch.runtime.objects import deep_get, fmt_iso, get_meta, name_of
+from kubeflow_tpu_torch.scheduler import Fleet
 from kubeflow_tpu_torch.testing.fakekube import FakeKube
 from kubeflow_tpu_torch.webhooks import register_all
 from torch_control import clear_kftpu_env, free_port, make_harness, run_workers
@@ -464,28 +467,91 @@ def test_a_malformed_gpu_block_raises_invalid(gpu):
         nbapi.validate(nb)
 
 
+FLEET = f"a={H100}:1x8:1"
+
+
+async def _fleet_source(monkeypatch, kube, env):
+    """Point ``env`` at a one-node fleet: the spec itself, or a ConfigMap
+    in the controller namespace holding it."""
+    if env == "KFTPU_FLEET_CONFIGMAP":
+        await kube.create("ConfigMap", {
+            "apiVersion": "v1", "kind": "ConfigMap",
+            "metadata": {"name": "kftpu-fleet", "namespace": "kubeflow-tpu"},
+            "data": {"fleet": FLEET}})
+        monkeypatch.setenv(env, "kftpu-fleet")
+    else:
+        monkeypatch.setenv(env, FLEET)
+
+
 @pytest.mark.parametrize("env", ["KFTPU_FLEET", "KFTPU_FLEET_CONFIGMAP"])
-def test_a_fleet_source_is_refused_at_registration(monkeypatch, env):
-    monkeypatch.setenv(env, "pool-a=v5e:4x4:1")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        register_all(FakeKube())
+async def test_a_fleet_source_fast_fails_a_gang_it_can_never_hold(
+        monkeypatch, env):
+    kube = FakeKube()
+    await _fleet_source(monkeypatch, kube, env)
+    monkeypatch.setenv("KFTPU_ELASTIC", "off")
+    register_all(kube)
+    with pytest.raises(Invalid, match=f"no configured node pool hosts "
+                       f"{H100}:2x8 slices"):
+        await kube.create("Notebook", nbapi.new(
+            "big", "ns", accelerator=H100, topology="2x8"))
+    await kube.create("Notebook", nbapi.new(
+        "fits", "ns", accelerator=H100, topology="1x8"))
 
 
 @pytest.mark.parametrize("env", ["KFTPU_FLEET", "KFTPU_FLEET_CONFIGMAP",
                                  "KFTPU_WARM_POOLS",
                                  "KFTPU_WARM_POOLS_CONFIGMAP"])
-def test_a_fleet_or_warm_pool_is_refused_at_setup(monkeypatch, env):
-    monkeypatch.setenv(env, "x")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        setup_notebook_controller(Manager(FakeKube()))
+async def test_each_env_source_builds_its_scheduler_or_warm_pool(
+        monkeypatch, env):
+    from kubeflow_tpu_torch.controllers.warmpool import WarmPoolManager
+    from kubeflow_tpu_torch.scheduler import GpuFleetScheduler
+
+    kube = FakeKube()
+    if env.startswith("KFTPU_WARM"):
+        monkeypatch.setenv(env, f"ns/img@{H100}:1x1:1"
+                           if env == "KFTPU_WARM_POOLS" else "warm-pools")
+    else:
+        await _fleet_source(monkeypatch, kube, env)
+    mgr = Manager(kube)
+    rec = setup_notebook_controller(mgr)
+    assert isinstance(rec._scheduler, GpuFleetScheduler)
+    assert mgr.scheduler is rec._scheduler
+    if env.startswith("KFTPU_WARM"):
+        assert isinstance(rec._warmpool, WarmPoolManager)
+        assert mgr.warmpool is rec._warmpool
+        assert rec._warmpool.scheduler is rec._scheduler
+        assert rec._warmpool.options.enabled
+    else:
+        assert rec._warmpool is None
+        # The env spec is read at construction, the ConfigMap on the
+        # first admission.
+        assert rec._scheduler.active == (env == "KFTPU_FLEET")
+        assert await rec._scheduler._ensure_fleet()
+        assert rec._scheduler.policy.fleet == Fleet.parse(FLEET)
 
 
 @pytest.mark.parametrize("arg", ["scheduler", "warmpool"])
-def test_a_scheduler_or_warm_pool_argument_is_refused(arg):
-    mgr = Manager(FakeKube())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        setup_notebook_controller(mgr, **{arg: object()})
-    assert not mgr.controllers
+def test_each_argument_is_wired(arg):
+    from kubeflow_tpu_torch.controllers.warmpool import (WarmPoolManager,
+                                                         WarmPoolOptions)
+    from kubeflow_tpu_torch.scheduler import GpuFleetScheduler, SchedulerOptions
+
+    kube = FakeKube()
+    mgr = Manager(kube)
+    given = (GpuFleetScheduler(kube, SchedulerOptions(fleet_spec=FLEET))
+             if arg == "scheduler" else
+             WarmPoolManager(kube, WarmPoolOptions(
+                 spec=f"ns/img@{H100}:1x1:1")))
+    rec = setup_notebook_controller(mgr, **{arg: given})
+    assert getattr(rec, f"_{arg}") is given
+    assert [c.name for c in mgr.controllers] == ["notebook"]
+    if arg == "scheduler":
+        assert mgr.scheduler is given and rec._warmpool is None
+    else:
+        # The scheduler the setup built from the env, one ledger for both.
+        assert isinstance(rec._scheduler, GpuFleetScheduler)
+        assert given.scheduler is rec._scheduler
+        assert mgr.warmpool is given
 
 
 # ---- queued provisioning and the drain ---------------------------------------

@@ -136,6 +136,24 @@ def test_worker_env_per_node():
         0, [])
 
 
+@pytest.mark.parametrize("shape,num_slices,want", [
+    ("1x1", 1, "loopback"), ("1x2", 1, "loopback"), ("1x4", 1, "loopback"),
+    ("1x8", 1, "loopback"), ("2x8", 1, "node 0"), ("1x8", 2, "node 0"),
+    ("4x8", 2, "node 0")])
+def test_a_one_node_slice_set_rendezvous_on_its_loopback(shape, num_slices,
+                                                         want):
+    """A slice set of one node has no headless Service (the controller
+    creates it for multi-node shapes only), so its rendezvous is its own
+    loopback; a set of several nodes dials node 0 of slice 0."""
+    ms = MultiSlice.parse(H100, shape, num_slices)
+    hosts = ms.worker_hostnames("nb", "nb-workers", "team")
+    addrs = {ms.worker_env(j, i, hosts)["PET_MASTER_ADDR"]
+             for j in range(num_slices) for i in range(ms.slice.num_hosts)}
+    assert addrs == {topology.LOOPBACK_ADDR if want == "loopback"
+                     else hosts[0][0]}
+    assert (ms.total_hosts == 1) == (want == "loopback")
+
+
 @pytest.mark.parametrize("num_slices,jax_shape,gpu_shape",
                          [(1, "4x4", "2x8"), (2, "4x4", "2x8"),
                           (3, "4x8", "4x8"), (2, "2x4", "1x8")])

@@ -84,18 +84,25 @@ class Harness:
             await asyncio.sleep(0.01)
 
 
-async def make_harness(pkg: str = PORT, *, sim_kwargs=None,
+async def make_harness(pkg: str = PORT, *, sim_kwargs=None, wire=None,
                        **opts) -> Harness:
+    """``wire(kube, mgr)`` returns the keyword arguments of
+    ``setup_notebook_controller`` (a scheduler, a warm pool); without it
+    the setup reads them from ``KFTPU_*`` as the reference's manager
+    does."""
     m = modules(pkg)
     kube = m.fakekube.FakeKube()
     m.webhooks.register_all(kube)
     mgr = m.manager.Manager(kube, registry=m.metrics.Registry())
-    m.controller.setup_notebook_controller(
-        mgr, m.controller.NotebookOptions(**opts))
+    rec = m.controller.setup_notebook_controller(
+        mgr, m.controller.NotebookOptions(**opts),
+        **(wire(kube, mgr) if wire is not None else {}))
     sim = m.podsim.PodSimulator(kube, **(sim_kwargs or {}))
     await mgr.start()
     await sim.start()
-    return Harness(pkg, kube, mgr, sim)
+    h = Harness(pkg, kube, mgr, sim)
+    h.rec = rec
+    return h
 
 
 def free_port() -> int:
