@@ -278,13 +278,49 @@ last line. With no CUDA device it exits 1 and prints no result.
    re-admitted when the taint clears, the ledger consistent after every
    arbitration pass. Launches: (a)'s one forward, dQ and dK/dV per layer
    and step, and (b)'s one forward.
+33. serving_control (right after fleet) — the culling controller and the
+   serving controller on the card, over the fake apiserver with the
+   admission chain, a Profile with ``gpuQuota: 8``, and the notebook,
+   profile, InferenceService and culling controllers sharing one GPU
+   fleet scheduler (FLEET_SPEC, elastic on: the service's ``1x1``
+   replica borrows the ``1x8`` node), their options read from the env
+   (CULL_ENV: ``KFTPU_CULL_DRAIN`` on). (a) an InferenceService ``1x1``,
+   ``minReplicas 0``, ``maxReplicas 2``, with the gateway's load stamped:
+   replica 0 admitted through ``serving_admission``, ``svc-r0``
+   requesting ``nvidia.com/gpu: "1"``, its pod Running; a process started
+   with exactly that pod's env runs the ServingEngine at MODEL (cold start
+   from a seed), scores one fixed prompt batch and serves a burst trace.
+   (b) the last request backdated: the controller requests the park; the
+   process parks its engine and snapshots the parked weights into a
+   CheckpointFabric; the script acks with path, step and the request's
+   echo; the controller keeps ``svc-r0`` at 0 replicas, releases the
+   cards, stamps ``parked-at`` and a ``Parked`` Event with the step; the
+   process commits and exits. (d) meanwhile, on the freed node, a
+   ``1x8`` notebook whose in-pod CheckpointGuard runs ``fit`` at
+   CULL_MODEL on the card; the scripted Jupyter server turns reachable
+   with idle kernels an hour old: the culler must stamp
+   ``last-activity``, request a ``cull`` drain, and on the guard's ack
+   stop the notebook (0 replicas, cards released, checkpoint path and
+   step kept, 8 cards on ``gpu_cards_idle_culled_total``), with no
+   deadline fallback. (c) a new burst: replica 0 re-admitted with
+   ``KFTPU_RESTORE_CHECKPOINT_PATH`` / ``KFTPU_RESTORE_STEP`` naming the
+   fabric's directory and the acked step in its pod env; a second
+   process started with that env alone restores the weights through the
+   engine's parked state (no init): its fixed-batch logits must be
+   bitwise the first process's, and it serves the same trace. The
+   service is deleted and the ledger must be empty with 0 violations.
+   Host seconds for every mark, the processes' cold start, restore and
+   commit seconds, reconciles by controller and API requests by verb.
+   Launches: each process's (read in the process: per layer, two warm-up
+   scores, the fixed batch, every decode step and prefill chunk) and the
+   trainer's forward, dQ and dK/dV per layer and step.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
 ``pipelined_schedule``, ``wide_heads``, ``sharded``, ``checkpoint``,
-``fleet``,
+``fleet``, ``serving_control``,
 and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
 its 4 processes), and ``device_kernels``: the CUDA kernels behind each
 entry, by head dim and dtype), the script's wall seconds, the card line,
@@ -2263,12 +2299,15 @@ print(json.dumps({
 class ControlPlane:
     """The port's control plane (the fake apiserver with the admission
     chain, a manager running the notebook controller and optionally the
-    profile controller, the kubelet simulator) on an event loop of its
-    own thread. The card work stays on the main thread and reaches the
-    control plane through :meth:`call`; the loop never waits on the
-    card."""
+    profile controller, the InferenceService controller (``serving``)
+    and the culler (``prober``), their options read from the env as the
+    manager reads them, the kubelet simulator) on an event
+    loop of its own thread. The card work stays on the main thread and
+    reaches the control plane through :meth:`call`; the loop never waits
+    on the card."""
 
-    def __init__(self, scheduler, *, profiles=False, environ=None):
+    def __init__(self, scheduler, *, profiles=False, environ=None,
+                 serving=False, prober=None):
         import asyncio
         import threading
 
@@ -2276,7 +2315,8 @@ class ControlPlane:
         self.thread = threading.Thread(target=self.loop.run_forever,
                                        name="control-plane", daemon=True)
         self.thread.start()
-        self.call(self._start(scheduler, profiles, environ or {}))
+        self.call(self._start(scheduler, profiles, environ or {}, serving,
+                              prober))
 
     def call(self, coro, timeout: float = FLEET_TIMEOUT):
         import asyncio
@@ -2284,15 +2324,21 @@ class ControlPlane:
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
             timeout)
 
-    async def _start(self, scheduler, profiles, environ) -> None:
+    async def _start(self, scheduler, profiles, environ, serving,
+                     prober) -> None:
         import os
 
+        from kubeflow_tpu_torch.cmd import envconfig
+        from kubeflow_tpu_torch.controllers.culling import (
+            setup_culling_controller)
         from kubeflow_tpu_torch.controllers.notebook import (
             NotebookOptions, setup_notebook_controller)
         from kubeflow_tpu_torch.controllers.profile import (
             setup_profile_controller)
         from kubeflow_tpu_torch.runtime.manager import Manager
         from kubeflow_tpu_torch.runtime.metrics import Registry
+        from kubeflow_tpu_torch.serving.controller import (
+            setup_serving_controller)
         from kubeflow_tpu_torch.testing import FakeKube, PodSimulator
         from kubeflow_tpu_torch.webhooks import register_all
 
@@ -2301,10 +2347,17 @@ class ControlPlane:
         self.mgr = Manager(self.kube, registry=Registry())
         self.sched = scheduler(self.kube, self.mgr.registry)
         saved = {key: os.environ.get(key) for key in environ}
-        os.environ.update(environ)      # the setup reads them, once
+        os.environ.update(environ)      # the setups read them, once
         try:
             self.rec = setup_notebook_controller(
                 self.mgr, NotebookOptions(), scheduler=self.sched)
+            self.serving = None if not serving else \
+                setup_serving_controller(self.mgr,
+                                         envconfig.serving_options(),
+                                         scheduler=self.sched)
+            self.culler = None if prober is None else \
+                setup_culling_controller(self.mgr, prober,
+                                         envconfig.culling_options())
         finally:
             for key, value in saved.items():
                 if value is None:
@@ -2378,8 +2431,12 @@ class ControlPlane:
             await asyncio.sleep(0.01)
 
     def counts(self) -> dict:
-        return {"reconciles": self.mgr.reconcile_seconds.snapshot(
-                    controller="notebook")["count"],
+        by_controller = {
+            ctrl.name: self.mgr.reconcile_seconds.snapshot(
+                controller=ctrl.name)["count"]
+            for ctrl in self.mgr.controllers}
+        return {"reconciles": by_controller["notebook"],
+                "reconciles_by_controller": by_controller,
                 "api_requests_by_verb": dict(sorted(
                     self.kube.requests.items()))}
 
@@ -2828,9 +2885,13 @@ def _fleet_preempt(torch, fa, trainer, checkpoint, sdk, reuse) -> dict:
 
 
 def _counts_since(before: dict, after: dict) -> dict:
-    """Reconciles and API requests by verb between two ``counts()``."""
+    """Reconciles (the notebook controller's, and each controller's) and
+    API requests by verb between two ``counts()``."""
     was = before["api_requests_by_verb"]
     return {"reconciles": after["reconciles"] - before["reconciles"],
+            "reconciles_by_controller": {
+                name: n - before["reconciles_by_controller"].get(name, 0)
+                for name, n in after["reconciles_by_controller"].items()},
             "api_requests_by_verb": {
                 verb: n - was.get(verb, 0)
                 for verb, n in after["api_requests_by_verb"].items()
@@ -2920,6 +2981,584 @@ def phase_fleet(torch, fa, trainer, checkpoint, sdk, reuse, warm: dict,
     }
     if not all(checks.values()):
         raise AssertionError(f"fleet phase failed: {checks}")
+    return launches
+
+
+# ---- the serving_control phase: an InferenceService and the culler ----------
+
+# One H100 node (FLEET_SPEC), the one card standing for its eight; the
+# service's 1x1 replica borrows the node through the elastic flex
+# placement (the fleet has no 1x1 pool), so elastic is on and the
+# defragmenter off.
+SERVING_IDLE_SEC = 1.0          # the service's scaleToZeroAfterSeconds
+SERVING_TRACE = dict(seed=11, warm_rate=10.0, burst_rate=80.0, warm_sec=0.5,
+                     burst_sec=0.5, cool_sec=0.5, tokens_out=8,
+                     tokens_jitter=4, long_prompt_frac=0.05,
+                     long_prompt_tokens=96)
+SERVING_PROBE_SEED = 13
+# Part (d): the culled notebook's trainer, CKPT_MODEL at one layer (its
+# commit is then about half the checkpoint phase's), and the culler's env
+# as a manager reads it.
+CULL_MODEL = dict(CKPT_MODEL, n_layers=1)
+CULL_STEPS = 2
+CULL_ENV = {"ENABLE_CULLING": "true", "CULL_IDLE_TIME": "30",
+            "IDLENESS_CHECK_PERIOD": "0.05", "KFTPU_MIGRATION": "on",
+            "KFTPU_CULL_DRAIN": "on", "KFTPU_DRAIN_GRACE": str(FLEET_TIMEOUT),
+            "KFTPU_SERVING_AUTOSCALE_PERIOD": "0.2",
+            "KFTPU_SERVING_PARK_GRACE": str(FLEET_TIMEOUT),
+            "KFTPU_SERVING_STABILIZATION": "0.1"}
+
+# A serving replica's process: the replica pod's container, started with
+# the pod's env after admission and nothing else of the replica's own.
+# Without a restore hint in the env it cold-starts the engine from a seed;
+# with one (KFTPU_RESTORE_CHECKPOINT_PATH / KFTPU_RESTORE_STEP) it reads
+# the parked weights from that fabric directory and brings them in through
+# the engine's parked state (a warm restore: no init). Either way it scores
+# one fixed prompt batch (its last-position logits saved for the script),
+# serves a seeded burst trace, and prints one JSON line. A cold replica
+# then waits for "park" on stdin: the engine parks, the fabric snapshots
+# the parked weights (one line: the ack's path and step) and commits them
+# (one more line) before the process exits.
+SERVING_REPLICA_CHILD = r"""
+import json, os, sys, time
+started = time.time()
+import torch
+from kubeflow_tpu_torch import sdk
+from kubeflow_tpu_torch.checkpoint import CheckpointFabric
+from kubeflow_tpu_torch.migration import protocol as migration
+from kubeflow_tpu_torch.models import burnin
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.serving import engine as engine_mod
+from kubeflow_tpu_torch.serving import loadgen
+
+def say(obj):
+    print(json.dumps(obj), flush=True)
+
+spec = json.loads(os.environ["SMOKE_SERVING"])
+cfg = burnin.BurninConfig(**spec["model"])
+info = sdk.SliceInfo.from_env()
+torch.zeros(1, device=spec["device"])
+context_at = time.time()
+for name in ("LAUNCHES", "BWD_DQ_LAUNCHES", "BWD_DKV_LAUNCHES",
+             "PARTIAL_LAUNCHES"):
+    setattr(fa, name, 0)
+engine = engine_mod.ServingEngine(
+    cfg, max_batch=spec["max_batch"], device=spec["device"],
+    options=engine_mod.EngineOptions(prefill_chunk=spec["prefill_chunk"]))
+path = os.environ.get(migration.RESTORE_PATH_ENV)
+out = {"pid": os.getpid(), "restore_path": path,
+       "slice": {"processes": info.num_processes,
+                 "coordinator": info.coordinator_address,
+                 "accelerator": os.environ.get("KFTPU_ACCELERATOR")}}
+if path is None:
+    out["cold_start_sec"] = engine.cold_start(seed=0)
+else:
+    t0 = time.perf_counter()
+    fabric = CheckpointFabric(path)
+    host = fabric.restore(int(os.environ[migration.RESTORE_STEP_ENV]))
+    out["restore_tier"] = fabric.last_restore["tier"]
+    fabric.close()
+    out["fabric_read_sec"] = time.perf_counter() - t0
+    entry = engine.models.entry(engine_mod.DEFAULT_MODEL)
+    entry.host_params = host
+    entry.decode_fn, entry.prefill_fn = engine.models._build_fns(
+        cfg, engine.models.mesh)
+    engine._host_params, engine.parked = host, True
+    out["warm_restore_sec"] = engine.warm_restore()
+    out["restore_sec"] = time.perf_counter() - t0
+    out["cold_inits"] = engine.models.swaps_cold
+out["ready_at"] = time.time()
+gen = torch.Generator(device=spec["device"]).manual_seed(spec["probe_seed"])
+probe = torch.randint(0, cfg.vocab, (spec["max_batch"], cfg.seq_len),
+                      generator=gen, device=spec["device"])
+with torch.inference_mode():
+    logits = burnin.forward(engine._params, probe, cfg)[:, -1]
+first = logits.argmax(-1).cpu()
+out["first_token_at"] = time.time()
+torch.save(logits.cpu(), os.path.join(
+    spec["out"], "logits-%s.pt" % ("cold" if path is None else "warm")))
+trace = loadgen.burst_trace(**spec["trace"])
+report = engine.serve(trace)
+engine.kv.assert_consistent()
+if spec["device"] == "cuda":
+    torch.cuda.synchronize()
+out.update(
+    started_at=started, context_at=context_at, served_at=time.time(),
+    first_tokens=first.tolist(), requests=len(trace),
+    completed=len(report.completions), tokens=report.tokens,
+    steps=report.steps, prefill_chunks=report.prefill_chunks,
+    model_swaps=report.model_swaps,
+    p50_latency_sec=report.latency_percentile(0.5),
+    p99_latency_sec=report.latency_percentile(0.99),
+    kv_violations=engine.kv.violations,
+    launches={"fwd": fa.LAUNCHES, "dq": fa.BWD_DQ_LAUNCHES,
+              "dkv": fa.BWD_DKV_LAUNCHES, "partial": fa.PARTIAL_LAUNCHES},
+    weight_bytes=sum(t.numel() * t.element_size() for t in
+                     burnin.leaves(engine._params)))
+say(out)
+if path is None:
+    if sys.stdin.readline().strip() != "park":
+        raise SystemExit("expected the word park on stdin")
+    t0 = time.perf_counter()
+    parked = engine.park()
+    park_sec = time.perf_counter() - t0
+    fabric = CheckpointFabric(spec["park_dir"])
+    t0 = time.perf_counter()
+    handle = fabric.save_async(parked["step"], engine._host_params)
+    say({"path": fabric.directory, "step": parked["step"],
+         "park_sec": park_sec, "snapshot_sec": time.perf_counter() - t0})
+    say({"committed": handle.result(timeout=600),
+         "commit_sec": time.perf_counter() - t0})
+    fabric.close()
+"""
+
+
+class ReplicaProcess:
+    """One serving replica's process, its stdout lines read on a thread
+    of their own so that every wait has a deadline."""
+
+    def __init__(self, pod_env: dict, spec: dict):
+        import atexit
+        import queue
+        import tempfile
+        import threading
+        from pathlib import Path
+
+        env = _pod_process_env(pod_env)
+        env["SMOKE_SERVING"] = json.dumps(spec)
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SERVING_REPLICA_CHILD], env=env,
+            cwd=Path(__file__).parent, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.err, text=True,
+            start_new_session=True)
+        atexit.register(_stop_group, self.proc)
+        self.lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                self.lines.put(json.loads(line))
+        self.lines.put(None)
+
+    def line(self) -> dict:
+        import queue
+
+        try:
+            got = self.lines.get(timeout=SPAWN_TIMEOUT)
+        except queue.Empty:
+            got = None
+        if got is None:
+            _stop_group(self.proc)
+            self.err.seek(0)
+            raise AssertionError(f"serving replica process gave no line "
+                                 f"({self.proc.poll()}):\n{self.err.read()}")
+        return got
+
+    def tell(self, word: str) -> None:
+        self.proc.stdin.write(word + "\n")
+        self.proc.stdin.flush()
+
+    def wait(self) -> int:
+        try:
+            return self.proc.wait(timeout=SPAWN_TIMEOUT)
+        finally:
+            _stop_group(self.proc)
+
+
+def _serving_expected(cfg, child: dict) -> dict:
+    """A replica's launches: per layer, its engine's two warm-up scores
+    (decode and prefill shapes), the fixed batch, and every decode step
+    and prefill chunk it served."""
+    n = cfg.n_layers * (3 + child["steps"] + child["prefill_chunks"]
+                        + 2 * child["model_swaps"])
+    return {"fwd": n, "dq": 0, "dkv": 0, "partial": 0}
+
+
+def _cull_drain(torch, fa, burnin, trainer, data, checkpoint, sdk, plane,
+                jupyter: dict, tmp: str) -> dict:
+    """Part (d): a 1x8 notebook on the node the parked service freed; its
+    in-pod guard runs ``fit`` on the card; the scripted Jupyter server
+    turns reachable with idle kernels an hour old; the culler must stamp
+    the idle signal, request a ``cull`` drain, and stop the notebook on
+    the guard's ack."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.api import notebook as nbapi
+    from kubeflow_tpu_torch.models.tree import map_params
+
+    marks: dict = {}
+    plane.call(plane.kube.create("Notebook", _gpu_notebook("idle", "1x8")))
+
+    async def running():
+        pod = await plane.kube.get_or_none("Pod", "idle-0", "ns")
+        nb = await plane.kube.get_or_none("Notebook", "idle", "ns")
+        return ((pod or {}).get("status") or {}).get("phase") == "Running" \
+            and (((nb or {}).get("status") or {}).get("gpu") or {}).get(
+                "chips") == 8
+
+    plane.call(plane.wait_for(running, "the notebook running"))
+    cfg = burnin.BurninConfig(**CULL_MODEL)
+    tx = trainer.make_optimizer(trainer.TrainerConfig())
+    step = trainer.make_train_step(partial(burnin.loss_fn, cfg=cfg), tx)
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab, (CULL_STEPS * TRAIN_BATCH, cfg.seq_len), dtype=np.int64)
+    state = trainer.init_state(map_params(torch.clone, burnin.init_params(
+        cfg, seed=7, device="cuda")), tx)
+    loader = data.global_batches(data.prefetch(data.ShardedLoader(
+        data.ArraySource(tokens), TRAIN_BATCH, seed=4,
+        transform=lambda b: b[0])))
+    fabric = checkpoint.CheckpointFabric(
+        f"{tmp}/idle", save_interval_steps=10 ** 6)
+
+    def fetch():
+        return plane.call(plane.annotations("idle"))
+
+    def patcher(update):
+        if nbapi.CHECKPOINTED_AT_ANNOTATION in update:
+            marks["ack"] = time.time()
+            marks["ack_step"] = int(update[nbapi.CHECKPOINT_STEP_ANNOTATION])
+        plane.call(plane.patch_annotations("idle", update))
+
+    guard = sdk.CheckpointGuard(
+        fabric, sdk.MaintenanceWatcher(fetch=fetch, interval=0.0),
+        sync_every_steps=1, patcher=patcher)
+
+    class Saves:
+        def save(self, step_no, tree):
+            guard.step(step_no, tree)
+
+        def wait(self):
+            fabric.wait()
+
+    async def annotation(key):
+        return (await plane.annotations("idle")).get(key)
+
+    def on_step(step_no, _loss):
+        if step_no != 1:
+            return
+        marks["stopped"] = plane.mark_when(
+            lambda: annotation(nbapi.STOP_ANNOTATION), "the notebook stopped")
+        marks["released"] = plane.mark_when(
+            lambda: _released(plane, ("ns", "idle")), "its cards released")
+        # The Jupyter server answers from now on; the culler probes it.
+        marks["probe"] = time.time()
+        jupyter["up"] = True
+        plane.mgr.enqueue("culling", ("ns", "idle"))
+        plane.call(plane.wait_for(
+            lambda: annotation(nbapi.DRAIN_REQUESTED_ANNOTATION),
+            "the cull drain request"))
+        marks["drain_requested"] = time.time()
+
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    state = trainer.fit(state, loader, steps=CULL_STEPS, step_fn=step,
+                        checkpoints=Saves(), save_every=1, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- the main path ends here
+    t0 = time.perf_counter()
+    guard.close()                        # blocks on the commit
+    commit_wait = time.perf_counter() - t0
+    del state
+    for key in ("stopped", "released"):
+        marks[key] = marks[key].result(FLEET_TIMEOUT)
+    plane.call(plane.settle())
+    ann = plane.call(plane.annotations("idle"))
+    sts = plane.call(plane.kube.get("StatefulSet", "idle", "ns"))
+    t0 = marks["probe"]
+    return {
+        "model": CULL_MODEL, "steps": CULL_STEPS,
+        "host_sec": {"to_drain_request": marks["drain_requested"] - t0,
+                     "to_ack": marks["ack"] - t0,
+                     "to_stopped": marks["stopped"] - t0,
+                     "to_cards_released": marks["released"] - t0},
+        "commit_wait_after_fit_sec": commit_wait,
+        "last_activity": ann.get(nbapi.LAST_ACTIVITY_ANNOTATION),
+        "drain_reason": ann.get(nbapi.DRAIN_REASON_ANNOTATION),
+        "stopped": nbapi.STOP_ANNOTATION in ann,
+        "replicas": sts["spec"]["replicas"],
+        "checkpoint": [ann.get(nbapi.CHECKPOINT_PATH_ANNOTATION),
+                       ann.get(nbapi.CHECKPOINT_STEP_ANNOTATION)],
+        "fabric_directory": fabric.directory, "ack_step": marks["ack_step"],
+        "cards_culled": plane.culler.m_chips_culled.labels().value,
+        "probes": jupyter["probes"], "launches": launches,
+        "launches_expected": {"fwd": cfg.n_layers * CULL_STEPS,
+                              "dq": cfg.n_layers * CULL_STEPS,
+                              "dkv": cfg.n_layers * CULL_STEPS,
+                              "partial": 0}}
+
+
+async def _released(plane, key) -> bool:
+    return tuple(key) not in plane.sched.policy.ledger.allocations
+
+
+def phase_serving_control(torch, fa, burnin, trainer, data, checkpoint, sdk,
+                          card: str) -> dict:
+    """The InferenceService and the culler on the card (module docstring,
+    item 33): (a) scale from zero, (b) park to a checkpoint, (d) the cull
+    drain on the node the park freed, (c) the warm restore from the
+    replica's env; then the service is deleted. Any failed check raises.
+    Returns the phase's launches (both replicas' and the trainer's)."""
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.api import inferenceservice as isvcapi
+    from kubeflow_tpu_torch.api import profile as profileapi
+    from kubeflow_tpu_torch.gpu.topology import GPU_RESOURCE, LOOPBACK_ADDR
+    from kubeflow_tpu_torch.migration import protocol as migration
+    from kubeflow_tpu_torch.runtime.objects import fmt_iso
+    from kubeflow_tpu_torch.scheduler import (Fleet, GpuFleetScheduler,
+                                              SchedulerOptions)
+
+    phase_t0 = time.perf_counter()
+    jupyter = {"up": False, "probes": 0}
+
+    async def prober(url):
+        if not jupyter["up"]:
+            return None              # not reachable: never culled
+        jupyter["probes"] += 1
+        if url.endswith("/kernels"):
+            return [{"execution_state": "idle",
+                     "last_activity": fmt_iso(time.time() - 3600)}]
+        return []
+
+    plane = ControlPlane(
+        lambda kube, registry: GpuFleetScheduler(kube, SchedulerOptions(
+            queued_requeue_seconds=0.05, enable_migration=True,
+            drain_grace_seconds=FLEET_TIMEOUT,
+            commit_grace_seconds=FLEET_TIMEOUT, enable_elastic=True,
+            enable_defrag=False),
+            fleet=Fleet.parse(FLEET_SPEC), registry=registry),
+        profiles=True, environ=CULL_ENV, serving=True, prober=prober)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-serving-")
+    key = isvcapi.replica_key("ns", "svc", 0)
+    marks: dict = {}
+    children: list = []
+    try:
+        plane.call(plane.kube.create("Profile", profileapi.new(
+            "ns", "owner@example.com", gpu_quota=FLEET_QUOTA)))
+        before = plane.counts()
+        spec = {"model": MODEL, "max_batch": MAX_BATCH,
+                "prefill_chunk": PREFILL_CHUNK, "trace": SERVING_TRACE,
+                "probe_seed": SERVING_PROBE_SEED, "device": "cuda",
+                "out": tmp}
+
+        async def isvc_annotations():
+            live = await plane.kube.get("InferenceService", "svc", "ns")
+            return dict(live["metadata"].get("annotations") or {})
+
+        async def stamp_load(rate, fresh):
+            await plane.kube.patch("InferenceService", "svc", {"metadata": {
+                "annotations": {
+                    isvcapi.OBSERVED_RATE_ANNOTATION: str(rate),
+                    isvcapi.LAST_REQUEST_AT_ANNOTATION: fmt_iso(
+                        time.time() if fresh else time.time() - 3600)}}},
+                "ns")
+
+        async def admitted():
+            alloc = plane.sched.policy.ledger.allocations.get(key)
+            return alloc is not None and alloc.workload == "serving"
+
+        async def pod_running():
+            pod = await plane.kube.get_or_none("Pod", "svc-r0-0", "ns")
+            return ((pod or {}).get("status") or {}).get("phase") \
+                == "Running" and pod
+
+        # (a) scale from zero: the gateway's load on a fresh service.
+        marks["create"] = time.time()
+        plane.call(plane.kube.create("InferenceService", isvcapi.new(
+            "svc", "ns", accelerator=PROBE_ACCELERATOR, topology="1x1",
+            min_replicas=0, max_replicas=2,
+            scale_to_zero_after=SERVING_IDLE_SEC)))
+        is_admitted = plane.mark_when(admitted, "replica 0 admitted")
+        is_running = plane.mark_when(pod_running, "replica 0 running")
+        plane.call(stamp_load(4.0, True))
+        marks["admitted"] = is_admitted.result(FLEET_TIMEOUT)
+        marks["running"] = is_running.result(FLEET_TIMEOUT)
+        sts = plane.call(plane.kube.get("StatefulSet", "svc-r0", "ns"))
+        pod_env = plane.call(_pod_env(plane, "svc-r0-0"))
+        cold = ReplicaProcess(pod_env, {**spec, "park_dir": f"{tmp}/svc"})
+        children.append(cold)
+        cold_out = cold.line()
+
+        # (b) park: the gateway's last request an hour old.
+        async def park_requested():
+            return (await isvc_annotations()).get(
+                isvcapi.PARK_REQUESTED_ANNOTATION)
+
+        requested = plane.mark_when(park_requested, "the park request")
+        marks["park_load_stamped"] = time.time()
+        plane.call(stamp_load(0.0, False))
+        marks["park_request"] = requested.result(FLEET_TIMEOUT)
+        park_value = plane.call(park_requested())
+
+        async def parked():
+            return isvcapi.PARKED_AT_ANNOTATION in await isvc_annotations()
+
+        is_parked = plane.mark_when(parked, "the park")
+        is_released = plane.mark_when(lambda: _released(plane, key),
+                                      "the replica's cards released")
+        cold.tell("park")
+        ack = cold.line()
+        marks["ack"] = time.time()
+        plane.call(plane.kube.patch("InferenceService", "svc", {"metadata": {
+            "annotations": {
+                isvcapi.PARK_CHECKPOINT_PATH_ANNOTATION: ack["path"],
+                isvcapi.PARK_CHECKPOINT_STEP_ANNOTATION: str(ack["step"]),
+                isvcapi.PARK_CHECKPOINT_FOR_ANNOTATION: park_value}}}, "ns"))
+        marks["parked"] = is_parked.result(FLEET_TIMEOUT)
+        marks["cards_released"] = is_released.result(FLEET_TIMEOUT)
+        plane.call(plane.settle())
+        park_state = {
+            "sts_replicas": plane.call(plane.kube.get(
+                "StatefulSet", "svc-r0", "ns"))["spec"]["replicas"],
+            "higher_sts": [s["metadata"]["name"] for s in plane.call(
+                plane.kube.list("StatefulSet", "ns"))
+                if s["metadata"]["name"].startswith("svc-r")
+                and s["metadata"]["name"] != "svc-r0"],
+            "parked_events": [e["message"] for e in plane.call(
+                plane.kube.list("Event", "ns")) if e["reason"] == "Parked"]}
+
+        # (d) the cull drain, while the parked replica's process commits.
+        cull = _cull_drain(torch, fa, burnin, trainer, data, checkpoint, sdk,
+                           plane, jupyter, tmp)
+        commit = cold.line()
+        cold_rc = cold.wait()
+
+        # (c) warm restore: a new burst on the parked service.
+        marks["burst"] = time.time()
+        is_admitted = plane.mark_when(admitted, "replica 0 re-admitted")
+        is_running = plane.mark_when(pod_running, "replica 0 running again")
+        plane.call(stamp_load(4.0, True))
+        marks["readmitted"] = is_admitted.result(FLEET_TIMEOUT)
+        marks["running_again"] = is_running.result(FLEET_TIMEOUT)
+        restore_env = plane.call(_pod_env(plane, "svc-r0-0"))
+        warm = ReplicaProcess(restore_env, spec)
+        children.append(warm)
+        warm_out = warm.line()
+        warm_rc = warm.wait()
+        plane.call(plane.settle())
+        ann = plane.call(isvc_annotations())
+        reasons = sorted({e["reason"] for e in plane.call(
+            plane.kube.list("Event", "ns"))})
+
+        # The service goes: every replica's cards come back.
+        plane.call(plane.kube.delete("InferenceService", "svc", "ns"))
+        plane.call(plane.wait_for(lambda: _released(plane, key),
+                                  "the deleted service released"))
+        plane.call(plane.settle())
+        counts = _counts_since(before, plane.counts())
+        ledger = plane.sched.policy.ledger
+        ledger.assert_consistent()
+        logits = [torch.load(f"{tmp}/logits-{arm}.pt")
+                  for arm in ("cold", "warm")]
+        main = sts["spec"]["template"]["spec"]["containers"][0]
+        row = {
+            "phase": "serving_control", "card": card, "fleet": FLEET_SPEC,
+            "clock": "host seconds (time.time) for the control plane's "
+                     "marks; the replicas' card work runs in their own "
+                     "processes, the culled notebook's trainer on the main "
+                     "thread",
+            "replica_requests": main["resources"]["requests"],
+            "replica_env": {k: v for k, v in pod_env.items()
+                            if k.startswith(("PET_", "TPU_", "KFTPU_"))},
+            "host_sec": {
+                "create_to_admitted": marks["admitted"] - marks["create"],
+                "create_to_running": marks["running"] - marks["create"],
+                "create_to_ready": cold_out["ready_at"] - marks["create"],
+                "create_to_first_token": cold_out["first_token_at"]
+                - marks["create"],
+                "process_start_to_first_token": cold_out["first_token_at"]
+                - cold_out["started_at"],
+                "park_request_to_ack": marks["ack"] - marks["park_request"],
+                "ack_to_parked": marks["parked"] - marks["ack"],
+                "ack_to_cards_released": marks["cards_released"]
+                - marks["ack"],
+                "load_stamp_to_park_request": marks["park_request"]
+                - marks["park_load_stamped"],
+                "burst_to_readmitted": marks["readmitted"] - marks["burst"],
+                "burst_to_running": marks["running_again"] - marks["burst"],
+                "burst_to_restored": warm_out["ready_at"] - marks["burst"],
+                "burst_to_restored_first_token": warm_out["first_token_at"]
+                - marks["burst"]},
+            "cold_child": cold_out, "park": ack, "commit": commit,
+            "warm_child": warm_out, "park_state": park_state,
+            "restore_env": {k: restore_env.get(k) for k in (
+                migration.RESTORE_PATH_ENV, migration.RESTORE_STEP_ENV)},
+            "annotations_after_restore": {
+                k: ann.get(k) for k in (isvcapi.PARKED_AT_ANNOTATION,
+                                        isvcapi.PARK_REQUESTED_ANNOTATION)},
+            "event_reasons": reasons,
+            "logits_bitwise": torch.equal(*logits),
+            "logits_shape": list(logits[0].shape),
+            "cull": cull, **counts,
+            "drain_fallbacks": plane.sched.m_drain_fallback.labels().value,
+            "violations": ledger.violations,
+            "allocations_after_delete": [list(k) for k in ledger.allocations],
+            "phase_sec": time.perf_counter() - phase_t0}
+    finally:
+        for child in children:
+            _stop_group(child.proc)
+        plane.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = burnin.BurninConfig(**MODEL)
+    expected = {name: [_serving_expected(cfg, row[name]), row[name][
+        "launches"]] for name in ("cold_child", "warm_child")}
+    launches = {k: row["cold_child"]["launches"][k]
+                + row["warm_child"]["launches"][k] + cull["launches"][k]
+                for k in ("fwd", "dq", "dkv", "partial")}
+    row["launches"] = launches
+    row["launches_expected"] = {
+        k: expected["cold_child"][0][k] + expected["warm_child"][0][k]
+        + cull["launches_expected"][k] for k in launches}
+    emit(row)
+    cold_out, warm_out = row["cold_child"], row["warm_child"]
+    checks = {
+        # (a)
+        "admitted_one_card": row["replica_requests"] == {GPU_RESOURCE: "1"},
+        "loopback": row["replica_env"].get("PET_MASTER_ADDR")
+        == LOOPBACK_ADDR and cold_out["slice"]["processes"] == 1,
+        "served_cold": cold_out["completed"] == cold_out["requests"] > 0
+        and cold_out["kv_violations"] == 0
+        and cold_out["restore_path"] is None,
+        # (b)
+        "park_ack": row["park"]["path"] == f"{tmp}/svc"
+        and row["commit"]["committed"] and cold_rc == 0,
+        "parked": park_state["sts_replicas"] == 0
+        and park_state["higher_sts"] == []
+        and park_state["parked_events"] == [
+            "Scaled to zero; replica 0 kept as a parked warm standby "
+            f"(checkpoint @ step {row['park']['step']})"],
+        # (c)
+        "restore_env": list(row["restore_env"].values())
+        == [row["park"]["path"], str(row["park"]["step"])]
+        and warm_out["restore_path"] == row["park"]["path"],
+        "warm_no_init": warm_out["cold_inits"] == 0 and warm_rc == 0,
+        "served_warm": warm_out["completed"] == warm_out["requests"]
+        == cold_out["requests"] and warm_out["kv_violations"] == 0,
+        "bitwise": row["logits_bitwise"]
+        and warm_out["first_tokens"] == cold_out["first_tokens"],
+        "park_consumed": set(row["annotations_after_restore"].values())
+        == {None} and "WarmRestored" in reasons,
+        # (d)
+        "cull": cull["drain_reason"] == "cull" and cull["stopped"]
+        and cull["replicas"] == 0 and cull["last_activity"] is not None
+        and cull["checkpoint"] == [cull["fabric_directory"],
+                                   str(cull["ack_step"])]
+        and cull["cards_culled"] == 8.0
+        and "CullDrainDeadlineExceeded" not in reasons
+        and "NotebookCulled" in reasons,
+        "order": 0 < cull["host_sec"]["to_drain_request"]
+        < cull["host_sec"]["to_ack"] < cull["host_sec"]["to_stopped"],
+        "ledger": row["violations"] == 0 and row["drain_fallbacks"] == 0
+        and row["allocations_after_delete"] == [],
+        "launches": launches == row["launches_expected"]
+        and all(got == want for want, got in expected.values())
+        and cull["launches"] == cull["launches_expected"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"serving_control phase failed: {checks}")
     return launches
 
 
@@ -4357,6 +4996,8 @@ def main() -> int:
                                    reuse, warm, card)
     del reuse
     torch.cuda.empty_cache()
+    by_path["serving_control"] = phase_serving_control(
+        torch, fa, burnin, trainer, data, checkpoint, sdk, card)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)

@@ -6,8 +6,8 @@ package holds the *semantics*: constants, defaulting, validation, and
 typed accessors for each CRD the port serves — ``Notebook`` (with its
 ``spec.gpu`` block), ``Profile`` (with ``spec.gpuQuota``) and
 ``PodDefault`` — the wire keys (``keys``) the controller, the webhooks
-and the SDK share, and the two serving-replica helpers the fleet
-scheduler reads (``inferenceservice``).
+and the SDK share, and ``InferenceService`` (with its ``spec.gpu``
+block), the serving workload class.
 """
 
 from kubeflow_tpu_torch.api import inferenceservice, notebook, poddefault, profile

@@ -1,11 +1,11 @@
-"""Env-var configuration of the port's fleet scheduler and warm pod
-pools: a trimmed copy of ``kubeflow_tpu/cmd/envconfig.py``.
+"""Env-var configuration of the port's fleet scheduler, warm pod pools,
+serving workload class and culler: a trimmed copy of
+``kubeflow_tpu/cmd/envconfig.py``.
 
 Every knob is an env var with a default, mapped onto the typed Options
 dataclasses the controllers take. The port reads the same ``KFTPU_*``
 names as the reference; the rest of the reference's contract (the
-notebook, serving, culling, profile and web-app options) comes with its
-entrypoints.
+notebook, profile and web-app options) comes with its entrypoints.
 """
 
 from __future__ import annotations
@@ -117,4 +117,82 @@ def warm_pool_options():
         replenish_seconds=env_float("KFTPU_WARM_REPLENISH_SECONDS",
                                     DEFAULT_REPLENISH_SECONDS),
         refresh_seconds=env_float("KFTPU_FLEET_REFRESH_SECONDS", 30.0),
+    )
+
+
+def serving_options():
+    """Inference-serving env contract (docs/operations.md "Inference
+    serving"). The master switch is KFTPU_SERVING (default on), read by
+    kubeflow_tpu_torch.serving.serving_enabled; the ServingOptions
+    dataclass default is off so bare construction keeps the
+    notebook-only control plane byte-for-byte."""
+    from kubeflow_tpu_torch.migration import protocol as migration
+    from kubeflow_tpu_torch.serving import serving_enabled
+    from kubeflow_tpu_torch.serving.controller import ServingOptions
+
+    return ServingOptions(
+        enabled=serving_enabled(),
+        cluster_domain=env_str("CLUSTER_DOMAIN", "cluster.local"),
+        controller_namespace=controller_namespace(),
+        serving_port=int(env_float("KFTPU_SERVING_PORT", 8000)),
+        # "low"|"normal"|"high"|"critical" or an int; default high — a
+        # serving burst preempts idle notebooks, never the reverse.
+        priority=_serving_priority(),
+        autoscale_period_seconds=env_float(
+            "KFTPU_SERVING_AUTOSCALE_PERIOD", 5.0),
+        # The park drain rides the migration grace knob by default.
+        park_grace_seconds=env_float(
+            "KFTPU_SERVING_PARK_GRACE", migration.drain_grace_seconds()),
+        default_target_rate=env_float("KFTPU_SERVING_TARGET_RATE", 8.0),
+        default_idle_window=env_float("KFTPU_SERVING_IDLE_WINDOW", 300.0),
+        default_stabilization=env_float(
+            "KFTPU_SERVING_STABILIZATION", 60.0),
+        # SLO-driven autoscaling kill switch: off = the raw
+        # rate/concurrency policy byte-for-byte, even with KFTPU_SLO on.
+        slo_autoscale=env_bool("KFTPU_SERVING_SLO_AUTOSCALE", True),
+    )
+
+
+def serving_engine_options():
+    """Serving data-plane env contract — the paged KV-cache pool,
+    chunked-prefill lane, and model-multiplex knobs (docs/operations.md
+    "Serving engine v2"). KFTPU_SERVING_KV_BLOCKS=0 (the default) sizes
+    the pool from max_batch × seq_len."""
+    from kubeflow_tpu_torch.serving.engine import EngineOptions
+
+    kv_blocks = int(env_float("KFTPU_SERVING_KV_BLOCKS", 0))
+    return EngineOptions(
+        kv_blocks=kv_blocks if kv_blocks > 0 else None,
+        kv_block_size=max(1, int(env_float(
+            "KFTPU_SERVING_KV_BLOCK_SIZE", 16))),
+        prefill_chunk=max(1, int(env_float(
+            "KFTPU_SERVING_PREFILL_CHUNK", 32))),
+        chunked_prefill=env_bool("KFTPU_SERVING_CHUNKED_PREFILL", True),
+        max_resident_models=max(1, int(env_float(
+            "KFTPU_SERVING_MAX_MODELS", 2))),
+    )
+
+
+def _serving_priority() -> int:
+    from kubeflow_tpu_torch.scheduler import parse_priority
+
+    return parse_priority(env_str("KFTPU_SERVING_PRIORITY", "high"))
+
+
+def culling_options():
+    from kubeflow_tpu_torch.controllers.culling import CullingOptions
+    from kubeflow_tpu_torch.migration import protocol as migration
+
+    return CullingOptions(
+        enable_culling=env_bool("ENABLE_CULLING", False),
+        cull_idle_seconds=env_float("CULL_IDLE_TIME", 1440.0) * 60.0,
+        check_period_seconds=env_float("IDLENESS_CHECK_PERIOD", 1.0) * 60.0,
+        cluster_domain=env_str("CLUSTER_DOMAIN", "cluster.local"),
+        dev_url=os.environ.get("CULLER_DEV_URL"),
+        # Checkpoint-then-stop for idle culls: needs BOTH the master
+        # migration switch and the culling-specific KFTPU_CULL_DRAIN
+        # (default on) — =off restores the bare stop.
+        drain_on_cull=(migration.migration_enabled()
+                       and migration.cull_drain_enabled()),
+        drain_grace_seconds=migration.drain_grace_seconds(),
     )

@@ -1,6 +1,8 @@
 """Reconcilers of the port's notebook control plane (the counterpart of
-``kubeflow_tpu.controllers``: the notebook and profile controllers and
-the warm pod pools so far).
+``kubeflow_tpu.controllers``: the notebook, profile and culling
+controllers and the warm pod pools so far; the InferenceService
+controller lives in ``kubeflow_tpu_torch.serving.controller``, as in the
+reference).
 
 One module per controller, mirroring the reference's component split
 (SURVEY.md §2.1) but collapsed to a single manager process — the reference's
@@ -12,6 +14,12 @@ The port's copy of ``kubeflow_tpu/controllers/__init__.py``: it keeps its
 own so that it imports nothing of the JAX package.
 """
 
+from kubeflow_tpu_torch.controllers.culling import (
+    CullingOptions,
+    CullingReconciler,
+    setup_culling_controller,
+)
 from kubeflow_tpu_torch.controllers.notebook import NotebookReconciler, setup_notebook_controller
 
-__all__ = ["NotebookReconciler", "setup_notebook_controller"]
+__all__ = ["CullingOptions", "CullingReconciler", "NotebookReconciler",
+           "setup_culling_controller", "setup_notebook_controller"]

@@ -3,7 +3,8 @@
 
 Each engine is a pure function over dict-shaped objects, registered on the
 apiserver's admission chain (FakeKube in tests): Notebook defaulting,
-validation, the card quota and the fleet ceiling (``notebook``), PodDefault injection
+validation, the card quota and the fleet ceiling (``notebook``), the
+same for InferenceServices (``inferenceservice``), PodDefault injection
 (``poddefault``) and the per-node GPU env (``gpu``), wired in order by
 ``register_all``.
 """

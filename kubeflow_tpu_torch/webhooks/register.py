@@ -8,9 +8,9 @@ pod name and the template annotations, and must win over anything a
 PodDefault set for ``TPU_WORKER_ID`` or ``PET_NODE_RANK``).
 
 The chain holds the kinds the port has controllers or consumers for:
-Notebook, PodDefault and Profile. The reference also registers
-Tensorboard, PVCViewer and (with ``KFTPU_SERVING`` on) InferenceService;
-those come with their controllers.
+Notebook, PodDefault, Profile and (with ``KFTPU_SERVING`` on)
+InferenceService. The reference also registers Tensorboard and
+PVCViewer; those come with their controllers.
 """
 
 from __future__ import annotations
@@ -60,6 +60,27 @@ def register_all(kube) -> None:
             await nb_webhook.validate_capacity(kube, nb)
 
     kube.add_validator("Notebook", notebook_validator)
+
+    # Serving workload class (KFTPU_SERVING, kubeflow_tpu_torch/serving):
+    # the InferenceService mutator/validator register only with the
+    # switch on, so =off keeps the notebook-only admission chain
+    # byte-for-byte. Capacity fast-fail mirrors the Notebook gate
+    # (CREATE only) through the same TTL-cached Profile/fleet loaders.
+    from kubeflow_tpu_torch.serving import serving_enabled
+
+    if serving_enabled():
+        from kubeflow_tpu_torch.webhooks import inferenceservice as isvc_webhook
+
+        kube.add_mutator("InferenceService", isvc_webhook.mutate)
+
+        async def isvc_validator(isvc: dict, info: dict) -> None:
+            from kubeflow_tpu_torch.api import inferenceservice as isvcapi
+
+            isvcapi.validate(isvc)
+            if info.get("operation") in (None, "CREATE"):
+                await isvc_webhook.validate_capacity(kube, isvc)
+
+        kube.add_validator("InferenceService", isvc_validator)
     kube.add_validator("PodDefault", lambda pd, _i: pdapi.validate(pd))
     kube.add_validator("Profile", lambda p, _i: profileapi.validate(p))
 

@@ -1,8 +1,9 @@
 """The port's CRDs (``kubeflow_tpu_torch/manifests/crds``) against the
-reference's (``manifests/crds``): the Notebook CRD's ``spec.gpu`` block is
-the reference's ``spec.tpu`` block with the accelerator enum taken from
-``gpu/topology.ACCELERATORS``, and the Profile CRD's ``spec.gpuQuota`` is
-its ``spec.tpuQuota``. Everything else is equal, property for property.
+reference's (``manifests/crds``): the Notebook and InferenceService CRDs'
+``spec.gpu`` block is the reference's ``spec.tpu`` block with the
+accelerator enum taken from ``gpu/topology.ACCELERATORS``, and the Profile
+CRD's ``spec.gpuQuota`` is its ``spec.tpuQuota``. Everything else is
+equal, property for property.
 """
 
 from pathlib import Path
@@ -10,6 +11,7 @@ from pathlib import Path
 import pytest
 import yaml
 
+from kubeflow_tpu_torch.api import inferenceservice as isvcapi
 from kubeflow_tpu_torch.api import notebook as nbapi
 from kubeflow_tpu_torch.api import profile as profileapi
 from kubeflow_tpu_torch.gpu.topology import ACCELERATORS
@@ -75,6 +77,27 @@ def test_the_profile_crd_is_the_reference_with_gpu_quota():
     assert _renamed(port) == ref
     profile = profileapi.new("ns", "alice@example.com", gpu_quota=16)
     assert set(profile["spec"]) <= set(_spec_props(port))
+
+
+def test_the_inference_service_crd_is_the_reference_with_spec_gpu():
+    port = _load(PORT / "inferenceservices.yaml")
+    gpu = _spec_props(port)["gpu"]
+    assert gpu["properties"]["accelerator"]["enum"] == list(ACCELERATORS)
+    assert "tpu" not in _spec_props(port)
+    columns = {c["name"]: c["jsonPath"] for c in
+               port["spec"]["versions"][0]["additionalPrinterColumns"]}
+    assert (columns["Accelerator"], columns["Topology"]) == (
+        ".spec.gpu.accelerator", ".spec.gpu.topology")
+    ref = _without_enum(_load(REFERENCE / "inferenceservices.yaml"), "tpu")
+    assert _renamed(_without_enum(port, "gpu")) == ref
+    # The blocks isvcapi.new writes are the schema's.
+    isvc = isvcapi.new("svc", "ns", num_slices=2, min_replicas=1,
+                       target_rate=2.0, scale_to_zero_after=60.0,
+                       checkpoint_path="/models/svc")
+    props = _spec_props(_load(PORT / "inferenceservices.yaml"))
+    assert set(isvc["spec"]["gpu"]) == set(props["gpu"]["properties"])
+    assert set(isvc["spec"]["scaling"]) <= set(props["scaling"]["properties"])
+    assert set(isvc["spec"]) <= set(props)
 
 
 @pytest.mark.parametrize("name", ["notebooks.yaml", "profiles.yaml"])

@@ -119,6 +119,11 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/cmd/envconfig.py",
             "kubeflow_tpu_torch/api/inferenceservice.py",
             "kubeflow_tpu_torch/utils/fswatch.py"} <= names
+    # The culling controller and the serving workload class.
+    assert {"kubeflow_tpu_torch/controllers/culling.py",
+            "kubeflow_tpu_torch/serving/autoscaler.py",
+            "kubeflow_tpu_torch/serving/controller.py",
+            "kubeflow_tpu_torch/webhooks/inferenceservice.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -163,7 +168,11 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.controllers.profile, "
             "kubeflow_tpu_torch.controllers.warmpool, "
             "kubeflow_tpu_torch.api.inferenceservice, "
-            "kubeflow_tpu_torch.utils.fswatch; "
+            "kubeflow_tpu_torch.utils.fswatch, "
+            "kubeflow_tpu_torch.controllers.culling, "
+            "kubeflow_tpu_torch.serving.autoscaler, "
+            "kubeflow_tpu_torch.serving.controller, "
+            "kubeflow_tpu_torch.webhooks.inferenceservice; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu', 'ml_dtypes')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -2,7 +2,10 @@
 apiserver, the admission chain, the manager with the notebook controller
 and the kubelet simulator, built from either package — the reference's
 (``kubeflow_tpu``) or the port's (``kubeflow_tpu_torch``) — as
-tests/test_notebook_controller.py builds the reference's.
+tests/test_notebook_controller.py builds the reference's. On request it
+also builds the package's fleet scheduler (shared by every controller),
+the InferenceService controller and the culler, as tests/test_serving.py
+and tests/test_culling.py build the reference's.
 
 Each package keeps its own metric registry and tracer, so the tests
 compare children and status, never metric names or trace ids.
@@ -16,6 +19,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from types import SimpleNamespace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,15 +41,24 @@ def modules(pkg: str = PORT) -> SimpleNamespace:
     def load(name):
         return importlib.import_module(f"{pkg}.{name}")
 
+    scheduler = load("scheduler")
     return SimpleNamespace(
         nbapi=load("api.notebook"), controller=load("controllers.notebook"),
         manager=load("runtime.manager"), metrics=load("runtime.metrics"),
         fakekube=load("testing.fakekube"), podsim=load("testing.podsim"),
-        webhooks=load("webhooks"))
+        webhooks=load("webhooks"), isvcapi=load("api.inferenceservice"),
+        culling=load("controllers.culling"),
+        serving=load("serving.controller"),
+        autoscaler=load("serving.autoscaler"), scheduler=scheduler,
+        FleetScheduler=getattr(scheduler, "GpuFleetScheduler", None)
+        or scheduler.TpuFleetScheduler,
+        migration=load("migration.protocol"),
+        objects=load("runtime.objects"), errors=load("runtime.errors"))
 
 
 class Harness:
     def __init__(self, pkg, kube, mgr, sim):
+        self.pkg = pkg
         self.m = modules(pkg)
         self.kube = kube
         self.mgr = mgr
@@ -69,9 +82,34 @@ class Harness:
         return {e["name"]: e.get("value")
                 for e in pod["spec"]["containers"][0]["env"]}
 
-    async def annotations(self, name: str, ns: str = "ns") -> dict:
-        nb = await self.kube.get("Notebook", name, ns)
+    async def annotations(self, name: str, ns: str = "ns",
+                          kind: str = "Notebook") -> dict:
+        nb = await self.kube.get(kind, name, ns)
         return nb["metadata"].get("annotations") or {}
+
+    async def stamp_load(self, rate: float, *, fresh: bool = True,
+                         name: str = "svc", ns: str = "user") -> None:
+        """What the serving gateway stamps on an InferenceService: the
+        observed rate and the last request's time (an hour ago where
+        ``fresh`` is false)."""
+        isvcapi = self.m.isvcapi
+        await self.kube.patch("InferenceService", name, {"metadata": {
+            "annotations": {
+                isvcapi.OBSERVED_RATE_ANNOTATION: str(rate),
+                isvcapi.LAST_REQUEST_AT_ANNOTATION: self.m.objects.fmt_iso(
+                    time.time() if fresh else time.time() - 3600)}}}, ns)
+
+    def replica_admitted(self, i: int, name: str = "svc",
+                         ns: str = "user") -> bool:
+        return self.m.isvcapi.replica_key(ns, name, i) in \
+            self.sched.policy.ledger.allocations
+
+    async def until(self, predicate, what: str, timeout: float = 15.0):
+        """Wait for a plain (not awaitable) predicate."""
+        async def check():
+            return predicate()
+
+        return await self.wait_for(check, what, timeout)
 
     async def wait_for(self, predicate, what: str, timeout: float = 15.0):
         deadline = asyncio.get_running_loop().time() + timeout
@@ -85,23 +123,45 @@ class Harness:
 
 
 async def make_harness(pkg: str = PORT, *, sim_kwargs=None, wire=None,
-                       **opts) -> Harness:
+                       fleet: str | None = None, scheduler=None,
+                       serving=None, culling=None, **opts) -> Harness:
     """``wire(kube, mgr)`` returns the keyword arguments of
     ``setup_notebook_controller`` (a scheduler, a warm pool); without it
     the setup reads them from ``KFTPU_*`` as the reference's manager
-    does."""
+    does. ``fleet`` (a fleet spec) builds the package's fleet scheduler
+    with ``SchedulerOptions(**scheduler)`` instead, as ``h.sched``.
+    ``serving`` (``ServingOptions`` keyword arguments) adds the
+    InferenceService controller on the same scheduler, as
+    ``h.serving``; ``culling`` (``prober``, ``options`` and an optional
+    ``clock``) adds the culler, as ``h.culler``."""
     m = modules(pkg)
     kube = m.fakekube.FakeKube()
     m.webhooks.register_all(kube)
     mgr = m.manager.Manager(kube, registry=m.metrics.Registry())
+    wired = wire(kube, mgr) if wire is not None else {}
+    if fleet is not None:
+        wired["scheduler"] = m.FleetScheduler(
+            kube, m.scheduler.SchedulerOptions(**(scheduler or {})),
+            fleet=m.scheduler.Fleet.parse(fleet), registry=mgr.registry)
     rec = m.controller.setup_notebook_controller(
-        mgr, m.controller.NotebookOptions(**opts),
-        **(wire(kube, mgr) if wire is not None else {}))
+        mgr, m.controller.NotebookOptions(**opts), **wired)
+    serving_rec = None
+    if serving is not None:
+        serving_rec = m.serving.setup_serving_controller(
+            mgr, m.serving.ServingOptions(**serving),
+            scheduler=wired.get("scheduler"))
+    culler = None
+    if culling is not None:
+        culler = m.culling.setup_culling_controller(
+            mgr, culling["prober"],
+            m.culling.CullingOptions(**culling.get("options", {})),
+            clock=culling.get("clock", time.time))
     sim = m.podsim.PodSimulator(kube, **(sim_kwargs or {}))
     await mgr.start()
     await sim.start()
     h = Harness(pkg, kube, mgr, sim)
-    h.rec = rec
+    h.rec, h.sched = rec, wired.get("scheduler")
+    h.serving, h.culler = serving_rec, culler
     return h
 
 
