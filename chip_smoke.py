@@ -3,8 +3,10 @@
 step telemetry, checkpoints, input pipeline and drain guard), sharded
 training, long-context training, MoE, vision and pipelined training paths,
 its slice burn-in (the probes and the kernel cache), its notebook
-spawn path and its fleet scheduler and warm pods on one NVIDIA GPU and
-hold its kernels against their plain versions.
+spawn path, its fleet scheduler and warm pods, its culling and serving
+controllers and its controller manager and admission webhook as
+processes on one NVIDIA GPU and hold its kernels against their plain
+versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -314,13 +316,55 @@ last line. With no CUDA device it exits 1 and prints no result.
    Launches: each process's (read in the process: per layer, two warm-up
    scores, the fixed batch, every decode step and prefill chunk) and the
    trainer's forward, dQ and dK/dV per layer and step.
+34. entrypoints (right after serving_control) — the port outside the
+   tests: the fake apiserver (``FakeKube`` with ``register_all`` and the
+   ``PodSimulator``, one ``a3`` node) served over HTTP on 127.0.0.1:8001,
+   ``HttpKube``'s fallback, by ``ApiFacade`` (the script's scaffolding,
+   not a module of the package; a port in use fails the phase), and both
+   entry points started as processes: ``python -m
+   kubeflow_tpu_torch.cmd.controller_manager`` (``KFTPU_FLEET`` =
+   FLEET_SPEC) and ``python -m kubeflow_tpu_torch.cmd.webhook`` over TLS
+   with a self-signed ``openssl`` pair for 127.0.0.1 (no plaintext
+   fallback). (a) the manager's ``/readyz`` and every informer of
+   ``/debug/informers`` synced; a Profile with ``gpuQuota: 8``, a
+   ReadWriteOnce PVC ``logs``, a PodDefault setting
+   ``KFTPU_TELEMETRY_LOGDIR`` to a run on the claim's mount, and a ``1x1``
+   notebook ``nb`` mounting ``logs``: ``nb-0`` Running on the node with
+   ``nvidia.com/gpu: "1"``. (b) ``make_train_step`` at TRAIN_MODEL, one
+   warm-up step, then 2 steps under ``sdk.capture_profile`` into the
+   pod's logdir mapped onto a temporary directory standing for the
+   claim; a Tensorboard ``pvc://logs/run1`` with ``profilerPlugin`` (and
+   one with an empty logspath, refused ``Invalid``): the manager's
+   Deployment (``--logdir=/tensorboard_logs/run1``,
+   ``--reload_multifile=true``, the claim read-only, pinned to ``nb-0``'s
+   node), Service 80 → 6006 and status Available; the served directory
+   holds one ``*.pt.trace.json`` whose kernel events name the forward,
+   dQ and dK/dV kernels once per layer and traced step; a PVCViewer on
+   ``logs`` defaulted, rendered and ready. (c) AdmissionReviews over
+   HTTPS: ``nb-0``'s pod from its StatefulSet's template patched exactly
+   as the in-process chain admitted it (the PodDefault's env,
+   ``TPU_WORKER_ID``, ``PET_NODE_RANK``, the rendezvous), the PVCViewer
+   defaulted as in (b), a Tensorboard allowed and one denied, a body
+   that is no object refused (HTTP 400), a ``spec.tpu`` and an
+   over-quota ``2x8`` notebook denied, a v1beta1 Notebook converted to
+   v1, ``webhook_admission_total`` by path and outcome, one admission
+   trace a review; then a process started with the patched pod's env
+   calls ``sdk.initialize_distributed()`` (a no-op at one card) and
+   launches the forward kernel at the decode shape against its plain
+   version. Both entry points must run until the script stops them
+   (SIGTERM). Host seconds: each process's start to its first answer,
+   the notebook's create to Running, the Tensorboard's create to Ready,
+   the wire admissions' p50 and maximum, the pod process's start to the
+   kernel's result; the facade's requests by verb. Launches: (b)'s
+   forward, dQ and dK/dV per layer and traced step, and the pod
+   process's one forward.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
 ``pipelined_schedule``, ``wide_heads``, ``sharded``, ``checkpoint``,
-``fleet``, ``serving_control``,
+``fleet``, ``serving_control``, ``entrypoints``,
 and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
 its 4 processes), and ``device_kernels``: the CUDA kernels behind each
 entry, by head dim and dtype), the script's wall seconds, the card line,
@@ -2296,33 +2340,70 @@ print(json.dumps({
 """
 
 
-class ControlPlane:
-    """The port's control plane (the fake apiserver with the admission
-    chain, a manager running the notebook controller and optionally the
-    profile controller, the InferenceService controller (``serving``)
-    and the culler (``prober``), their options read from the env as the
-    manager reads them, the kubelet simulator) on an event
-    loop of its own thread. The card work stays on the main thread and
-    reaches the control plane through :meth:`call`; the loop never waits
-    on the card."""
+class LoopThread:
+    """An event loop on a thread of its own. The card work stays on the
+    main thread and reaches the loop through :meth:`call`; the loop never
+    waits on the card."""
 
-    def __init__(self, scheduler, *, profiles=False, environ=None,
-                 serving=False, prober=None):
+    def __init__(self, name: str):
         import asyncio
         import threading
 
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever,
-                                       name="control-plane", daemon=True)
+                                       name=name, daemon=True)
         self.thread.start()
-        self.call(self._start(scheduler, profiles, environ or {}, serving,
-                              prober))
 
     def call(self, coro, timeout: float = FLEET_TIMEOUT):
         import asyncio
 
         return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
             timeout)
+
+    def stop_loop(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=FLEET_TIMEOUT)
+        self.loop.close()
+
+    async def wait_for(self, predicate, what: str):
+        """Poll an async predicate until it returns a truthy value."""
+        import asyncio
+
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while True:
+            value = await predicate()
+            if value:
+                return value
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timed out: {what}")
+            await asyncio.sleep(0.002)
+
+    def mark_when(self, predicate, what: str):
+        """Start waiting for ``predicate`` on the loop; the returned
+        future gives the host time (``time.time``) it first held, so a
+        mark is not delayed by the main thread's card work."""
+        import asyncio
+
+        async def mark():
+            await self.wait_for(predicate, what)
+            return time.time()
+
+        return asyncio.run_coroutine_threadsafe(mark(), self.loop)
+
+
+class ControlPlane(LoopThread):
+    """The port's control plane (the fake apiserver with the admission
+    chain, a manager running the notebook controller and optionally the
+    profile controller, the InferenceService controller (``serving``)
+    and the culler (``prober``), their options read from the env as the
+    manager reads them, the kubelet simulator) on an event loop of its
+    own thread."""
+
+    def __init__(self, scheduler, *, profiles=False, environ=None,
+                 serving=False, prober=None):
+        super().__init__("control-plane")
+        self.call(self._start(scheduler, profiles, environ or {}, serving,
+                              prober))
 
     async def _start(self, scheduler, profiles, environ, serving,
                      prober) -> None:
@@ -2381,22 +2462,7 @@ class ControlPlane:
         try:
             self.call(self._stop())
         finally:
-            self.loop.call_soon_threadsafe(self.loop.stop)
-            self.thread.join(timeout=FLEET_TIMEOUT)
-            self.loop.close()
-
-    async def wait_for(self, predicate, what: str):
-        """Poll an async predicate until it returns a truthy value."""
-        import asyncio
-
-        deadline = time.monotonic() + FLEET_TIMEOUT
-        while True:
-            value = await predicate()
-            if value:
-                return value
-            if time.monotonic() > deadline:
-                raise AssertionError(f"fleet phase timed out: {what}")
-            await asyncio.sleep(0.002)
+            self.stop_loop()
 
     async def annotations(self, name: str) -> dict:
         nb = await self.kube.get("Notebook", name, "ns")
@@ -2410,18 +2476,6 @@ class ControlPlane:
         nb = await self.kube.get_or_none("Notebook", name, "ns")
         return (((nb or {}).get("status") or {}).get("scheduler")
                 or {}).get("state")
-
-    def mark_when(self, predicate, what: str):
-        """Start waiting for ``predicate`` on the loop; the returned
-        future gives the host time (``time.time``) it first held, so a
-        mark is not delayed by the main thread's card work."""
-        import asyncio
-
-        async def mark():
-            await self.wait_for(predicate, what)
-            return time.time()
-
-        return asyncio.run_coroutine_threadsafe(mark(), self.loop)
 
     async def settle(self) -> None:
         import asyncio
@@ -3559,6 +3613,804 @@ def phase_serving_control(torch, fa, burnin, trainer, data, checkpoint, sdk,
     }
     if not all(checks.values()):
         raise AssertionError(f"serving_control phase failed: {checks}")
+    return launches
+
+
+# ---- the entrypoints phase: the controller manager and the webhook as processes
+
+# The fake apiserver's address: HttpKube's fallback where no in-cluster
+# ServiceAccount is mounted (runtime/httpclient.py), so both entry points
+# reach it with no flag.
+FACADE_HOST, FACADE_PORT = "127.0.0.1", 8001
+# Events the facade keeps for watches that resume from a list's version.
+FACADE_HISTORY = 100_000
+ENTRY_TIMEOUT = 60.0
+# The fleet's one node (FLEET_SPEC's pool ``a3``), for the kubelet
+# simulator's node assignment.
+ENTRY_NODE = {"apiVersion": "v1", "kind": "Node", "metadata": {
+    "name": "a3-0", "labels": {"cloud.google.com/gke-accelerator":
+                               PROBE_ACCELERATOR,
+                               "cloud.google.com/gke-nodepool": "a3"}}}
+# The notebook mounts the claim ``logs`` where the images keep their
+# TensorBoard logs; a PodDefault points the SDK's profiler at a run there.
+ENTRY_MOUNT = "/home/jovyan/logs"
+ENTRY_RUN = "run1"
+ENTRY_TRACED_STEPS = 2
+ENTRY_KERNELS = ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel")
+
+# The admitted pod's process: started with the env the wire webhook gave
+# the pod, it joins the SDK's world (a no-op at one card) and launches the
+# forward kernel at the decode shape against its plain version.
+ENTRY_POD_CHILD = r"""
+import json, os, time
+import torch
+from kubeflow_tpu_torch import sdk
+from kubeflow_tpu_torch.ops import flash_attention as fa
+
+joined = sdk.initialize_distributed()
+shape, dtype, causal = json.loads(os.environ["SMOKE_ENTRY_CASE"])
+gen = torch.Generator(device="cuda").manual_seed(4321)
+q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+           .to(getattr(torch, dtype)) for _ in range(3))
+fa.LAUNCHES = 0
+o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+torch.cuda.synchronize()
+result_at = time.time()
+launches = fa.LAUNCHES
+ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+print(json.dumps({
+    "sdk_joined": joined, "result_at": result_at, "launches": launches,
+    "max_err_o": (o.float() - ro.float()).abs().max().item(),
+    "max_err_lse": (lse - rlse).abs().max().item(),
+    "finite": bool(torch.isfinite(o).all())}), flush=True)
+"""
+
+
+class ApiFacade(LoopThread):
+    """The port's fake apiserver (``testing.FakeKube`` with
+    ``register_all``, the kubelet simulator ``PodSimulator``) served over
+    HTTP in the Kubernetes REST conventions ``runtime.httpclient.HttpKube``
+    speaks: get, list with the collection's ``resourceVersion``,
+    ``?watch=true`` as chunked JSON lines, create, update, merge patch and
+    the ``status`` subresource, delete; paths from the scheme's
+    kinds, core and grouped, namespaced and cluster-scoped. Scaffolding
+    for the entrypoints phase and its CPU test, on an event loop of its
+    own thread; not a module of the package.
+
+    A list's ``resourceVersion`` is the facade's event number: every event
+    the fake apiserver sends its watchers is kept with its number, and a
+    watch from version N first replays the kept events after N, so an
+    informer misses nothing between its list and its watch."""
+
+    def __init__(self, host: str = FACADE_HOST, port: int = FACADE_PORT,
+                 nodes: tuple = ()):
+        super().__init__("api-facade")
+        self.requests: dict = {}
+        try:
+            self.call(self._start(host, port, nodes))
+        except OSError as e:
+            self.stop_loop()
+            raise AssertionError(f"the fake apiserver cannot listen on "
+                                 f"{host}:{port}: {e}") from None
+
+    async def _start(self, host: str, port: int, nodes: tuple) -> None:
+        import collections
+
+        from aiohttp import web
+
+        from kubeflow_tpu_torch.testing import FakeKube, PodSimulator
+        from kubeflow_tpu_torch.webhooks import register_all
+
+        self.kube = FakeKube()
+        register_all(self.kube)
+        self.seq = 0
+        self.history: collections.deque = collections.deque(
+            maxlen=FACADE_HISTORY)
+        notify = self.kube._notify
+
+        def kept(event: str, obj: dict) -> None:
+            import copy
+
+            self.seq += 1
+            self.history.append((self.seq, event, copy.deepcopy(obj)))
+            notify(event, obj)
+
+        self.kube._notify = kept
+        self.kinds = {(gvk.group, gvk.plural): gvk
+                      for gvk in self.kube.scheme.kinds()}
+        for node in nodes:
+            await self.kube.create("Node", node)
+        self.sim = PodSimulator(self.kube)
+        app = web.Application()
+        app.router.add_route("*", "/{tail:.*}", self._handle)
+        self.runner = web.AppRunner(app, shutdown_timeout=1.0)
+        await self.runner.setup()
+        try:
+            await web.TCPSite(self.runner, host, port).start()
+        except OSError:
+            await self.runner.cleanup()
+            raise
+        await self.sim.start()
+
+    async def _stop(self) -> None:
+        await self.sim.stop()
+        self.kube.close_watches()
+        await self.runner.cleanup()
+
+    def close(self) -> None:
+        try:
+            self.call(self._stop())
+        finally:
+            self.stop_loop()
+
+    def _route(self, path: str) -> tuple:
+        """``/api/v1/...`` or ``/apis/<group>/<version>/...`` → (GVK,
+        namespace, name, subresource)."""
+        parts = [p for p in path.split("/") if p]
+        if parts[:1] == ["api"]:
+            group, rest = "", parts[2:]
+        elif parts[:1] == ["apis"]:
+            group, rest = parts[1], parts[3:]
+        else:
+            raise KeyError(path)
+        namespace = None
+        if rest[:1] == ["namespaces"] and len(rest) >= 3:
+            namespace, rest = rest[1], rest[2:]
+        gvk = self.kinds[(group, rest[0])]
+        return (gvk, namespace, rest[1] if len(rest) > 1 else None,
+                rest[2] if len(rest) > 2 else None)
+
+    async def _handle(self, request):
+        from aiohttp import web
+
+        from kubeflow_tpu_torch.runtime.errors import ApiError, NotFound
+
+        try:
+            gvk, ns, name, sub = self._route(request.path)
+        except (KeyError, IndexError):
+            return self._status(NotFound(f"no route {request.path}"))
+        kind, query, method = gvk.kind, request.query, request.method
+        if method == "GET" and name is None:
+            verb = "watch" if query.get("watch") == "true" else "list"
+        else:
+            verb = {"GET": "get", "POST": "create", "PUT": "update",
+                    "PATCH": "patch", "DELETE": "delete"}.get(method, method)
+        self.requests[verb] = self.requests.get(verb, 0) + 1
+        try:
+            if verb == "watch":
+                return await self._watch(request, kind, ns, query)
+            if verb == "list":
+                items, _ = await self.kube.list_with_rv(
+                    kind, ns, query.get("labelSelector") or None)
+                return web.json_response({
+                    "apiVersion": gvk.api_version, "kind": f"{kind}List",
+                    "metadata": {"resourceVersion": str(self.seq)},
+                    "items": items})
+            if verb == "get":
+                return web.json_response(await self.kube.get(kind, name, ns))
+            body = await request.json() if request.can_read_body else {}
+            if verb == "create":
+                return web.json_response(
+                    await self.kube.create(kind, body, ns), status=201)
+            if verb == "update":
+                return web.json_response(await self.kube.update(kind, body))
+            if verb == "patch":
+                return web.json_response(await self.kube.patch(
+                    kind, name, body, ns, subresource=sub))
+            if verb == "delete":
+                await self.kube.delete(kind, name, ns)
+                return web.json_response({"kind": "Status",
+                                          "status": "Success"})
+            return self._status(ApiError(f"{method} is not served"))
+        except ApiError as e:
+            return self._status(e)
+
+    @staticmethod
+    def _status(error):
+        from aiohttp import web
+
+        return web.json_response(
+            {"kind": "Status", "apiVersion": "v1", "status": "Failure",
+             "reason": error.reason, "message": error.message,
+             "code": error.code}, status=error.code)
+
+    async def _watch(self, request, kind: str, ns, query):
+        from aiohttp import web
+
+        from kubeflow_tpu_torch.runtime.objects import (
+            get_meta, matches_selector, namespace_of, parse_label_selector)
+
+        selector = query.get("labelSelector") or None
+        since = int(query.get("resourceVersion") or self.seq)
+        # The watch registers and the backlog is taken at one instant of
+        # the loop: nothing falls between them.
+        stream = self.kube.watch(kind, ns, selector, send_initial=False)
+        wanted = parse_label_selector(selector)
+        gone = bool(self.history) and since < self.history[0][0] - 1
+        backlog = [] if gone else [
+            (event, obj) for n, event, obj in self.history
+            if n > since and obj.get("kind") == kind
+            and (not ns or namespace_of(obj) == ns)
+            and matches_selector(get_meta(obj).get("labels"), wanted)]
+        resp = web.StreamResponse()
+        resp.content_type = "application/json"
+        await resp.prepare(request)
+        try:
+            if gone:
+                await resp.write(json.dumps({"type": "ERROR", "object": {
+                    "kind": "Status", "code": 410,
+                    "message": "too old resource version"}}).encode() + b"\n")
+                return resp
+            for event, obj in backlog:
+                await resp.write(json.dumps(
+                    {"type": event, "object": obj}).encode() + b"\n")
+            async for event, obj in stream:
+                await resp.write(json.dumps(
+                    {"type": event, "object": obj}).encode() + b"\n")
+        except ConnectionError:
+            pass                    # the client went away
+        finally:
+            await stream.aclose()
+        return resp
+
+
+def openssl_pair(directory: str) -> tuple:
+    """A self-signed certificate and key for 127.0.0.1, made with
+    ``openssl`` as the webhook server's tests make theirs. Without
+    ``openssl`` it raises: the webhook is never served in plaintext."""
+    import shutil
+
+    if shutil.which("openssl") is None:
+        raise AssertionError("no openssl to make the admission webhook's "
+                             "TLS pair (it is never served in plaintext)")
+    cert, key = f"{directory}/tls.crt", f"{directory}/tls.key"
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-days", "1", "-keyout", key, "-out", cert, "-subj",
+         "/CN=127.0.0.1", "-addext", "subjectAltName=IP:127.0.0.1"],
+        check=True, capture_output=True)
+    return cert, key
+
+
+class EntryProcess:
+    """``python -m <module>``, one of the port's entry points, started in
+    a session of its own with this process's env (no apiserver address:
+    HttpKube falls back to the facade) and ``environ`` on top; its output
+    goes to temporary files. It must run until :meth:`stop` ends it with
+    SIGTERM, as a kubelet stops a pod."""
+
+    def __init__(self, module: str, environ: dict):
+        import atexit
+        import tempfile
+        from pathlib import Path
+
+        env = {k: v for k, v in _pod_process_env({}).items()
+               if not k.startswith("KUBERNETES_")}
+        env.update(environ)
+        self.module = module
+        self.out = tempfile.TemporaryFile(mode="w+")
+        self.started = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", module], env=env,
+            cwd=Path(__file__).parent, stdout=self.out,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        atexit.register(_stop_group, self.proc)
+
+    def output(self) -> str:
+        self.out.seek(0)
+        return self.out.read()[-4000:]
+
+    def get(self, url: str, context=None, data: bytes | None = None,
+            headers: dict | None = None) -> tuple:
+        """One request to the process; raises if the process has ended."""
+        import urllib.error
+        import urllib.request
+
+        if self.proc.poll() is not None:
+            raise AssertionError(f"{self.module} exited "
+                                 f"{self.proc.returncode}:\n{self.output()}")
+        req = urllib.request.Request(url, data=data, headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=10,
+                                        context=context) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def answers(self, url: str, context=None) -> bool:
+        """Whether ``url`` answers 200 now."""
+        import urllib.error
+
+        try:
+            return self.get(url, context)[0] == 200
+        except (urllib.error.URLError, ConnectionError, OSError):
+            return False
+
+    def stop(self) -> dict:
+        """SIGTERM the process (it must still be running) and its group."""
+        import os
+        import signal
+
+        alive = self.proc.poll() is None
+        if alive:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+        try:
+            code = self.proc.wait(timeout=ENTRY_TIMEOUT)
+        finally:
+            _stop_group(self.proc)
+        return {"ran_until_stopped": alive,
+                "stopped_by_sigterm": alive and code == -signal.SIGTERM,
+                "returncode": code}
+
+
+class Entrypoints:
+    """The facade and both entry points as processes against it: the
+    controller manager (``METRICS_PORT`` free, the fleet scheduler on
+    ``fleet``) and the admission webhook over TLS with a fresh
+    ``openssl`` pair in ``tmp``. Both start together."""
+
+    def __init__(self, tmp: str, fleet: str, nodes: tuple = ()):
+        import ssl
+
+        from kubeflow_tpu_torch.probe.dcn import free_base_port
+
+        self.facade = ApiFacade(nodes=nodes)
+        self.manager = self.webhook = None
+        try:
+            cert, key = openssl_pair(tmp)
+            metrics = free_base_port(2)
+            port = metrics + 1
+            self.manager = EntryProcess(
+                "kubeflow_tpu_torch.cmd.controller_manager", {
+                    "METRICS_PORT": str(metrics), "KFTPU_SCHEDULER": "on",
+                    "KFTPU_FLEET": fleet})
+            self.webhook = EntryProcess("kubeflow_tpu_torch.cmd.webhook", {
+                "TLS_CERT_FILE": cert, "TLS_KEY_FILE": key,
+                "WEBHOOK_PORT": str(port)})
+        except BaseException:
+            self.stop()
+            raise
+        self.tls = ssl.create_default_context(cafile=cert)
+        self.base = f"http://127.0.0.1:{metrics}"
+        self.hook = f"https://127.0.0.1:{port}"
+
+    def manager_json(self, path: str) -> dict:
+        return json.loads(self.manager.get(self.base + path)[1])
+
+    def wait_synced(self) -> dict:
+        """Poll the manager's /readyz and the webhook's /healthz over TLS
+        together until both answer, then the manager's /debug/informers
+        until every informer is synced: the host time of each mark and
+        the informers' kinds."""
+        marks: dict = {}
+        probes = (("readyz", self.manager, f"{self.base}/readyz", None),
+                  ("first_tls", self.webhook, f"{self.hook}/healthz",
+                   self.tls))
+        deadline = time.monotonic() + ENTRY_TIMEOUT
+        while True:
+            for name, proc, url, context in probes:
+                if name not in marks and proc.answers(url, context):
+                    marks[name] = time.time()
+            if len(marks) == len(probes):
+                informers = self.manager_json("/debug/informers")[
+                    "informers"]
+                if informers and all(i["synced"]
+                                     for i in informers.values()):
+                    return {**marks, "synced": time.time(),
+                            "kinds": sorted(informers)}
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"the entry points never came up ({marks}):\n"
+                    f"{self.manager.output()}\n{self.webhook.output()}")
+            time.sleep(0.02)
+
+    def review(self, path: str, body) -> tuple:
+        """POST ``body`` (JSON, or raw bytes) to the webhook: (HTTP status,
+        decoded answer, host seconds)."""
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        status, raw = self.webhook.get(
+            self.hook + path, self.tls, data=data,
+            headers={"Content-Type": "application/json"})
+        return status, json.loads(raw), time.perf_counter() - t0
+
+    def stop(self) -> dict:
+        """Stop both processes and the facade: how each process ended."""
+        ended = {}
+        try:
+            for name in ("manager", "webhook"):
+                proc = getattr(self, name)
+                if proc is not None:
+                    ended[name] = proc.stop()
+                    setattr(self, name, None)
+        finally:
+            self.facade.close()
+        return ended
+
+
+def admission_review(obj: dict, uid: str, namespace: str = "ns") -> dict:
+    return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": {"uid": uid, "operation": "CREATE",
+                        "namespace": namespace, "object": obj}}
+
+
+def decoded_patch(answer: dict) -> list:
+    import base64
+
+    patch = answer["response"].get("patch")
+    return json.loads(base64.b64decode(patch)) if patch else []
+
+
+def admission_counts(text: str) -> dict:
+    """``webhook_admission_total`` from /metrics, by "<path> <allowed>"."""
+    import re
+
+    return {f"{m['path']} {m['allowed']}": float(m["n"]) for m in re.finditer(
+        r'webhook_admission_total\{allowed="(?P<allowed>\w+)",'
+        r'path="(?P<path>[^"]+)"\} (?P<n>[0-9.]+)', text)}
+
+
+def entry_notebook(name: str, topology: str | None) -> dict:
+    """A notebook mounting the claim ``logs`` at ENTRY_MOUNT; on GPU
+    nodes of ``topology`` where one is given, else on the CPU."""
+    from kubeflow_tpu_torch.api import notebook as nbapi
+
+    nb = (_gpu_notebook(name, topology) if topology
+          else nbapi.new(name, "ns"))
+    pod = nb["spec"]["template"]["spec"]
+    pod["containers"][0]["volumeMounts"] = [
+        {"name": "logs", "mountPath": ENTRY_MOUNT}]
+    pod["volumes"] = [{"name": "logs",
+                       "persistentVolumeClaim": {"claimName": "logs"}}]
+    return nb
+
+
+async def entry_objects(kube) -> None:
+    """What the user creates before the notebook: a PVC ``logs``
+    (ReadWriteOnce) and a PodDefault that points the SDK's profiler at a
+    run on it for every pod of notebook ``nb``."""
+    from kubeflow_tpu_torch.sdk import TELEMETRY_LOGDIR_ENV
+
+    await kube.create("PersistentVolumeClaim", {
+        "apiVersion": "v1", "kind": "PersistentVolumeClaim",
+        "metadata": {"name": "logs", "namespace": "ns"},
+        "spec": {"accessModes": ["ReadWriteOnce"]}})
+    await kube.create("PodDefault", {
+        "apiVersion": "kubeflow.org/v1alpha1", "kind": "PodDefault",
+        "metadata": {"name": "profiler-logs", "namespace": "ns"},
+        "spec": {"selector": {"matchLabels": {"notebook-name": "nb"}},
+                 "desc": "the SDK's profiler traces to the logs claim",
+                 "env": [{"name": TELEMETRY_LOGDIR_ENV,
+                          "value": f"{ENTRY_MOUNT}/{ENTRY_RUN}"}]}})
+
+
+async def running_pod(kube, name: str):
+    pod = await kube.get_or_none("Pod", name, "ns")
+    return pod if ((pod or {}).get("status") or {}).get("phase") \
+        == "Running" else None
+
+
+async def tensorboard_ready(kube, name: str):
+    tb = await kube.get_or_none("Tensorboard", name, "ns")
+    status = (tb or {}).get("status") or {}
+    return status if status.get("readyReplicas") == 1 and any(
+        c.get("deploymentState") == "Available"
+        for c in status.get("conditions", [])) else None
+
+
+async def pvcviewer_ready(kube, name: str):
+    viewer = await kube.get_or_none("PVCViewer", name, "ns")
+    return viewer if ((viewer or {}).get("status") or {}).get("ready") \
+        else None
+
+
+def pod_from_template(sts: dict, name: str) -> dict:
+    """The pod a StatefulSet's controller creates, before admission."""
+    import copy
+
+    meta = sts["spec"]["template"].get("metadata") or {}
+    return {"apiVersion": "v1", "kind": "Pod", "metadata": {
+        "name": name, "namespace": "ns",
+        "labels": dict(meta.get("labels") or {}),
+        "annotations": dict(meta.get("annotations") or {})},
+        "spec": copy.deepcopy(sts["spec"]["template"]["spec"])}
+
+
+def container_env(pod: dict) -> list:
+    return pod["spec"]["containers"][0].get("env", [])
+
+
+def _kernel_events(trace: dict) -> dict:
+    """Each ENTRY_KERNELS kernel's events in a ``torch.profiler`` trace
+    (the wide library's ``wide_*`` kernels are others)."""
+    import re
+
+    counts = dict.fromkeys(ENTRY_KERNELS, 0)
+    for event in trace.get("traceEvents", []):
+        if event.get("cat") == "kernel":
+            for name in ENTRY_KERNELS:
+                if re.search(rf"(?<!\w){name}(?!\w)", event.get("name", "")):
+                    counts[name] += 1
+    return counts
+
+
+def _entry_traced_steps(torch, fa, burnin, sdk, logdir: str) -> dict:
+    """(b)'s card work: ``make_train_step`` at TRAIN_MODEL, one warm-up
+    step, then ENTRY_TRACED_STEPS under ``sdk.capture_profile`` with the
+    logdir from ``KFTPU_TELEMETRY_LOGDIR``; launches counted from zero
+    over the traced steps."""
+    cfg = burnin.BurninConfig(**TRAIN_MODEL)
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=0)
+    step = burnin.make_train_step(cfg)
+    step(params, tokens)
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    with sdk.capture_profile(environ={sdk.TELEMETRY_LOGDIR_ENV: logdir}):
+        losses = [step(params, tokens)[1] for _ in range(ENTRY_TRACED_STEPS)]
+        torch.cuda.synchronize()
+    launches = _launch_counts(fa)        # ---- (b)'s part ends here
+    del params, tokens
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "launches": launches,
+            "losses": [float(x) for x in losses]}
+
+
+def _wire_admissions(ep: Entrypoints, wire_pod: dict) -> dict:
+    """(c)'s AdmissionReviews over TLS, each checked by the caller."""
+    from kubeflow_tpu_torch.api import notebook as nbapi
+    from kubeflow_tpu_torch.api import pvcviewer as pvcapi
+    from kubeflow_tpu_torch.api import tensorboard as tbapi
+    from kubeflow_tpu_torch.webhooks import jsonpatch
+
+    seconds = []
+
+    def review(path, obj, uid):
+        status, answer, sec = ep.review(path, admission_review(obj, uid))
+        seconds.append(sec)
+        assert status == 200 and answer["response"]["uid"] == uid, answer
+        return answer["response"], decoded_patch(answer)
+
+    pod, pod_patch = review("/apply-poddefault", wire_pod, "pod")
+    viewer, viewer_patch = review("/mutate-pvcviewers",
+                                  pvcapi.new("view", "ns", "logs"), "view")
+    tb_ok, _ = review("/validate-tensorboards", tbapi.new(
+        "tb", "ns", f"pvc://logs/{ENTRY_RUN}", profiler=True), "tb")
+    tb_bad, _ = review("/validate-tensorboards",
+                       tbapi.new("empty", "ns", ""), "empty")
+    malformed, _, _ = ep.review("/validate-tensorboards", b"[1]")
+    tpu_nb = nbapi.new("tpu", "ns")
+    tpu_nb["spec"]["tpu"] = {"accelerator": "v5e", "topology": "2x2"}
+    tpu, _ = review("/mutate-notebooks", tpu_nb, "tpu")
+    big, _ = review("/mutate-notebooks", _gpu_notebook("big", "2x8"), "big")
+    old = nbapi.new("old", "ns")
+    old["apiVersion"] = "kubeflow.org/v1beta1"
+    _, converted, _ = ep.review("/convert", {
+        "apiVersion": "apiextensions.k8s.io/v1", "kind": "ConversionReview",
+        "request": {"uid": "convert", "desiredAPIVersion": nbapi.API_VERSION,
+                    "objects": [old]}})
+    return {
+        "pod_allowed": pod["allowed"],
+        "pod": jsonpatch.apply(wire_pod, pod_patch),
+        "viewer_allowed": viewer["allowed"],
+        "viewer": jsonpatch.apply(pvcapi.new("view", "ns", "logs"),
+                                  viewer_patch),
+        "tb_allowed": tb_ok["allowed"],
+        "tb_denied": {k: tb_bad.get(k) for k in ("allowed", "status")},
+        "malformed_http_status": malformed,
+        "tpu_denied": {k: tpu.get(k) for k in ("allowed", "status")},
+        "over_quota_denied": {k: big.get(k) for k in ("allowed", "status")},
+        "converted": converted["response"],
+        "metrics": admission_counts(ep.webhook.get(
+            f"{ep.hook}/metrics", ep.tls)[1].decode()),
+        "traces": [[t["key"], t["outcome"]] for t in json.loads(
+            ep.webhook.get(f"{ep.hook}/debug/traces", ep.tls)[1])["traces"]],
+        "seconds": seconds}
+
+
+def phase_entrypoints(torch, fa, burnin, sdk, card: str) -> dict:
+    """The controller manager and the admission webhook as processes on
+    the facade (module docstring, item 34): (a) the manager renders a GPU
+    notebook, (b) a traced train step on the card, the Tensorboard that
+    serves its trace and a PVCViewer on the same claim, (c) the webhook's
+    AdmissionReviews over TLS and a process started with the env it gave
+    the pod. Any failed check raises. Returns (b)'s and (c)'s launches."""
+    import glob
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.api import profile as profileapi
+    from kubeflow_tpu_torch.api import pvcviewer as pvcapi
+    from kubeflow_tpu_torch.api import tensorboard as tbapi
+    from kubeflow_tpu_torch.gpu.topology import GPU_RESOURCE
+    from kubeflow_tpu_torch.runtime.errors import Invalid
+
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-entry-")
+    claim_root = f"{tmp}/logs"
+    ep = Entrypoints(tmp, FLEET_SPEC, nodes=(ENTRY_NODE,))
+    kube, call = ep.facade.kube, ep.facade.call
+    manager_started, webhook_started = ep.manager.started, ep.webhook.started
+    try:
+        # (a) both processes' first answers, the manager's caches, the
+        # Profile's quota, a GPU notebook.
+        synced = ep.wait_synced()
+
+        async def quota():
+            rq = await kube.get_or_none("ResourceQuota", "kf-resource-quota",
+                                        "ns")
+            return ((rq or {}).get("spec") or {}).get("hard")
+
+        call(kube.create("Profile", profileapi.new(
+            "ns", "owner@example.com", gpu_quota=FLEET_QUOTA)))
+        hard = call(ep.facade.wait_for(quota, "the ResourceQuota"))
+        call(entry_objects(kube))
+        nb_created = time.time()
+        is_running = ep.facade.mark_when(lambda: running_pod(kube, "nb-0"),
+                                         "nb-0 running")
+        call(kube.create("Notebook", entry_notebook("nb", "1x1")))
+        nb_running = is_running.result(ENTRY_TIMEOUT)
+        pod = call(running_pod(kube, "nb-0"))
+        pod_env = {e["name"]: e.get("value") for e in container_env(pod)}
+        admitted = [a["key"] for a in ep.manager_json(
+            "/debug/scheduler")["scheduler"]["admitted"]]
+
+        # (b) two traced steps on the card, where the claim stands for the
+        # pod's mount; then the Tensorboard over that run, and a PVCViewer.
+        logdir = pod_env[sdk.TELEMETRY_LOGDIR_ENV].replace(
+            ENTRY_MOUNT, claim_root, 1)
+        traced = _entry_traced_steps(torch, fa, burnin, sdk, logdir)
+        refused = None
+        try:
+            call(kube.create("Tensorboard", tbapi.new("empty", "ns", "")))
+        except Invalid as e:
+            refused = e.message
+        tb_created = time.time()
+        is_ready = ep.facade.mark_when(lambda: tensorboard_ready(kube, "tb"),
+                                       "the Tensorboard ready")
+        call(kube.create("Tensorboard", tbapi.new(
+            "tb", "ns", f"pvc://logs/{ENTRY_RUN}", profiler=True)))
+        tb_ready = is_ready.result(ENTRY_TIMEOUT)
+        tb_status = call(tensorboard_ready(kube, "tb"))
+        tb_pod = call(kube.get("Deployment", "tb", "ns"))["spec"][
+            "template"]["spec"]
+        tb_ports = call(kube.get("Service", "tb", "ns"))["spec"]["ports"]
+        command = tb_pod["containers"][0]["command"]
+        served = next(a for a in command if a.startswith("--logdir="))[
+            len("--logdir="):]
+        traces = sorted(glob.glob(
+            served.replace("/tensorboard_logs", claim_root, 1)
+            + "/*.pt.trace.json"))
+        with open(traces[0]) as f:
+            kernel_events = _kernel_events(json.load(f))
+        affinity = tb_pod.get("affinity", {}).get("nodeAffinity", {}).get(
+            "requiredDuringSchedulingIgnoredDuringExecution", {})
+        call(kube.create("PVCViewer", pvcapi.new("view", "ns", "logs")))
+        viewer = call(ep.facade.wait_for(lambda: pvcviewer_ready(kube, "view"),
+                                         "the PVCViewer ready"))
+        viewer_children = [
+            call(kube.get_or_none(kind, "view-pvcviewer", "ns")) is not None
+            for kind in ("Deployment", "Service")]
+
+        # (c) the webhook over TLS, then the pod's process under the env
+        # the wire gave it.
+        wire = _wire_admissions(ep, pod_from_template(
+            call(kube.get("StatefulSet", "nb", "ns")), "nb-0"))
+        case = next(c for c in KERNEL_CASES if c[0] == "decode")
+        env = _pod_process_env({e["name"]: e.get("value")
+                                for e in container_env(wire["pod"])})
+        env["SMOKE_ENTRY_CASE"] = json.dumps([list(case[1]), case[2],
+                                              case[3]])
+        child_started = time.time()
+        child = json.loads(_run_children(
+            [(["-c", ENTRY_POD_CHILD], env)])[0].strip().splitlines()[-1])
+        facade_requests = dict(sorted(ep.facade.requests.items()))
+    finally:
+        ended = ep.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = traced["layers"] * ENTRY_TRACED_STEPS
+    launches = {k: v + (child["launches"] if k == "fwd" else 0)
+                for k, v in traced["launches"].items()}
+    tol_o = TOL_O[case[2]]
+    seconds = wire.pop("seconds")
+    row = {"phase": "entrypoints", "card": card,
+           "clock": "host seconds (time.time) for the marks",
+           "host_sec": {
+               "manager_start_to_readyz": synced["readyz"] - manager_started,
+               "manager_start_to_informers_synced": synced["synced"]
+               - manager_started,
+               "nb_create_to_running": nb_running - nb_created,
+               "tb_create_to_ready": tb_ready - tb_created,
+               "webhook_start_to_first_tls": synced["first_tls"]
+               - webhook_started,
+               "admission_p50": statistics.median(seconds),
+               "admission_max": max(seconds),
+               "pod_process_start_to_kernel_result":
+                   child["result_at"] - child_started},
+           "admissions": len(seconds), "informers": synced["kinds"],
+           "quota_hard": hard, "node": pod["spec"].get("nodeName"),
+           "pod_requests": pod["spec"]["containers"][0]["resources"],
+           "scheduler_admitted": admitted, "losses": traced["losses"],
+           "traces": [t[len(tmp):] for t in traces],
+           "kernel_events": kernel_events, "tensorboard": {
+               "command": command, "volumes": tb_pod.get("volumes"),
+               "mounts": tb_pod["containers"][0].get("volumeMounts"),
+               "affinity": affinity, "service_ports": tb_ports,
+               "status": tb_status, "empty_logspath_refused": refused},
+           "pvcviewer": {"spec": viewer["spec"], "status": viewer["status"],
+                         "children": viewer_children},
+           "wire": {k: v for k, v in wire.items() if k not in ("pod",
+                                                               "viewer")},
+           "wire_env_equals_in_process": container_env(wire["pod"])
+           == container_env(pod),
+           "wire_viewer_equals_in_process": wire["viewer"]["spec"]
+           == viewer["spec"],
+           "pod_process": child, "facade_requests_by_verb": facade_requests,
+           "processes": ended, "launches": launches,
+           "launches_expected": {"fwd": n + 1, "dq": n, "dkv": n,
+                                 "partial": 0},
+           "tol_o": tol_o, "tol_lse": TOL_LSE,
+           "phase_sec": time.perf_counter() - phase_t0}
+    emit(row)
+    wire_env = {e["name"] for e in container_env(wire["pod"])}
+    checks = {
+        "processes_stopped": all(e["ran_until_stopped"]
+                                 and e["stopped_by_sigterm"]
+                                 for e in ended.values())
+        and set(ended) == {"manager", "webhook"},
+        "informers": {"Notebook", "Tensorboard", "PVCViewer", "Deployment",
+                      "Profile", "Pod"} <= set(synced["kinds"]),
+        "quota": hard == {f"requests.{GPU_RESOURCE}": str(FLEET_QUOTA)},
+        "nb_on_node": pod["spec"].get("nodeName") == "a3-0"
+        and ["ns", "nb"] in admitted,
+        "nb_card": row["pod_requests"].get("limits", {}).get(GPU_RESOURCE)
+        == "1",
+        "logdir": f"--logdir=/tensorboard_logs/{ENTRY_RUN}" in command
+        and "--reload_multifile=true" in command,
+        "mount": {"name": "logs", "mountPath": "/tensorboard_logs",
+                  "readOnly": True} in row["tensorboard"]["mounts"]
+        and {"name": "logs", "persistentVolumeClaim": {"claimName": "logs"}}
+        in row["tensorboard"]["volumes"],
+        "rwo_pin": affinity.get("nodeSelectorTerms", [{}])[0].get(
+            "matchFields", [{}])[0].get("values") == ["a3-0"],
+        "service": [(p["port"], p["targetPort"]) for p in tb_ports]
+        == [(80, 6006)],
+        "tb_refused": refused is not None
+        and "spec.logspath is required" in refused,
+        "one_trace": len(traces) == 1,
+        "trace_kernels": kernel_events == dict.fromkeys(ENTRY_KERNELS, n),
+        "pvcviewer": viewer["spec"]["podSpec"]["containers"][0]["image"]
+        == "filebrowser/filebrowser:latest"
+        and {"name": "viewer-volume",
+             "persistentVolumeClaim": {"claimName": "logs"}}
+        in viewer["spec"]["podSpec"]["volumes"] and all(viewer_children),
+        "wire_pod": wire["pod_allowed"] and row["wire_env_equals_in_process"]
+        and {"TPU_WORKER_ID", "PET_NODE_RANK", "PET_MASTER_ADDR",
+             sdk.TELEMETRY_LOGDIR_ENV} <= wire_env,
+        "wire_viewer": wire["viewer_allowed"]
+        and row["wire_viewer_equals_in_process"],
+        "wire_tensorboards": wire["tb_allowed"]
+        and wire["tb_denied"]["allowed"] is False
+        and wire["tb_denied"]["status"]["code"] == Invalid.code
+        and wire["malformed_http_status"] == 400,
+        "wire_notebooks": wire["tpu_denied"]["allowed"] is False
+        and "spec.gpu" in wire["tpu_denied"]["status"]["message"]
+        and wire["over_quota_denied"]["allowed"] is False
+        and "gpuQuota" in wire["over_quota_denied"]["status"]["message"],
+        "wire_convert": wire["converted"]["result"]["status"] == "Success"
+        and wire["converted"]["convertedObjects"][0]["apiVersion"]
+        == "kubeflow.org/v1",
+        "wire_metrics": wire["metrics"] == {
+            "/apply-poddefault true": 1.0, "/mutate-pvcviewers true": 1.0,
+            "/validate-tensorboards true": 1.0,
+            "/validate-tensorboards false": 2.0,
+            "/mutate-notebooks false": 2.0},
+        "wire_traces": len(wire["traces"]) == len(seconds),
+        "pod_kernel": child["launches"] == 1 and child["finite"]
+        and child["max_err_o"] <= tol_o and child["max_err_lse"] <= TOL_LSE,
+        "launches": launches == row["launches_expected"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"entrypoints phase failed: {checks}")
     return launches
 
 
@@ -4998,6 +5850,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["serving_control"] = phase_serving_control(
         torch, fa, burnin, trainer, data, checkpoint, sdk, card)
+    by_path["entrypoints"] = phase_entrypoints(torch, fa, burnin, sdk, card)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)

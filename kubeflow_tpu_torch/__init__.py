@@ -36,7 +36,16 @@ imports nothing of it (and no JAX). Ported so far, slice by slice:
    per pod ordinal), ``testing.distributed_worker``, ``probe`` (the
    all-reduce and DCN ring probes, ``python -m kubeflow_tpu_torch.probe``)
    and ``utils.compilecache`` (the kernel library cache a warm pod
-   seeds).
+   seeds);
+10. the control plane on GPU nodes: the controller runtime
+   (``runtime``), the APIs (``api``), the admission chain (``webhooks``),
+   the notebook, profile, culling, Tensorboard and PVCViewer controllers
+   and the warm pools (``controllers``), the fleet scheduler in cards
+   (``scheduler``), the InferenceService controller
+   (``serving.controller``), the fake apiserver (``testing``), and the
+   entry points ``python -m kubeflow_tpu_torch.cmd.controller_manager``
+   and ``python -m kubeflow_tpu_torch.cmd.webhook``, which reach an
+   apiserver through ``runtime.httpclient``.
 
 The kernels live in ``ops.flash_attention``, their CUDA sources in
 ``ops/csrc/``; ``entry.entry`` and ``entry.dryrun_multichip`` mirror the

@@ -1,11 +1,10 @@
-"""Env-var configuration of the port's fleet scheduler, warm pod pools,
-serving workload class and culler: a trimmed copy of
-``kubeflow_tpu/cmd/envconfig.py``.
+"""Env-var configuration shared by the entrypoints (the port of
+``kubeflow_tpu/cmd/envconfig.py``).
 
-Every knob is an env var with a default, mapped onto the typed Options
-dataclasses the controllers take. The port reads the same ``KFTPU_*``
-names as the reference; the rest of the reference's contract (the
-notebook, profile and web-app options) comes with its entrypoints.
+The reference scatters four config mechanisms (SURVEY.md §5 "Config/flag
+system"); this is the unified one: every knob is an env var with a default,
+mapped onto the typed Options dataclasses the controllers take. The port
+reads the same names as the reference.
 """
 
 from __future__ import annotations
@@ -35,6 +34,43 @@ def env_float(name: str, default: float) -> float:
 # Re-exported from runtime so every layer shares one definition without
 # importing this cmd wiring module.
 from kubeflow_tpu_torch.runtime.deployment import controller_namespace  # noqa: E402,F401
+
+
+def notebook_options():
+    from kubeflow_tpu_torch.controllers.notebook import (
+        DEFAULT_MAINTENANCE_TAINTS,
+        NotebookOptions,
+    )
+
+    from kubeflow_tpu_torch.migration import protocol as migration
+
+    return NotebookOptions(
+        use_istio=env_bool("USE_ISTIO", False),
+        # Preempt-to-checkpoint (docs/operations.md "Migration"): drives
+        # suspend/resume, restore-hint env, and status.migration.
+        enable_migration=migration.migration_enabled(),
+        drain_grace_seconds=migration.drain_grace_seconds(),
+        istio_gateway=env_str("ISTIO_GATEWAY", "kubeflow/kubeflow-gateway"),
+        istio_host=env_str("ISTIO_HOST", "*"),
+        cluster_domain=env_str("CLUSTER_DOMAIN", "cluster.local"),
+        add_fsgroup=env_bool("ADD_FSGROUP", True),
+        controller_namespace=controller_namespace(),
+        create_network_policies=env_bool("CREATE_NETWORK_POLICIES", False),
+        trusted_ca_configmap=os.environ.get("TRUSTED_CA_BUNDLE_CONFIGMAP"),
+        auth_proxy_image=os.environ.get("AUTH_PROXY_IMAGE"),
+        pipeline_access_role=env_str("PIPELINE_ACCESS_ROLE",
+                                     "pipeline-user-access") or None,
+        # Comma-separated taint keys; empty string disables the mirror.
+        maintenance_taints=tuple(
+            t.strip() for t in env_str(
+                "MAINTENANCE_TAINTS",
+                ",".join(DEFAULT_MAINTENANCE_TAINTS)).split(",")
+            if t.strip()
+        ),
+        # Off for clusters without the ProvisioningRequest CRD.
+        enable_queued_provisioning=env_bool("ENABLE_QUEUED_PROVISIONING",
+                                            True),
+    )
 
 
 def scheduler_options():
@@ -98,6 +134,25 @@ def scheduler_options():
             "KFTPU_DEFRAG_MAX_MOVES", elastic.DEFAULT_DEFRAG_MAX_MOVES)),
         fleet_refresh_seconds=env_float("KFTPU_FLEET_REFRESH_SECONDS",
                                         30.0),
+    )
+
+
+def shard_ring_config() -> tuple[int, int, int, int]:
+    """Sharded control plane env contract (docs/operations.md "Sharded
+    control plane"): (shards, replica, replicas, handback_ticks).
+    KFTPU_SHARDS=1 — the default — keeps the single-writer
+    leader-elected control plane byte-for-byte; KFTPU_SHARD_REPLICA is
+    the StatefulSet ordinal so the preferred shard spread is stable
+    across restarts. A restarted replica reclaims its slice via the
+    demand-driven claim protocol (runtime/sharding.py), so the periodic
+    KFTPU_SHARD_HANDBACK_TICKS release is off by default — timer-based
+    handback churns absorbed shards through unowned windows even when
+    the preferred owner is dead and nobody can take them."""
+    return (
+        int(env_float("KFTPU_SHARDS", 1)),
+        int(env_float("KFTPU_SHARD_REPLICA", 0)),
+        int(env_float("KFTPU_SHARD_REPLICAS", 1)),
+        int(env_float("KFTPU_SHARD_HANDBACK_TICKS", 0)),
     )
 
 
@@ -195,4 +250,38 @@ def culling_options():
         drain_on_cull=(migration.migration_enabled()
                        and migration.cull_drain_enabled()),
         drain_grace_seconds=migration.drain_grace_seconds(),
+    )
+
+
+def profile_options():
+    from kubeflow_tpu_torch.controllers.profile import ProfileOptions
+
+    return ProfileOptions(
+        use_istio=env_bool("USE_ISTIO", False),
+        userid_header=env_str("USERID_HEADER", "kubeflow-userid"),
+        userid_prefix=env_str("USERID_PREFIX", ""),
+        # Reference: the ConfigMap-mounted, hot-reloaded labels file
+        # (profile_controller.go DefaultNamespaceLabelsPath).
+        namespace_labels_file=os.environ.get("NAMESPACE_LABELS_PATH"),
+    )
+
+
+def tensorboard_options():
+    from kubeflow_tpu_torch.controllers.tensorboard import TensorboardOptions
+
+    return TensorboardOptions(
+        image=env_str("TENSORBOARD_IMAGE", "tensorflow/tensorflow:latest"),
+        use_istio=env_bool("USE_ISTIO", False),
+        cluster_domain=env_str("CLUSTER_DOMAIN", "cluster.local"),
+        rwo_pvc_scheduling=env_bool("RWO_PVC_SCHEDULING", True),
+        gcp_creds_secret=os.environ.get("TENSORBOARD_GCP_CREDS_SECRET"),
+    )
+
+
+def pvcviewer_options():
+    from kubeflow_tpu_torch.controllers.pvcviewer import PVCViewerOptions
+
+    return PVCViewerOptions(
+        use_istio=env_bool("USE_ISTIO", False),
+        cluster_domain=env_str("CLUSTER_DOMAIN", "cluster.local"),
     )

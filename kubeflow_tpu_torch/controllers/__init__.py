@@ -1,6 +1,6 @@
 """Reconcilers of the port's notebook control plane (the counterpart of
-``kubeflow_tpu.controllers``: the notebook, profile and culling
-controllers and the warm pod pools so far; the InferenceService
+``kubeflow_tpu.controllers``: the notebook, profile, culling, Tensorboard
+and PVCViewer controllers and the warm pod pools; the InferenceService
 controller lives in ``kubeflow_tpu_torch.serving.controller``, as in the
 reference).
 

@@ -208,8 +208,9 @@ def initialize_distributed(environ=os.environ, *, device=None) -> bool:
 
 def trace(logdir: str, *, device=None):
     """Context manager writing a ``torch.profiler`` trace under ``logdir``
-    (``tensorboard_trace_handler``) — readable by a ``Tensorboard`` CR
-    with ``spec.profilerPlugin: true`` over the same PVC path::
+    (``tensorboard_trace_handler``, one ``*.pt.trace.json`` a capture) —
+    served by a ``Tensorboard`` CR with ``spec.profilerPlugin: true``
+    over the same PVC path (``kubeflow_tpu_torch.controllers.tensorboard``)::
 
         with sdk.trace("/home/jovyan/logs"):
             state, loss = train_step(state, batch)
@@ -232,7 +233,8 @@ def trace(logdir: str, *, device=None):
 # Where capture_profile() writes when the caller doesn't say: the same
 # path the notebook images mount for TensorBoard logs, so a Tensorboard
 # CR with spec.profilerPlugin: true over the shared PVC/GCS prefix picks
-# the trace up with no extra wiring (controllers/tensorboard.py).
+# the trace up with no extra wiring (kubeflow_tpu_torch/controllers/
+# tensorboard.py renders its Deployment over that logdir).
 TELEMETRY_LOGDIR_ENV = "KFTPU_TELEMETRY_LOGDIR"
 DEFAULT_TRACE_LOGDIR = "/home/jovyan/logs"
 

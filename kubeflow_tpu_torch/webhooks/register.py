@@ -7,10 +7,8 @@ PodDefault injection, then the per-node GPU env (which must see the final
 pod name and the template annotations, and must win over anything a
 PodDefault set for ``TPU_WORKER_ID`` or ``PET_NODE_RANK``).
 
-The chain holds the kinds the port has controllers or consumers for:
-Notebook, PodDefault, Profile and (with ``KFTPU_SERVING`` on)
-InferenceService. The reference also registers Tensorboard and
-PVCViewer; those come with their controllers.
+The chain holds the reference's kinds: Notebook, PodDefault, Profile,
+Tensorboard, PVCViewer and (with ``KFTPU_SERVING`` on) InferenceService.
 """
 
 from __future__ import annotations
@@ -18,6 +16,8 @@ from __future__ import annotations
 from kubeflow_tpu_torch.api import notebook as nbapi
 from kubeflow_tpu_torch.api import poddefault as pdapi
 from kubeflow_tpu_torch.api import profile as profileapi
+from kubeflow_tpu_torch.api import pvcviewer as pvcapi
+from kubeflow_tpu_torch.api import tensorboard as tbapi
 from kubeflow_tpu_torch.webhooks import gpu as gpu_webhook
 from kubeflow_tpu_torch.webhooks import notebook as nb_webhook
 from kubeflow_tpu_torch.webhooks import poddefault as pd_webhook
@@ -40,6 +40,7 @@ def register_all(kube) -> None:
             await nb_webhook.resolve_image_from_catalog(kube, nb)
 
     kube.add_mutator("Notebook", image_resolver)
+    kube.add_mutator("PVCViewer", lambda v, _i: pvcapi.default(v))
 
     # Profiles applied at an old served version are normalized to storage at
     # admission (same contract as the Notebook mutator's normalization).
@@ -83,6 +84,8 @@ def register_all(kube) -> None:
         kube.add_validator("InferenceService", isvc_validator)
     kube.add_validator("PodDefault", lambda pd, _i: pdapi.validate(pd))
     kube.add_validator("Profile", lambda p, _i: profileapi.validate(p))
+    kube.add_validator("Tensorboard", lambda tb, _i: tbapi.validate(tb))
+    kube.add_validator("PVCViewer", lambda v, _i: pvcapi.validate(v))
 
     # Pod mutation: PodDefault injection, then the per-node GPU env.
     async def poddefault_mutator(pod: dict, info: dict) -> None:

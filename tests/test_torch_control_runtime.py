@@ -6,30 +6,14 @@ fake apiserver's admission chain, watches, faults and the pod simulator),
 asserts unchanged. Each reference case is one case here.
 """
 
-import asyncio
 import inspect
-import re
-from pathlib import Path
 
 import pytest
 
-REPO = Path(__file__).resolve().parents[1]
+from torch_control import ported, run_case
+
 SOURCES = ("test_runtime.py", "test_fakekube.py")
-
-
-def _ported(name: str) -> dict:
-    """The reference test module's namespace, its ``kubeflow_tpu.``
-    imports read from ``kubeflow_tpu_torch.``."""
-    src = (REPO / "tests" / name).read_text()
-    src, n = re.subn(r"^(\s*from )kubeflow_tpu\.", r"\1kubeflow_tpu_torch.",
-                     src, flags=re.M)
-    assert n and "kubeflow_tpu." not in src.replace("kubeflow_tpu_torch.", "")
-    namespace = {"__name__": f"ported_{name[:-3]}"}
-    exec(compile(src, str(REPO / "tests" / name), "exec"), namespace)
-    return namespace
-
-
-MODULES = {name: _ported(name) for name in SOURCES}
+MODULES = {name: ported(name) for name in SOURCES}
 CASES = [(name, fn) for name, ns in MODULES.items()
          for fn in sorted(k for k, v in ns.items()
                           if k.startswith("test_") and callable(v))]
@@ -47,7 +31,4 @@ def test_every_reference_case_is_collected():
 def test_reference_case_on_the_port(source, case):
     fn = MODULES[source][case]
     assert not inspect.signature(fn).parameters, "fixtures are not ported"
-    if inspect.iscoroutinefunction(fn):
-        asyncio.run(fn())
-    else:
-        fn()
+    run_case(fn)

@@ -3,7 +3,8 @@ reference's (``manifests/crds``): the Notebook and InferenceService CRDs'
 ``spec.gpu`` block is the reference's ``spec.tpu`` block with the
 accelerator enum taken from ``gpu/topology.ACCELERATORS``, and the Profile
 CRD's ``spec.gpuQuota`` is its ``spec.tpuQuota``. Everything else is
-equal, property for property.
+equal, property for property; the Tensorboard and PVCViewer CRDs, which
+name no accelerator, are the reference's.
 """
 
 from pathlib import Path
@@ -105,3 +106,20 @@ def test_every_served_version_shares_one_schema(name):
     crd = _load(PORT / name)
     schemas = [v["schema"] for v in crd["spec"]["versions"]]
     assert len(schemas) > 1 and all(s == schemas[0] for s in schemas)
+
+
+@pytest.mark.parametrize("name", ["tensorboards.yaml", "pvcviewers.yaml"])
+def test_the_crds_without_an_accelerator_are_the_references(name):
+    port = _load(PORT / name)
+    assert port == _load(REFERENCE / name)
+    # What the APIs write is the schema's.
+    from kubeflow_tpu_torch.api import pvcviewer as pvcapi
+    from kubeflow_tpu_torch.api import tensorboard as tbapi
+
+    obj = (tbapi.new("tb", "ns", "pvc://logs/run1", profiler=True)
+           if name == "tensorboards.yaml"
+           else pvcapi.new("view", "ns", "logs"))
+    assert obj["kind"] == port["spec"]["names"]["kind"]
+    assert obj["apiVersion"].split("/")[1] in [
+        v["name"] for v in port["spec"]["versions"]]
+    assert set(obj["spec"]) <= set(_spec_props(port))

@@ -124,6 +124,19 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/serving/autoscaler.py",
             "kubeflow_tpu_torch/serving/controller.py",
             "kubeflow_tpu_torch/webhooks/inferenceservice.py"} <= names
+    # Tensorboard and PVCViewer, the wire (the HTTP client, its flow
+    # control, the admission server and its JSONPatch engine) and the
+    # entry points.
+    assert {"kubeflow_tpu_torch/api/tensorboard.py",
+            "kubeflow_tpu_torch/api/pvcviewer.py",
+            "kubeflow_tpu_torch/controllers/tensorboard.py",
+            "kubeflow_tpu_torch/controllers/pvcviewer.py",
+            "kubeflow_tpu_torch/runtime/flowcontrol.py",
+            "kubeflow_tpu_torch/runtime/httpclient.py",
+            "kubeflow_tpu_torch/webhooks/jsonpatch.py",
+            "kubeflow_tpu_torch/webhooks/server.py",
+            "kubeflow_tpu_torch/cmd/controller_manager.py",
+            "kubeflow_tpu_torch/cmd/webhook.py"} <= names
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -172,7 +185,17 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.controllers.culling, "
             "kubeflow_tpu_torch.serving.autoscaler, "
             "kubeflow_tpu_torch.serving.controller, "
-            "kubeflow_tpu_torch.webhooks.inferenceservice; "
+            "kubeflow_tpu_torch.webhooks.inferenceservice, "
+            "kubeflow_tpu_torch.api.tensorboard, "
+            "kubeflow_tpu_torch.api.pvcviewer, "
+            "kubeflow_tpu_torch.controllers.tensorboard, "
+            "kubeflow_tpu_torch.controllers.pvcviewer, "
+            "kubeflow_tpu_torch.runtime.flowcontrol, "
+            "kubeflow_tpu_torch.runtime.httpclient, "
+            "kubeflow_tpu_torch.webhooks.jsonpatch, "
+            "kubeflow_tpu_torch.webhooks.server, "
+            "kubeflow_tpu_torch.cmd.controller_manager, "
+            "kubeflow_tpu_torch.cmd.webhook; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu', 'ml_dtypes')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

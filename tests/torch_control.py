@@ -28,6 +28,36 @@ REFERENCE = "kubeflow_tpu"
 WORKER_TIMEOUT = 120
 
 
+def ported(name: str) -> dict:
+    """The namespace of the reference's test module ``tests/<name>``, run
+    with its ``kubeflow_tpu.`` imports read from ``kubeflow_tpu_torch.``:
+    its cases, unchanged, on the port."""
+    import re
+
+    path = os.path.join(REPO, "tests", name)
+    with open(path) as f:
+        src = f.read()
+    src, n = re.subn(r"^(\s*from )kubeflow_tpu\.", r"\1kubeflow_tpu_torch.",
+                     src, flags=re.M)
+    assert n and "kubeflow_tpu." not in src.replace("kubeflow_tpu_torch.", "")
+    namespace = {"__name__": f"ported_{name[:-3]}"}
+    exec(compile(src, path, "exec"), namespace)
+    return namespace
+
+
+def run_case(fn, **fixtures) -> None:
+    """Run a test function of a ``ported`` module with the fixtures it
+    names (async ones on a fresh event loop)."""
+    import inspect
+
+    params = inspect.signature(fn).parameters
+    kwargs = {name: fixtures[name] for name in params}
+    if inspect.iscoroutinefunction(fn):
+        asyncio.run(fn(**kwargs))
+    else:
+        fn(**kwargs)
+
+
 def clear_kftpu_env(monkeypatch) -> None:
     """``NotebookOptions``, the migration switch and the admission chain
     read ``KFTPU_*`` at construction: clear them, so that both packages'
