@@ -4,9 +4,9 @@ step telemetry, checkpoints, input pipeline and drain guard), sharded
 training, long-context training, MoE, vision and pipelined training paths,
 its slice burn-in (the probes and the kernel cache), its notebook
 spawn path, its fleet scheduler and warm pods, its culling and serving
-controllers and its controller manager and admission webhook as
-processes on one NVIDIA GPU and hold its kernels against their plain
-versions.
+controllers, its controller manager and admission webhook as processes
+and its web apps as a process on one NVIDIA GPU and hold its kernels
+against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -358,13 +358,45 @@ last line. With no CUDA device it exits 1 and prints no result.
    kernel's result; the facade's requests by verb. Launches: (b)'s
    forward, dQ and dK/dV per layer and traced step, and the pod
    process's one forward.
+35. webapps (right after entrypoints) — the web apps as a process: the
+   facade, the manager and the webhook as in entrypoints, but the facade
+   admits nothing itself: every admission of the kinds in
+   manifests/base/webhook.yaml goes to the webhook process as an
+   AdmissionReview over TLS (WEBHOOK_PATHS), and SubjectAccessReviews
+   are answered from the RoleBindings (``testing.rbac``); ``python -m
+   kubeflow_tpu_torch.cmd.webapp`` with ``WEBAPP=all`` on a free port,
+   ``PROMETHEUS_URL`` at a Prometheus stub on 127.0.0.1, reached over
+   HTTP as the Profile's owner with the CSRF cookie and header as the
+   SPAs send them. (a) ``/healthz``; the JWA's ``/api/config`` and
+   ``/api/gpus`` list ``nvidia-h100-80gb`` with ``1x1`` to ``64x8``. (b)
+   the spawner form with ``gpu: {nvidia-h100-80gb, 1x1}`` and a
+   ReadWriteOnce workspace: the webhook admits the Notebook and its pod,
+   the manager renders it, ``nb-0`` Running; the JWA's row ready with
+   the "Running" message ``process_status`` gives; ``gpu-usage`` 1 card
+   against the quota of 8. (c) a process started with ``nb-0``'s env runs
+   ``sdk.initialize_distributed()`` and one forward at MODEL through the
+   flash forward kernel, held to the dense forward at the model phase's
+   tolerances, then 40 more timed, while ``nvidia-smi`` reads the card's
+   utilization every 0.1 s. (d) the stub answers the dashboard's
+   ``gpu_duty`` query with those readings: the series must show one
+   above 0. (e) a Tensorboard over the workspace claim through the
+   Tensorboards app, Ready; the claim listed by the Volumes app and a
+   PVCViewer on it, ready; a contributor added through KFAM, listed by
+   the dashboard. (f) a ``2x8`` form (16 cards against 8): a 4xx whose
+   message is the webhook's ``gpuQuota`` refusal, no Notebook and no
+   claim left. All three processes must run until the script stops
+   them. Host seconds: the web apps' start to ``/healthz``, the form's
+   POST to ``nb-0`` Running and to the row listed ready, the list's p50
+   over 20 requests, the pod process's start to the forward's result;
+   the forward's ms (CUDA events); admissions by path and outcome.
+   Launches: the pod process's forward, one per layer.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
 ``pipelined_schedule``, ``wide_heads``, ``sharded``, ``checkpoint``,
-``fleet``, ``serving_control``, ``entrypoints``,
+``fleet``, ``serving_control``, ``entrypoints``, ``webapps``,
 and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
 its 4 processes), and ``device_kernels``: the CUDA kernels behind each
 entry, by head dim and dtype), the script's wall seconds, the card line,
@@ -3625,6 +3657,16 @@ FACADE_HOST, FACADE_PORT = "127.0.0.1", 8001
 # Events the facade keeps for watches that resume from a list's version.
 FACADE_HISTORY = 100_000
 ENTRY_TIMEOUT = 60.0
+# The admission webhooks of manifests/base/webhook.yaml: each kind's path
+# on the webhook server and the operations sent there.
+WEBHOOK_PATHS = {
+    "Notebook": ("/mutate-notebooks", ("CREATE", "UPDATE")),
+    "PVCViewer": ("/mutate-pvcviewers", ("CREATE", "UPDATE")),
+    "Pod": ("/apply-poddefault", ("CREATE",)),
+    "PodDefault": ("/validate-poddefaults", ("CREATE", "UPDATE")),
+    "Profile": ("/validate-profiles", ("CREATE", "UPDATE")),
+    "Tensorboard": ("/validate-tensorboards", ("CREATE", "UPDATE")),
+}
 # The fleet's one node (FLEET_SPEC's pool ``a3``), for the kubelet
 # simulator's node assignment.
 ENTRY_NODE = {"apiVersion": "v1", "kind": "Node", "metadata": {
@@ -3680,29 +3722,41 @@ class ApiFacade(LoopThread):
     A list's ``resourceVersion`` is the facade's event number: every event
     the fake apiserver sends its watchers is kept with its number, and a
     watch from version N first replays the kept events after N, so an
-    informer misses nothing between its list and its watch."""
+    informer misses nothing between its list and its watch.
+
+    SubjectAccessReviews are answered from the RoleBindings and Profiles
+    it holds (``testing.rbac``). Admission runs in-process
+    (``register_all``), or with ``in_process_admission=False`` nowhere
+    until :meth:`admit_through` sends it to the webhook process, as a
+    cluster's webhook configurations do."""
 
     def __init__(self, host: str = FACADE_HOST, port: int = FACADE_PORT,
-                 nodes: tuple = ()):
+                 nodes: tuple = (), in_process_admission: bool = True):
         super().__init__("api-facade")
         self.requests: dict = {}
+        self.admissions: list = []
+        self.session = None
         try:
-            self.call(self._start(host, port, nodes))
+            self.call(self._start(host, port, nodes, in_process_admission))
         except OSError as e:
             self.stop_loop()
             raise AssertionError(f"the fake apiserver cannot listen on "
                                  f"{host}:{port}: {e}") from None
 
-    async def _start(self, host: str, port: int, nodes: tuple) -> None:
+    async def _start(self, host: str, port: int, nodes: tuple,
+                     in_process_admission: bool) -> None:
         import collections
 
         from aiohttp import web
 
         from kubeflow_tpu_torch.testing import FakeKube, PodSimulator
+        from kubeflow_tpu_torch.testing.rbac import register_sar_evaluator
         from kubeflow_tpu_torch.webhooks import register_all
 
         self.kube = FakeKube()
-        register_all(self.kube)
+        if in_process_admission:
+            register_all(self.kube)
+        register_sar_evaluator(self.kube)
         self.seq = 0
         self.history: collections.deque = collections.deque(
             maxlen=FACADE_HISTORY)
@@ -3736,6 +3790,64 @@ class ApiFacade(LoopThread):
         await self.sim.stop()
         self.kube.close_watches()
         await self.runner.cleanup()
+        if self.session is not None:
+            await self.session.close()
+
+    def admit_through(self, hook: str, cafile: str) -> None:
+        """Send every admission of WEBHOOK_PATHS' kinds to the webhook
+        server at ``hook`` (HTTPS, its certificate in ``cafile``) as an
+        AdmissionReview, apply the JSONPatch it answers, and refuse the
+        request with its status where it denies; each review is kept in
+        ``admissions`` as (kind, path, allowed, host seconds)."""
+        self.call(self._admit_through(hook, cafile))
+
+    async def _admit_through(self, hook: str, cafile: str) -> None:
+        import base64
+        import ssl
+        import uuid
+
+        import aiohttp
+
+        from kubeflow_tpu_torch.runtime.errors import error_for_code
+        from kubeflow_tpu_torch.webhooks import jsonpatch
+
+        tls = ssl.create_default_context(cafile=cafile)
+        self.session = aiohttp.ClientSession(
+            timeout=aiohttp.ClientTimeout(total=ENTRY_TIMEOUT))
+
+        def forwarder(kind: str, path: str, operations: tuple):
+            async def review(obj: dict, info: dict) -> None:
+                if info.get("operation") not in operations:
+                    return
+                meta = obj.get("metadata") or {}
+                body = {"apiVersion": "admission.k8s.io/v1",
+                        "kind": "AdmissionReview", "request": {
+                            "uid": str(uuid.uuid4()),
+                            "operation": info["operation"],
+                            "namespace": meta.get("namespace"),
+                            "object": obj, "oldObject": info.get("old")}}
+                t0 = time.perf_counter()
+                async with self.session.post(hook + path, json=body,
+                                             ssl=tls) as resp:
+                    answer = (await resp.json())["response"]
+                self.admissions.append((kind, path, answer["allowed"],
+                                        time.perf_counter() - t0))
+                if not answer["allowed"]:
+                    status = answer.get("status") or {}
+                    raise error_for_code(
+                        status.get("code", 400),
+                        f"admission webhook {path} denied the request: "
+                        f"{status.get('message', '')}")
+                if answer.get("patch"):
+                    patched = jsonpatch.apply(obj, json.loads(
+                        base64.b64decode(answer["patch"])))
+                    obj.clear()
+                    obj.update(patched)
+
+            return review
+
+        for kind, (path, operations) in WEBHOOK_PATHS.items():
+            self.kube.add_mutator(kind, forwarder(kind, path, operations))
 
     def close(self) -> None:
         try:
@@ -3947,14 +4059,19 @@ class Entrypoints:
     """The facade and both entry points as processes against it: the
     controller manager (``METRICS_PORT`` free, the fleet scheduler on
     ``fleet``) and the admission webhook over TLS with a fresh
-    ``openssl`` pair in ``tmp``. Both start together."""
+    ``openssl`` pair in ``tmp``. Both start together. With
+    ``webhook_admission`` the facade admits nothing in-process: once the
+    webhook answers (:meth:`wait_synced`), every admission goes to it."""
 
-    def __init__(self, tmp: str, fleet: str, nodes: tuple = ()):
+    def __init__(self, tmp: str, fleet: str, nodes: tuple = (),
+                 webhook_admission: bool = False):
         import ssl
 
         from kubeflow_tpu_torch.probe.dcn import free_base_port
 
-        self.facade = ApiFacade(nodes=nodes)
+        self.facade = ApiFacade(nodes=nodes,
+                                in_process_admission=not webhook_admission)
+        self.webhook_admission = webhook_admission
         self.manager = self.webhook = None
         try:
             cert, key = openssl_pair(tmp)
@@ -3970,6 +4087,7 @@ class Entrypoints:
         except BaseException:
             self.stop()
             raise
+        self.cert = cert
         self.tls = ssl.create_default_context(cafile=cert)
         self.base = f"http://127.0.0.1:{metrics}"
         self.hook = f"https://127.0.0.1:{port}"
@@ -3996,6 +4114,8 @@ class Entrypoints:
                     "informers"]
                 if informers and all(i["synced"]
                                      for i in informers.values()):
+                    if self.webhook_admission and self.facade.session is None:
+                        self.facade.admit_through(self.hook, self.cert)
                     return {**marks, "synced": time.time(),
                             "kinds": sorted(informers)}
             if time.monotonic() > deadline:
@@ -4412,6 +4532,462 @@ def phase_entrypoints(torch, fa, burnin, sdk, card: str) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"entrypoints phase failed: {checks}")
     return launches
+
+
+# The web apps as one process (``WEBAPP=all``: each app under its prefix,
+# as the dashboard links them), reached over HTTP as the Profile's owner.
+WEB_USER = "owner@example.com"
+WEB_CONTRIBUTOR = "contributor@example.com"
+WEB_LIST_REQUESTS = 20
+# The spawner forms: a one-card share with a ReadWriteOnce workspace, and
+# a two-node 2x8 (16 cards) against the Profile's 8, which the webhook
+# must refuse.
+WEB_SHAPE, WEB_OVER_QUOTA_SHAPE = "1x1", "2x8"
+WEB_WORKSPACE = "nb-workspace"
+# The pod's process: one forward at MODEL (BENCH_MODEL's widths at the
+# serving length) held to the dense forward, then WEB_FORWARD_TIMED more
+# timed back to back (the card busy while nvidia-smi samples it).
+WEB_FORWARD_TIMED = 40
+UTIL_SAMPLE_SEC = 0.1
+
+WEBAPP_POD_CHILD = r"""
+import dataclasses, json, os, time
+import torch
+from kubeflow_tpu_torch import sdk
+from kubeflow_tpu_torch.models import burnin
+from kubeflow_tpu_torch.ops import flash_attention as fa
+
+joined = sdk.initialize_distributed()
+model, batch, timed = json.loads(os.environ["SMOKE_WEBAPP_FORWARD"])
+cfg = burnin.BurninConfig(**model)
+params = burnin.init_params(cfg, seed=0, device="cuda")
+gen = torch.Generator(device="cuda").manual_seed(7)
+tokens = torch.randint(0, cfg.vocab, (batch, cfg.seq_len), generator=gen,
+                       device="cuda")
+with torch.inference_mode():
+    torch.cuda.synchronize()
+    started_at = time.time()
+    fa.LAUNCHES = 0
+    logits = burnin.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    result_at = time.time()
+    launches = fa.LAUNCHES
+    dense = burnin.forward(params, tokens,
+                           dataclasses.replace(cfg, attention="xla"))
+    diff = (logits.float() - dense.float()).abs()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(timed):
+        burnin.forward(params, tokens, cfg)
+    end.record()
+    torch.cuda.synchronize()
+print(json.dumps({
+    "sdk_joined": joined, "started_at": started_at, "result_at": result_at,
+    "launches": launches, "n_layers": cfg.n_layers,
+    "shape": list(logits.shape), "finite": bool(torch.isfinite(logits).all()),
+    "max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
+    "forward_ms": start.elapsed_time(end) / timed}), flush=True)
+"""
+
+
+class WebClient:
+    """HTTP to the web-app process as ``user``, as the SPAs' ``KF.api``
+    speaks to it: the ``XSRF-TOKEN`` cookie a safe request sets goes back
+    as a cookie and in ``X-XSRF-TOKEN`` with every mutating request. The
+    host seconds of each request are kept by method and path."""
+
+    def __init__(self, proc: "EntryProcess", base: str, user: str):
+        self.proc, self.base, self.user = proc, base, user
+        self.token = None
+        self.seconds: dict = {}
+
+    def request(self, method: str, path: str, body=None) -> tuple:
+        """(HTTP status, decoded JSON answer)."""
+        import urllib.error
+        import urllib.request
+
+        if self.proc.proc.poll() is not None:
+            raise AssertionError(f"the web apps exited "
+                                 f"{self.proc.proc.returncode}:\n"
+                                 f"{self.proc.output()}")
+        headers = {"kubeflow-userid": self.user}
+        if self.token is not None:
+            headers["Cookie"] = f"XSRF-TOKEN={self.token}"
+        data = None
+        if method != "GET":
+            headers["X-XSRF-TOKEN"] = self.token or ""
+            headers["Content-Type"] = "application/json"
+            data = json.dumps(body or {}).encode()
+        req = urllib.request.Request(self.base + path, data=data,
+                                     headers=headers, method=method)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=ENTRY_TIMEOUT) as resp:
+                status, raw, cookies = (resp.status, resp.read(),
+                                        resp.headers.get_all("Set-Cookie"))
+        except urllib.error.HTTPError as e:
+            status, raw, cookies = (e.code, e.read(),
+                                    e.headers.get_all("Set-Cookie"))
+        self.seconds.setdefault(f"{method} {path}", []).append(
+            time.perf_counter() - t0)
+        for cookie in cookies or []:
+            name, _, rest = cookie.partition("=")
+            if name.strip() == "XSRF-TOKEN":
+                self.token = rest.split(";", 1)[0]
+        return status, json.loads(raw) if raw else {}
+
+    def get(self, path: str) -> dict:
+        status, body = self.request("GET", path)
+        if status != 200:
+            raise AssertionError(f"GET {path}: {status} {body}")
+        return body
+
+    def post(self, path: str, body) -> dict:
+        status, answer = self.request("POST", path, body)
+        if status != 200:
+            raise AssertionError(f"POST {path}: {status} {answer}")
+        return answer
+
+    def until(self, path: str, predicate, what: str):
+        """GET ``path`` until ``predicate(answer)`` is truthy; its value."""
+        deadline = time.monotonic() + ENTRY_TIMEOUT
+        while True:
+            value = predicate(self.get(path))
+            if value:
+                return value
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timed out: {what}")
+            time.sleep(0.02)
+
+
+class PrometheusStub(LoopThread):
+    """A Prometheus HTTP API on 127.0.0.1 (scaffolding, as ApiFacade):
+    ``/api/v1/query_range`` answers the dashboard's ``gpu_duty`` PromQL
+    with ``samples``, (host time, percent) pairs that ``nvidia-smi`` read,
+    as dcgm-exporter's series for ENTRY_NODE, within the range asked; any
+    other query has no series. Every query asked is kept in ``queries``."""
+
+    def __init__(self):
+        from kubeflow_tpu_torch.probe.dcn import free_base_port
+
+        super().__init__("prometheus-stub")
+        self.samples: list = []
+        self.queries: list = []
+        self.port = free_base_port(1)
+        self.url = f"http://127.0.0.1:{self.port}"
+        try:
+            self.call(self._start())
+        except BaseException:
+            self.stop_loop()
+            raise
+
+    async def _start(self) -> None:
+        from aiohttp import web
+
+        from kubeflow_tpu_torch.web.dashboard.metrics import QUERIES
+
+        async def query_range(request):
+            query = dict(request.query)
+            self.queries.append(query)
+            result = []
+            if query.get("query") == QUERIES["gpu_duty"]:
+                start, end = float(query["start"]), float(query["end"])
+                result = [{"metric": {
+                    "Hostname": ENTRY_NODE["metadata"]["name"]},
+                    "values": [[t, str(v)] for t, v in self.samples
+                               if start <= t <= end]}]
+            return web.json_response({"status": "success", "data": {
+                "resultType": "matrix", "result": result}})
+
+        app = web.Application()
+        app.router.add_get("/api/v1/query_range", query_range)
+        self.runner = web.AppRunner(app)
+        await self.runner.setup()
+        await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
+
+    def close(self) -> None:
+        try:
+            self.call(self.runner.cleanup())
+        finally:
+            self.stop_loop()
+
+
+class UtilSampler:
+    """``nvidia-smi --query-gpu=utilization.gpu`` read every
+    UTIL_SAMPLE_SEC on a thread of its own: (host time, percent) pairs."""
+
+    def __init__(self):
+        import threading
+
+        self.samples: list = []
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="util",
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while not self.done.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=ENTRY_TIMEOUT)
+            if out.returncode == 0 and out.stdout.strip():
+                self.samples.append(
+                    (time.time(), float(out.stdout.splitlines()[0])))
+            self.done.wait(UTIL_SAMPLE_SEC)
+
+    def stop(self) -> list:
+        self.done.set()
+        self.thread.join(timeout=ENTRY_TIMEOUT)
+        return list(self.samples)
+
+
+def _web_form(name: str, topology: str) -> dict:
+    """The spawner form the JWA frontend posts for a GPU slice, with a
+    ReadWriteOnce workspace."""
+    return {"name": name, "serverType": "jupyter",
+            "gpu": {"accelerator": PROBE_ACCELERATOR, "topology": topology},
+            "workspaceVolume": {"mount": "/home/jovyan", "newPvc": {
+                "metadata": {"name": "{notebook-name}-workspace"},
+                "spec": {"accessModes": ["ReadWriteOnce"],
+                         "resources": {"requests": {"storage": "10Gi"}}}}}}
+
+
+def _until_up(proc: "EntryProcess", url: str) -> float:
+    deadline = time.monotonic() + ENTRY_TIMEOUT
+    while not proc.answers(url):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{url} never answered:\n{proc.output()}")
+        time.sleep(0.02)
+    return time.time()
+
+
+def phase_webapps(card: str) -> dict:
+    """The web apps as a process on the facade (module docstring, item
+    35), with the manager and the webhook as processes and every
+    admission sent to the webhook: (a) the JWA's catalog, (b) a GPU
+    notebook spawned through the form, (c) its pod's forward on the card,
+    (d) the dashboard's gpu_duty series from a Prometheus stub, (e) the
+    Tensorboards, Volumes and KFAM apps, (f) an over-quota form refused.
+    Any failed check raises. Returns (c)'s launches."""
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.api import profile as profileapi
+    from kubeflow_tpu_torch.gpu.topology import ACCELERATORS, GPU_RESOURCE
+    from kubeflow_tpu_torch.probe.dcn import free_base_port
+    from kubeflow_tpu_torch.web.common.status import process_status
+
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-web-")
+    ep = Entrypoints(tmp, FLEET_SPEC, nodes=(ENTRY_NODE,),
+                     webhook_admission=True)
+    manager_started = ep.manager.started
+    prom = web = None
+    ended = {}
+    try:
+        prom = PrometheusStub()
+        port = free_base_port(1)
+        web = EntryProcess("kubeflow_tpu_torch.cmd.webapp", {
+            "WEBAPP": "all", "PORT": str(port),
+            "APP_SECURE_COOKIES": "false", "PROMETHEUS_URL": prom.url})
+        client = WebClient(web, f"http://127.0.0.1:{port}", WEB_USER)
+        kube, call = ep.facade.kube, ep.facade.call
+        synced = ep.wait_synced()
+        healthz_at = _until_up(web, f"{client.base}/healthz")
+
+        async def quota():
+            rq = await kube.get_or_none("ResourceQuota", "kf-resource-quota",
+                                        "ns")
+            return ((rq or {}).get("spec") or {}).get("hard")
+
+        call(kube.create("Profile", profileapi.new(
+            "ns", WEB_USER, gpu_quota=FLEET_QUOTA)))
+        hard = call(ep.facade.wait_for(quota, "the ResourceQuota"))
+
+        # (a) the spawner's catalog.
+        config = client.get("/jupyter/api/config")["config"]
+        gpus = client.get("/jupyter/api/gpus")["gpus"]
+        h100 = next(g for g in gpus if g["accelerator"] == PROBE_ACCELERATOR)
+
+        # (b) the form, admitted by the webhook process, rendered by the
+        # manager process, Running; the JWA's row and the card panel.
+        nb_list = "/jupyter/api/namespaces/ns/notebooks"
+        is_running = ep.facade.mark_when(lambda: running_pod(kube, "nb-0"),
+                                         "nb-0 running")
+        posted_at = time.time()
+        created = client.post(nb_list, _web_form("nb", WEB_SHAPE))
+        running_at = is_running.result(ENTRY_TIMEOUT)
+        row = client.until(nb_list, lambda body: next(
+            (r for r in body["notebooks"] if r["name"] == "nb"
+             and r["status"]["phase"] == "ready"), None), "nb ready")
+        listed_ready_at = time.time()
+        for _ in range(WEB_LIST_REQUESTS):
+            client.get(nb_list)
+        stored = call(kube.get("Notebook", "nb", "ns"))
+        expected_status = process_status(stored)
+        usage = client.get("/dashboard/api/namespaces/ns/gpu-usage")
+        pod = call(running_pod(kube, "nb-0"))
+        pod_env = {e["name"]: e.get("value") for e in container_env(pod)}
+
+        # (c) the pod's process: its env as the webhook gave it, one
+        # forward at MODEL through the kernel, the card sampled meanwhile.
+        env = _pod_process_env(pod_env)
+        env["SMOKE_WEBAPP_FORWARD"] = json.dumps(
+            [MODEL, MAX_BATCH, WEB_FORWARD_TIMED])
+        sampler = UtilSampler()
+        child_started = time.time()
+        try:
+            child = json.loads(_run_children(
+                [(["-c", WEBAPP_POD_CHILD], env)])[0].strip()
+                .splitlines()[-1])
+        finally:
+            samples = sampler.stop()
+
+        # (d) the dashboard's gpu_duty series, through the stub.
+        prom.samples = samples
+        duty = client.get("/dashboard/api/metrics?type=gpu_duty"
+                          "&interval=Last5m")
+
+        # (e) a Tensorboard over the workspace claim, a PVCViewer on it,
+        # a contributor.
+        client.post("/tensorboards/api/namespaces/ns/tensorboards", {
+            "name": "tb", "logspath": f"pvc://{WEB_WORKSPACE}/logs",
+            "profilerPlugin": True})
+        tb_row = client.until(
+            "/tensorboards/api/namespaces/ns/tensorboards",
+            lambda body: next((t for t in body["tensorboards"]
+                               if t["name"] == "tb" and t["ready"]), None),
+            "the Tensorboard ready")
+        pvcs = client.get("/volumes/api/namespaces/ns/pvcs")["pvcs"]
+        claim = next(p for p in pvcs if p["name"] == WEB_WORKSPACE)
+        client.post("/volumes/api/namespaces/ns/viewers",
+                    {"pvc": WEB_WORKSPACE})
+        viewer = client.until(
+            "/volumes/api/namespaces/ns/pvcs",
+            lambda body: next((p["viewer"] for p in body["pvcs"]
+                               if p["name"] == WEB_WORKSPACE and p["viewer"]
+                               and p["viewer"]["ready"]), None),
+            "the PVCViewer ready")
+        before = client.get(
+            "/dashboard/api/workgroup/get-contributors/ns")["contributors"]
+        client.post("/kfam/kfam/v1/bindings", {
+            "user": {"kind": "User", "name": WEB_CONTRIBUTOR},
+            "referredNamespace": "ns",
+            "roleRef": {"kind": "ClusterRole", "name": "edit"}})
+        contributors = client.get(
+            "/dashboard/api/workgroup/get-contributors/ns")["contributors"]
+
+        # (f) 16 cards against the Profile's 8.
+        refused_status, refused = client.request(
+            "POST", nb_list, _web_form("big", WEB_OVER_QUOTA_SHAPE))
+        big = call(kube.get_or_none("Notebook", "big", "ns"))
+        big_claim = call(kube.get_or_none("PersistentVolumeClaim",
+                                          "big-workspace", "ns"))
+        admissions = list(ep.facade.admissions)
+        facade_requests = dict(sorted(ep.facade.requests.items()))
+    finally:
+        try:
+            if web is not None:
+                ended["webapp"] = web.stop()
+            ended.update(ep.stop())
+        finally:
+            if prom is not None:
+                prom.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+    list_sec = client.seconds[f"GET {nb_list}"][-WEB_LIST_REQUESTS:]
+    points = duty["points"]
+    by_path = {}
+    for kind, path, allowed, _ in admissions:
+        key = f"{kind} {path} {'allowed' if allowed else 'denied'}"
+        by_path[key] = by_path.get(key, 0) + 1
+    n = MODEL["n_layers"]
+    row_out = {
+        "phase": "webapps", "card": card,
+        "clock": "host seconds (time.time) for the marks",
+        "host_sec": {
+            "webapp_start_to_healthz": healthz_at - web.started,
+            "form_post_to_pod_running": running_at - posted_at,
+            "form_post_to_listed_ready": listed_ready_at - posted_at,
+            "list_p50": statistics.median(list_sec),
+            "list_max": max(list_sec),
+            "pod_process_start_to_forward_result":
+                child["result_at"] - child_started,
+            "forward": child["result_at"] - child["started_at"],
+            "admission_p50": statistics.median(a[3] for a in admissions)},
+        "forward_ms": child["forward_ms"],
+        "manager_start_to_informers_synced":
+            synced["synced"] - manager_started,
+        "quota_hard": hard, "gpus_topologies": [
+            t["topology"] for t in h100["topologies"]],
+        "config_gpus_readonly": config["gpus"]["readOnly"],
+        "created": created.get("message"), "row": row,
+        "process_status": expected_status.__dict__, "gpu_usage": usage,
+        "pod_requests": pod["spec"]["containers"][0]["resources"],
+        "pod_process": child, "util_samples": len(samples),
+        "util_max": max((v for _, v in samples), default=None),
+        "gpu_duty_points": len(points),
+        "gpu_duty_max": max((p["value"] for p in points), default=None),
+        "prometheus_queries": [q.get("query") for q in prom.queries],
+        "tensorboard": tb_row, "claim": claim, "viewer": viewer,
+        "contributors_before": before, "contributors": contributors,
+        "over_quota": {"status": refused_status, "answer": refused},
+        "admissions_by_path": by_path,
+        "facade_requests_by_verb": facade_requests, "processes": ended,
+        "launches": {"fwd": child["launches"]},
+        "launches_expected": {"fwd": n},
+        "tol_max": TOL_LOGITS_MAX, "tol_mean": TOL_LOGITS_MEAN,
+        "phase_sec": time.perf_counter() - phase_t0}
+    emit(row_out)
+    checks = {
+        "processes_stopped": set(ended) == {"webapp", "manager", "webhook"}
+        and all(e["ran_until_stopped"] and e["stopped_by_sigterm"]
+                for e in ended.values()),
+        "quota": hard == {f"requests.{GPU_RESOURCE}": str(FLEET_QUOTA)},
+        "catalog": [t["topology"] for t in h100["topologies"]]
+        == list(ACCELERATORS[PROBE_ACCELERATOR].topologies)
+        and row_out["gpus_topologies"][0] == "1x1"
+        and row_out["gpus_topologies"][-1] == "64x8"
+        and config["gpus"]["options"] == gpus,
+        "notebook": stored["spec"].get("gpu") == {
+            "accelerator": PROBE_ACCELERATOR, "topology": WEB_SHAPE}
+        and "tpu" not in stored["spec"],
+        "admitted_by_webhook": by_path.get(
+            "Notebook /mutate-notebooks allowed", 0) >= 1
+        and by_path.get("Pod /apply-poddefault allowed", 0) >= 1,
+        "row": row["status"] == {"phase": "ready", "message": "Running"}
+        and row["status"] == expected_status.__dict__
+        and row["gpu"] == stored["spec"]["gpu"]
+        and row["gpuStatus"]["readyHosts"] == 1,
+        "pod": pod["spec"].get("nodeName") == ENTRY_NODE["metadata"]["name"]
+        and row_out["pod_requests"].get("limits", {}).get(GPU_RESOURCE)
+        == "1" and {"TPU_WORKER_ID", "PET_NODE_RANK", "PET_MASTER_ADDR"}
+        <= set(pod_env),
+        "gpu_usage": (usage["chipsRequested"], usage["chipsQuota"])
+        == (1, FLEET_QUOTA) and usage["pods"] == [{"pod": "nb-0",
+                                                   "chips": 1}],
+        "pod_forward": child["finite"] and child["launches"] == n
+        and child["shape"] == [MAX_BATCH, MODEL["seq_len"], MODEL["vocab"]]
+        and child["max_abs_diff"] <= TOL_LOGITS_MAX
+        and child["mean_abs_diff"] <= TOL_LOGITS_MEAN,
+        "gpu_duty": duty["type"] == "gpu_duty" and points
+        and row_out["gpu_duty_max"] > 0
+        and len(points) == len(samples),
+        "tensorboard": tb_row["logspath"] == f"pvc://{WEB_WORKSPACE}/logs",
+        "volumes": "nb-0" in claim["usedBy"]
+        and claim["modes"] == ["ReadWriteOnce"] and viewer["ready"],
+        "kfam": WEB_CONTRIBUTOR not in before
+        and WEB_CONTRIBUTOR in contributors,
+        "over_quota": 400 <= refused_status < 500
+        and "gpuQuota" in refused.get("log", "")
+        and "/mutate-notebooks" in refused.get("log", "")
+        and big is None and big_claim is None
+        and by_path.get("Notebook /mutate-notebooks denied") == 1,
+        "launches": row_out["launches"] == row_out["launches_expected"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"webapps phase failed: {checks}")
+    return row_out["launches"]
 
 
 @contextmanager
@@ -5851,6 +6427,7 @@ def main() -> int:
     by_path["serving_control"] = phase_serving_control(
         torch, fa, burnin, trainer, data, checkpoint, sdk, card)
     by_path["entrypoints"] = phase_entrypoints(torch, fa, burnin, sdk, card)
+    by_path["webapps"] = phase_webapps(card)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)

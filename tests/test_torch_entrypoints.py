@@ -6,7 +6,10 @@ tests/test_scheduler_integration.py drive on the reference (the
 ``/debug/*`` surface, the scheduler's in cards), and both entry points as
 processes: ``python -m kubeflow_tpu_torch.cmd.controller_manager`` and
 ``python -m kubeflow_tpu_torch.cmd.webhook`` (over TLS) against the fake
-apiserver that ``chip_smoke.py`` serves over HTTP.
+apiserver that ``chip_smoke.py`` serves over HTTP; and the web apps'
+entry point: tests/test_entrypoints.py's ``build_app`` cases on the port,
+and ``python -m kubeflow_tpu_torch.cmd.webapp`` as a process spawning a
+GPU notebook through the webhook process.
 """
 
 import asyncio
@@ -16,9 +19,11 @@ import signal
 import time
 from pathlib import Path
 
+import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
-from torch_control import PORT, clear_kftpu_env, free_port, make_harness
+from torch_control import (PORT, clear_kftpu_env, free_port, make_harness,
+                           ported, run_case)
 
 from kubeflow_tpu_torch.api import notebook as nbapi
 from kubeflow_tpu_torch.api import tensorboard as tbapi
@@ -509,3 +514,106 @@ async def test_the_facade_serves_the_rest_conventions():
     finally:
         await kube.close()
         await asyncio.to_thread(facade.close)
+
+
+# ---- the web-app entry point (tests/test_entrypoints.py, on the port) --------
+
+REFERENCE_ENTRYPOINTS = ported("test_entrypoints.py")
+
+
+@pytest.mark.parametrize("which", ["jupyter", "volumes", "tensorboards",
+                                   "kfam", "dashboard", "all"])
+def test_webapp_builds_and_serves(which, monkeypatch):
+    run_case(REFERENCE_ENTRYPOINTS["test_webapp_builds_and_serves"],
+             which=which, monkeypatch=monkeypatch)
+
+
+def test_build_app_rejects_unknown_flavor():
+    run_case(REFERENCE_ENTRYPOINTS["test_build_app_rejects_unknown_flavor"])
+
+
+def test_an_unknown_webapp_exits_with_the_references_message():
+    import os
+    import subprocess
+    import sys
+
+    env = {**os.environ, "WEBAPP": "nope"}
+    out = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cmd.webapp"], env=env,
+        cwd=REPO, capture_output=True, text=True, timeout=PROCESS_TIMEOUT)
+    assert out.returncode != 0
+    assert ("unknown WEBAPP 'nope'; options: ['dashboard', 'jupyter', "
+            "'kfam', 'tensorboards', 'volumes'] or all") in out.stderr
+
+
+def test_the_webapp_process_spawns_through_the_webhook_process(tmp_path):
+    """``cmd.webapp`` (WEBAPP=all) against the facade, with the manager
+    and the webhook as processes and every admission sent to the webhook:
+    /healthz, the JWA's /api/gpus, a CSRF-less POST refused, the form's
+    1x1 notebook Running and listed ready, the card panel, and a 2x8 form
+    refused with the webhook's quota message."""
+    from kubeflow_tpu_torch.api import profile as profileapi
+
+    smoke = _chip_smoke()
+    with _deadline(PROCESS_TIMEOUT):
+        ep = smoke.Entrypoints(str(tmp_path), fleet=FLEET,
+                               nodes=(smoke.ENTRY_NODE,),
+                               webhook_admission=True)
+        web = None
+        try:
+            port = free_port()
+            web = smoke.EntryProcess("kubeflow_tpu_torch.cmd.webapp", {
+                "WEBAPP": "all", "PORT": str(port),
+                "APP_SECURE_COOKIES": "false"})
+            client = smoke.WebClient(web, f"http://127.0.0.1:{port}",
+                                     smoke.WEB_USER)
+            kube, call = ep.facade.kube, ep.facade.call
+            ep.wait_synced()
+            smoke._until_up(web, f"{client.base}/healthz")
+            call(kube.create("Profile", profileapi.new(
+                "ns", smoke.WEB_USER, gpu_quota=8)))
+            gpus = client.get("/jupyter/api/gpus")["gpus"]
+            nb_list = "/jupyter/api/namespaces/ns/notebooks"
+            no_token = smoke.WebClient(web, client.base, smoke.WEB_USER)
+            csrf_status, _ = no_token.request(
+                "POST", nb_list, smoke._web_form("x", "1x1"))
+            client.post(nb_list, smoke._web_form("nb", "1x1"))
+            row = client.until(nb_list, lambda body: next(
+                (r for r in body["notebooks"]
+                 if r["status"]["phase"] == "ready"), None), "nb ready")
+            usage = client.get("/dashboard/api/namespaces/ns/gpu-usage")
+            refused_status, refused = client.request(
+                "POST", nb_list, smoke._web_form("big", "2x8"))
+            admissions = list(ep.facade.admissions)
+        finally:
+            ended = {"webapp": web.stop()} if web is not None else {}
+            ended.update(ep.stop())
+    assert [t["topology"] for t in next(
+        g for g in gpus if g["accelerator"] == GPU)["topologies"]][0] == "1x1"
+    assert csrf_status == 403
+    assert row["name"] == "nb" and row["status"]["message"] == "Running"
+    assert row["gpu"] == {"accelerator": GPU, "topology": "1x1"}
+    assert (usage["chipsRequested"], usage["chipsQuota"]) == (1, 8)
+    assert refused_status == 422 and "gpuQuota" in refused["log"]
+    outcomes = {(kind, allowed) for kind, _, allowed, _ in admissions}
+    assert {("Notebook", True), ("Pod", True), ("Notebook", False)} <= outcomes
+    assert set(ended) == {"webapp", "manager", "webhook"}
+    for how in ended.values():
+        assert how["ran_until_stopped"] and how["stopped_by_sigterm"], ended
+
+
+async def test_the_devserver_seeds_a_notebook_on_an_h100_node(monkeypatch):
+    from kubeflow_tpu_torch.cmd.devserver import seed
+    from kubeflow_tpu_torch.testing.fakekube import FakeKube
+    from kubeflow_tpu_torch.webhooks import register_all
+
+    monkeypatch.setenv("DEV_DEFAULT_USER", "dev@example.com")
+    kube = FakeKube()
+    register_all(kube)
+    await seed(kube)
+    nb = await kube.get("Notebook", "demo-h100", "dev")
+    assert nb["spec"]["gpu"] == {"accelerator": GPU, "topology": "1x8"}
+    assert (await kube.get("Notebook", "demo-cpu", "dev"))["spec"].get(
+        "gpu") is None
+    assert (await kube.get("Profile", "dev"))["spec"]["owner"]["name"] == \
+        "dev@example.com"

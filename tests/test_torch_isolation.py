@@ -137,6 +137,29 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
             "kubeflow_tpu_torch/webhooks/server.py",
             "kubeflow_tpu_torch/cmd/controller_manager.py",
             "kubeflow_tpu_torch/cmd/webhook.py"} <= names
+    # The web apps (their backends, SPAs' servers and entry points), the
+    # JS runtime and the harness the frontend tests drive them with.
+    assert {f"kubeflow_tpu_torch/web/{m}.py" for m in (
+        "__init__", "common/__init__", "common/app", "common/auth",
+        "common/serving", "common/status", "jupyter/__init__", "jupyter/app",
+        "jupyter/form", "jupyter/spawner_config", "volumes/__init__",
+        "volumes/app", "tensorboards/__init__", "tensorboards/app",
+        "kfam/__init__", "kfam/app", "dashboard/__init__", "dashboard/app",
+        "dashboard/kfam", "dashboard/metrics")} <= names
+    assert {f"kubeflow_tpu_torch/testing/jsrt/{m}.py" for m in (
+        "__init__", "lexer", "jsparser", "interp", "dom", "stdlib",
+        "browser")} <= names
+    assert {"kubeflow_tpu_torch/testing/jsweb.py",
+            "kubeflow_tpu_torch/testing/rbac.py",
+            "kubeflow_tpu_torch/cmd/webapp.py",
+            "kubeflow_tpu_torch/cmd/devserver.py"} <= names
+    web = REPO / "kubeflow_tpu_torch" / "web"
+    assert {p.relative_to(web).as_posix()
+            for p in web.glob("*/static/*")} == {
+        "common/static/kubeflow.css", "common/static/kubeflow.js",
+        *(f"{app}/static/{f}" for app in (
+            "jupyter", "volumes", "tensorboards", "dashboard")
+          for f in ("index.html", "app.js"))}
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
@@ -195,7 +218,14 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.webhooks.jsonpatch, "
             "kubeflow_tpu_torch.webhooks.server, "
             "kubeflow_tpu_torch.cmd.controller_manager, "
-            "kubeflow_tpu_torch.cmd.webhook; "
+            "kubeflow_tpu_torch.cmd.webhook, "
+            "kubeflow_tpu_torch.cmd.webapp, kubeflow_tpu_torch.cmd.devserver, "
+            "kubeflow_tpu_torch.web.jupyter, kubeflow_tpu_torch.web.volumes, "
+            "kubeflow_tpu_torch.web.tensorboards, kubeflow_tpu_torch.web.kfam, "
+            "kubeflow_tpu_torch.web.dashboard, "
+            "kubeflow_tpu_torch.testing.jsweb, "
+            "kubeflow_tpu_torch.testing.rbac, "
+            "kubeflow_tpu_torch.testing.jsrt; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'kubeflow_tpu', 'ml_dtypes')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -14,6 +14,7 @@ compare children and status, never metric names or trace ids.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import importlib
 import os
 import socket
@@ -30,17 +31,18 @@ WORKER_TIMEOUT = 120
 
 def ported(name: str) -> dict:
     """The namespace of the reference's test module ``tests/<name>``, run
-    with its ``kubeflow_tpu.`` imports read from ``kubeflow_tpu_torch.``:
-    its cases, unchanged, on the port."""
+    with every ``kubeflow_tpu`` module it names read from
+    ``kubeflow_tpu_torch``: its imports, the dotted names it passes to
+    ``__import__`` / ``importlib`` and the package directory it reads
+    files from. Its cases, unchanged, on the port."""
     import re
 
     path = os.path.join(REPO, "tests", name)
     with open(path) as f:
         src = f.read()
-    src, n = re.subn(r"^(\s*from )kubeflow_tpu\.", r"\1kubeflow_tpu_torch.",
-                     src, flags=re.M)
+    src, n = re.subn(r"\bkubeflow_tpu(?=\.|[\"'])", "kubeflow_tpu_torch", src)
     assert n and "kubeflow_tpu." not in src.replace("kubeflow_tpu_torch.", "")
-    namespace = {"__name__": f"ported_{name[:-3]}"}
+    namespace = {"__name__": f"ported_{name[:-3]}", "__file__": path}
     exec(compile(src, path, "exec"), namespace)
     return namespace
 
@@ -56,6 +58,26 @@ def run_case(fn, **fixtures) -> None:
         asyncio.run(fn(**kwargs))
     else:
         fn(**kwargs)
+
+
+def fixtures_of(request, fn) -> dict:
+    """The pytest fixtures a ``ported`` case names, by name."""
+    import inspect
+
+    return {name: request.getfixturevalue(name)
+            for name in inspect.signature(fn).parameters}
+
+
+@contextlib.contextmanager
+def spa(create_app, *, extra_controllers=()):
+    """The port's ``JsWebHarness`` over one web app, its page loaded in
+    namespace ``team``, as the reference's frontend fixtures load it."""
+    from kubeflow_tpu_torch.testing.jsweb import JsWebHarness
+
+    with JsWebHarness(create_app, extra_controllers=extra_controllers) as h:
+        h.browser.local_storage["kubeflow.namespace"] = "team"
+        h.browser.load("/")
+        yield h
 
 
 def clear_kftpu_env(monkeypatch) -> None:
