@@ -4,9 +4,10 @@ step telemetry, checkpoints, input pipeline and drain guard), sharded
 training, long-context training, MoE, vision and pipelined training paths,
 its slice burn-in (the probes and the kernel cache), its notebook
 spawn path, its fleet scheduler and warm pods, its culling and serving
-controllers, its controller manager and admission webhook as processes
-and its web apps as a process on one NVIDIA GPU and hold its kernels
-against their plain versions.
+controllers, its controller manager and admission webhook as processes,
+its web apps as a process and the control plane's chaos soak and load
+test on one NVIDIA GPU and hold its kernels against their plain
+versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -390,6 +391,24 @@ last line. With no CUDA device it exits 1 and prints no result.
    over 20 requests, the pod process's start to the forward's result;
    the forward's ms (CUDA events); admissions by path and outcome.
    Launches: the pod process's forward, one per layer.
+36. chaos (right after webapps) — the control plane's harnesses
+   (``testing.chaos``, ``testing.loadtest``). (a) tests/test_chaos.py's
+   seed 0 at its own shape (3 rounds, 0.5 s storms) with
+   ``ChaosSoak(..., device="cuda")``: every drain ack's ``save_async``
+   snapshots a step tree on the card under the API and storage fault
+   storm, with the manager killed and rebuilt each round, and every
+   restore the soak checks is compared bit for bit on the card; held to
+   that test's assertions (ok, no ledger violation, 3 restarts, faults
+   and storage faults injected, commits and checked restores, spot
+   revocations, scale-up answers, every lifecycle timeline continuous)
+   and to every save's tree and every checked restore's comparison being
+   on the card. (b) the notebook load test over ``HttpKube`` against the
+   facade, the manager and the webhook as processes as in webapps (every
+   admission an AdmissionReview to the webhook process): a Profile
+   ``loadtest`` with ``gpuQuota`` 64 over a fleet of eight simulated A3
+   nodes as 64 ``1x1`` shares (LOAD_FLEET_SPEC), one ``1x1`` notebook a
+   card, all Ready with no failure, the CRs deleted after; the report's
+   p50, p95 and wall seconds on the host clock. Launches no kernel.
 
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
@@ -4161,6 +4180,15 @@ def decoded_patch(answer: dict) -> list:
     return json.loads(base64.b64decode(patch)) if patch else []
 
 
+def admissions_by_path(admissions: list) -> dict:
+    """The facade's wire admissions counted by kind, path and outcome."""
+    by_path: dict = {}
+    for kind, path, allowed, _ in admissions:
+        key = f"{kind} {path} {'allowed' if allowed else 'denied'}"
+        by_path[key] = by_path.get(key, 0) + 1
+    return by_path
+
+
 def admission_counts(text: str) -> dict:
     """``webhook_admission_total`` from /metrics, by "<path> <allowed>"."""
     import re
@@ -4897,10 +4925,7 @@ def phase_webapps(card: str) -> dict:
             shutil.rmtree(tmp, ignore_errors=True)
     list_sec = client.seconds[f"GET {nb_list}"][-WEB_LIST_REQUESTS:]
     points = duty["points"]
-    by_path = {}
-    for kind, path, allowed, _ in admissions:
-        key = f"{kind} {path} {'allowed' if allowed else 'denied'}"
-        by_path[key] = by_path.get(key, 0) + 1
+    by_path = admissions_by_path(admissions)
     n = MODEL["n_layers"]
     row_out = {
         "phase": "webapps", "card": card,
@@ -4988,6 +5013,164 @@ def phase_webapps(card: str) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"webapps phase failed: {checks}")
     return row_out["launches"]
+
+
+# ---- the chaos phase: the control plane's harnesses on the card's machine
+
+# (a) tests/test_chaos.py's seed 0 at its own shape, the step trees of
+# the drain acks' checkpoints on the card.
+CHAOS_SEED, CHAOS_ROUNDS, CHAOS_STORM_SEC = 0, 3, 0.5
+# (b) a fleet of eight simulated A3 nodes (eight H100s each) as 64
+# one-card shares, one 1x1 notebook a card (more than the reference's
+# default of 50), in a namespace whose Profile quota holds them all. The
+# simulated pods never touch the card.
+LOAD_NODE_COUNT = 8
+LOAD_NODES = tuple(
+    {**ENTRY_NODE, "metadata": {**ENTRY_NODE["metadata"], "name": f"a3-{i}"}}
+    for i in range(LOAD_NODE_COUNT))
+LOAD_FLEET_SPEC = f"a3={PROBE_ACCELERATOR}:1x1:{8 * LOAD_NODE_COUNT}"
+LOAD_NAMESPACE, LOAD_SHAPE = "loadtest", "1x1"
+LOAD_TIMEOUT = 120.0
+
+
+def _chaos_soak() -> dict:
+    """(a): one seeded soak with its step trees on the card, held to
+    tests/test_chaos.py's assertions for seed 0."""
+    import asyncio
+
+    from kubeflow_tpu_torch.runtime import timeline as timeline_mod
+    from kubeflow_tpu_torch.runtime.objects import annotations_of
+    from kubeflow_tpu_torch.testing.chaos import ChaosSoak, SoakConfig
+
+    soak = ChaosSoak(SoakConfig(seed=CHAOS_SEED, rounds=CHAOS_ROUNDS,
+                                storm_seconds=CHAOS_STORM_SEC),
+                     device="cuda")
+    t0 = time.perf_counter()
+    report = asyncio.run(soak.run()).to_dict()
+    soak_sec = time.perf_counter() - t0
+    journals = [timeline_mod.decode(annotations_of(nb)) for nb in
+                asyncio.run(soak.kube.list("Notebook"))]
+    storage = sum(v for k, v in report["injected"].items()
+                  if k.startswith("storage_"))
+    checks = {
+        "ok": report["ok"] and report["problems"] == [],
+        "ledger": report["ledger_violations"] == 0,
+        "restarts": report["manager_restarts"] >= 3
+        and report["rounds"] == CHAOS_ROUNDS,
+        "stormed": sum(report["injected"].values()) > 0,
+        "checkpoints": report["checkpoint_commits"] > 0
+        and report["restores_checked"] > 0 and storage > 0,
+        "elastic": report["spot_revocations"] > 0
+        and report["scale_up_grants"] + report["scale_up_denials"] > 0,
+        "timelines": bool(journals) and all(journals)
+        and not any(timeline_mod.continuity_problems(j) for j in journals)
+        and any(len(j) >= 3 for j in journals),
+        "on_card": report["device"].startswith("cuda")
+        and report["saves_on_device"] > 0
+        and report["compared_on_device"] >= report["restores_checked"],
+    }
+    return {"report": report, "storage_faults": storage,
+            "journals": len(journals),
+            "longest_journal": max(map(len, journals), default=0),
+            "host_sec": soak_sec, "checks": checks}
+
+
+def _chaos_load() -> dict:
+    """(b): the notebook load test over ``HttpKube`` against the facade,
+    with the manager and the webhook as processes and every admission
+    sent to the webhook."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.api import profile as profileapi
+    from kubeflow_tpu_torch.gpu.topology import GPU_RESOURCE
+    from kubeflow_tpu_torch.runtime.httpclient import HttpKube
+    from kubeflow_tpu_torch.scheduler import Fleet
+    from kubeflow_tpu_torch.testing.loadtest import run_load_test
+
+    count = Fleet.parse(LOAD_FLEET_SPEC).total_chips
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-load-")
+    ep = Entrypoints(tmp, LOAD_FLEET_SPEC, nodes=LOAD_NODES,
+                     webhook_admission=True)
+    manager_started = ep.manager.started
+    ended = {}
+    try:
+        kube, call = ep.facade.kube, ep.facade.call
+        synced = ep.wait_synced()
+
+        async def quota():
+            rq = await kube.get_or_none("ResourceQuota", "kf-resource-quota",
+                                        LOAD_NAMESPACE)
+            return ((rq or {}).get("spec") or {}).get("hard")
+
+        async def cleaned():
+            return not await kube.list("Notebook", LOAD_NAMESPACE)
+
+        call(kube.create("Profile", profileapi.new(
+            LOAD_NAMESPACE, WEB_USER, gpu_quota=count)))
+        hard = call(ep.facade.wait_for(quota, "the ResourceQuota"))
+
+        async def load():
+            wire = HttpKube(f"http://{FACADE_HOST}:{FACADE_PORT}")
+            try:
+                return await run_load_test(
+                    wire, count=count, namespace=LOAD_NAMESPACE,
+                    accelerator=PROBE_ACCELERATOR, topology=LOAD_SHAPE,
+                    timeout=LOAD_TIMEOUT)
+            finally:
+                await wire.close()
+
+        report = asyncio.run(load()).to_dict()
+        call(ep.facade.wait_for(cleaned, "the load test's CRs deleted"))
+        by_path = admissions_by_path(ep.facade.admissions)
+        facade_requests = dict(sorted(ep.facade.requests.items()))
+    finally:
+        try:
+            ended = ep.stop()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    checks = {
+        "processes_stopped": set(ended) == {"manager", "webhook"}
+        and all(e["ran_until_stopped"] and e["stopped_by_sigterm"]
+                for e in ended.values()),
+        "quota": hard == {f"requests.{GPU_RESOURCE}": str(count)},
+        "all_ready": report["notebooks"] == report["ready"] == count
+        and report["failures"] == []
+        and 0 < report["p50_ready_seconds"] <= report["p95_ready_seconds"]
+        <= report["wall_seconds"],
+        "admitted_by_webhook": by_path.get(
+            "Notebook /mutate-notebooks allowed", 0) >= count
+        and by_path.get("Pod /apply-poddefault allowed", 0) >= count
+        and not any(k.endswith("denied") for k in by_path),
+    }
+    return {"report": report, "notebooks": count, "shape": LOAD_SHAPE,
+            "fleet": LOAD_FLEET_SPEC, "nodes": LOAD_NODE_COUNT,
+            "quota_hard": hard,
+            "clock": "host seconds (time.perf_counter) from the first "
+                     "create",
+            "manager_start_to_informers_synced":
+                synced["synced"] - manager_started,
+            "admissions_by_path": by_path,
+            "facade_requests_by_verb": facade_requests,
+            "processes": ended, "checks": checks}
+
+
+def phase_chaos(card: str) -> None:
+    """The control plane's harnesses on the card's machine (module
+    docstring, item 36): (a) one chaos soak seed with its checkpoints'
+    step trees on the card, (b) the notebook load test through the
+    manager and webhook processes. Launches no kernel. Any failed check
+    raises."""
+    phase_t0 = time.perf_counter()
+    soak = _chaos_soak()
+    load = _chaos_load()
+    emit({"phase": "chaos", "card": card, "soak": soak, "load": load,
+          "phase_sec": time.perf_counter() - phase_t0})
+    failed = {part: [k for k, ok in row["checks"].items() if not ok]
+              for part, row in (("soak", soak), ("load", load))}
+    if any(failed.values()):
+        raise AssertionError(f"chaos phase failed: {failed}")
 
 
 @contextmanager
@@ -6428,6 +6611,7 @@ def main() -> int:
         torch, fa, burnin, trainer, data, checkpoint, sdk, card)
     by_path["entrypoints"] = phase_entrypoints(torch, fa, burnin, sdk, card)
     by_path["webapps"] = phase_webapps(card)
+    phase_chaos(card)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)

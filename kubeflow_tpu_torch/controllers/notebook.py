@@ -2331,9 +2331,12 @@ def _scheduler_status_block(admission) -> dict | None:
         if getattr(admission, "reclaimed", ""):
             block["reclaimed"] = admission.reclaimed
         if getattr(admission, "scale_up_chips", 0):
+            # Whole seconds, as the JWA shows the wait: a finer value
+            # would change on every refresh of a queued gang, and each
+            # status write's watch event would re-enqueue it at once.
             block["scaleUp"] = {
                 "chips": admission.scale_up_chips,
-                "pendingSeconds": admission.scale_up_pending_sec,
+                "pendingSeconds": round(admission.scale_up_pending_sec),
             }
     elif admission.state in ("Preempted", "Draining") and admission.reason:
         block["reason"] = admission.reason

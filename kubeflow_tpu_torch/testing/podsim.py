@@ -88,6 +88,9 @@ class PodSimulator:
         # namespace-wide pod scans that made the kubelet sim O(pods-in-ns)
         # per event — O(N²) across the load test's shared namespace.
         self._owner_pods: dict[tuple, set[str]] = {}
+        # (namespace, owner uid) → (kind, name) of each indexed owner, so
+        # a pod delete can reconcile every workload that listed the pod.
+        self._owner_refs: dict[tuple, tuple[str, str]] = {}
         # Short-TTL Node cache for scheduler-like node assignment: pods
         # with a nodeSelector get spec.nodeName stamped from a matching
         # Node (round-robin by ordinal), so node-level signals — spot
@@ -126,26 +129,34 @@ class PodSimulator:
                     pass
             await asyncio.sleep(0.02)
 
-    def _index_pod(self, event: str, pod: dict) -> dict | None:
-        """Fold one pod event into the owner index; returns the pod's
-        controller ownerReference (None for unowned pods)."""
+    def _index_pod(self, event: str, pod: dict) -> list[tuple[str, str]]:
+        """Fold one pod event into the owner index. A delete takes the
+        pod's name out of every owner entry of its namespace that lists
+        it (a pod re-owned by another controller, as a warm pool's claim
+        is, stays listed under its first owner too) and returns those
+        owners' (kind, name); other events return []."""
+        ns, pod_name = namespace_of(pod), name_of(pod)
+        if event == "DELETED":
+            owners = []
+            for key, names in list(self._owner_pods.items()):
+                if key[0] != ns or pod_name not in names:
+                    continue
+                names.discard(pod_name)
+                if not names:
+                    del self._owner_pods[key]
+                if key in self._owner_refs:
+                    owners.append(self._owner_refs[key])
+            return owners
         owner = next(
             (r for r in get_meta(pod).get("ownerReferences", [])
              if r.get("controller")),
             None,
         )
-        if not owner or not owner.get("uid"):
-            return owner
-        key = (namespace_of(pod), owner["uid"])
-        if event == "DELETED":
-            names = self._owner_pods.get(key)
-            if names is not None:
-                names.discard(name_of(pod))
-                if not names:
-                    del self._owner_pods[key]
-        else:
-            self._owner_pods.setdefault(key, set()).add(name_of(pod))
-        return owner
+        if owner and owner.get("uid"):
+            key = (ns, owner["uid"])
+            self._owner_pods.setdefault(key, set()).add(pod_name)
+            self._owner_refs[key] = (owner.get("kind"), owner.get("name"))
+        return []
 
     async def _watch_pods(self) -> None:
         """The real STS/Deployment controllers watch pods: an out-of-band pod
@@ -156,19 +167,17 @@ class PodSimulator:
             async for event, pod in self.kube.watch("Pod"):
                 if not self._running:
                     return
-                owner = self._index_pod(event, pod)
-                if event != "DELETED":
-                    continue
-                if not owner or owner.get("kind") not in ("StatefulSet", "Deployment"):
-                    continue
-                try:
-                    wl = await self.kube.get_or_none(
-                        owner["kind"], owner["name"], namespace_of(pod)
-                    )
-                    if wl is not None:
-                        await self._reconcile_workload(owner["kind"], wl)
-                except ApiError:
-                    pass
+                for kind, workload in self._index_pod(event, pod):
+                    if kind not in ("StatefulSet", "Deployment"):
+                        continue
+                    try:
+                        wl = await self.kube.get_or_none(
+                            kind, workload, namespace_of(pod)
+                        )
+                        if wl is not None:
+                            await self._reconcile_workload(kind, wl)
+                    except ApiError:
+                        pass
             await asyncio.sleep(0.02)
 
     async def _reconcile_workload(self, kind: str, obj: dict) -> None:
@@ -193,6 +202,7 @@ class PodSimulator:
         # (external deletes land via the pod watch; a double create hits
         # AlreadyExists and a double delete hits NotFound — both benign).
         owner_key = (ns, get_meta(obj).get("uid"))
+        self._owner_refs[owner_key] = (kind, name)
         existing = set(self._owner_pods.get(owner_key, ()))
         for pod_name, pod in want.items():
             if pod_name not in existing:
