@@ -672,18 +672,30 @@ MANY_HEADS = ("bh66560", (1040, 64, 64, 16))
 # d = 20 one (zero-padded to 24: the copies timed apart) and two d = 256
 # ones (the wide library's wgmma kernels, also the partial and the simple
 # dQ): [8, 1024, 16, 256], and the wide_heads step's [8, 1024, 8, 256].
-# Then the wide library's simple kernels, the route of f32 heads wider
-# than 128 and of bf16 heads wider than 256: f32 at d = 256 and bf16 at
-# d = 320, each at [1, 1024, 8, d] (also the partial).
+# Then the routes of f32 heads (every d: the CUDA-core forward of
+# flash_attention_f32.cuh) and of bf16 heads wider than 256 (the sliced
+# wgmma forward; their backward on the simple kernels): f32 at d = 32, 128
+# and 256 and bf16 at d = 320, each at [1, 1024, 8, d] and at [8, 1024,
+# 16, d], a batch that fills the card (also the partial).
 HEAD_DIM_TIMED = [
     ("d32_train", (8, 1024, 64, 32), "bfloat16", True, 0, 0, False),
     ("d20_train", (8, 1024, 64, 20), "bfloat16", True, 0, 0, False),
     ("d256_train", (8, 1024, 16, 256), "bfloat16", True, 0, 0, False),
     # The shape the wide_heads step gives them: 8 heads of 256.
     ("wide_heads", (8, 1024, 8, 256), "bfloat16", True, 0, 0, False),
+    ("d32_f32", (1, 1024, 8, 32), "float32", True, 0, 0, False),
+    ("d128_f32", (1, 1024, 8, 128), "float32", True, 0, 0, False),
     ("d256_f32", (1, 1024, 8, 256), "float32", True, 0, 0, False),
     ("d320_bf16", (1, 1024, 8, 320), "bfloat16", True, 0, 0, False),
+    ("d32_f32_b8h16", (8, 1024, 16, 32), "float32", True, 0, 0, False),
+    ("d128_f32_b8h16", (8, 1024, 16, 128), "float32", True, 0, 0, False),
+    ("d256_f32_b8h16", (8, 1024, 16, 256), "float32", True, 0, 0, False),
+    ("d320_bf16_b8h16", (8, 1024, 16, 320), "bfloat16", True, 0, 0, False),
 ]
+# The backward of f32 heads and of bf16 heads wider than 256 runs the
+# simple CUDA-core kernels, tens of ms a call at the larger shapes: fewer
+# calls time them.
+SIMPLE_BWD_RUNS = dict(warmup=2, runs=10, batch=2)
 # The simple dQ (the wide library's plan (0, 1)), timed beside the wgmma
 # dQ at the d = 256 shapes: tens of ms a call, so fewer calls.
 SIMPLE_DQ_RUNS = dict(warmup=2, runs=10, batch=2)
@@ -759,7 +771,10 @@ KERNEL_CATEGORIES = (
     ("attention kernels (this port)", ("fwd_bf16_kernel", "dq_bf16_kernel",
                                        "dkv_bf16_kernel",
                                        "partial_bf16_kernel",
-                                       "wide_fwd_kernel", "wide_dq_kernel",
+                                       "fwd_f32_tiled_kernel",
+                                       "bf16_sliced_kernel",
+                                       "dq_f32_kernel", "dkv_f32_kernel",
+                                       "wide_dq_kernel",
                                        "wide_dkv_kernel",
                                        "wide_fwd_bf16_kernel",
                                        "wide_partial_bf16_kernel",
@@ -963,9 +978,12 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
                                                    **kw),
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, lse, do, delta, **kw))}
+    simple = dtype == "float32" or shape[3] > fa.WIDE_WGMMA_WIDTHS[-1]
+    runs = SIMPLE_BWD_RUNS if simple else {}
     for key, (run, plain) in calls.items():
-        row[f"{key}_ms"] = time_ms(run)
-        row[f"{key}_profiler_ms"] = profiled(run, torch)[0]
+        row[f"{key}_ms"] = time_ms(run, **runs)
+        row[f"{key}_profiler_ms"] = profiled(
+            run, torch, runs=runs.get("runs", 20))[0]
         row[f"{key}_plain_ms"] = time_ms(plain, warmup=1, runs=5, batch=2)
         (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
          row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal, key, given)
@@ -1108,8 +1126,9 @@ def phase_head_dims(torch, fa) -> dict:
     statistics and the wgmma dQ's and dK/dV's bitwise repeat; the
     forward, dQ and dK/dV timed at d = 32, 20 and 256 training shapes
     beside their bounds, their plain versions and SDPA (and at d = 256 the
-    partial, and the simple dQ beside the wgmma one), and on the simple
-    kernels' routes (f32 at d = 256, bf16 at d = 320) with the partial."""
+    partial, and the simple dQ beside the wgmma one), and on the f32 and
+    the bf16 > 256 routes (f32 at d = 32, 128 and 256, bf16 at d = 320)
+    with the partial."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(97531)
@@ -1182,9 +1201,7 @@ def phase_head_dims(torch, fa) -> dict:
         delta = fa.attention_delta(o, do)
         row = {"phase": "head_dims_timed", "case": name,
                "shape": list(shape), "dtype": dtype, "causal": causal,
-               "kernels": "hopper" if shape[3] <= fa.TILE_MAX_HEAD_DIM
-               else {"wgmma": "wide", "simple": "wide_simple"}[
-                   fa._wide_plan(shape[3], q.dtype).kernels]}
+               "kernels": _fwd_route(fa, shape[3], dtype)}
 
         def run():
             return fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -1198,6 +1215,10 @@ def phase_head_dims(torch, fa) -> dict:
         row["fwd_library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=causal))
+        row["fwd_library_backend"] = sdpa_backend(profiled(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal),
+            torch, runs=2)[1])
         row["fwd_bound_ms"], row["fwd_bound_by"], row["fwd_flops"] = \
             attention_bound_ms(shape, dtype, causal)
         _rates(row, "fwd_")
@@ -1227,6 +1248,18 @@ def phase_head_dims(torch, fa) -> dict:
         del q, k, v, do, o, lse, delta, qt, kt, vt
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, "timed": timed}
+
+
+def _fwd_route(fa, d: int, dtype: str) -> str:
+    """Which forward kernels run head dim d in ``dtype``: the 128-column
+    wgmma kernels (``hopper``), the wide library's wgmma kernels
+    (``wide``), its sliced wgmma kernels above 256 columns
+    (``wide_sliced``), or the f32 CUDA-core loop (``f32_tiled``)."""
+    if dtype == "float32":
+        return "f32_tiled"
+    if d <= fa.TILE_MAX_HEAD_DIM:
+        return "hopper"
+    return "wide" if d <= fa.WIDE_WGMMA_WIDTHS[-1] else "wide_sliced"
 
 
 def _time_simple_dq(row, torch, fa, q, k, v, o, lse, do, causal) -> None:
@@ -6576,6 +6609,8 @@ def main() -> int:
                    for src in (fa.SOURCE, fa.BWD_SOURCE, fa.WIDE_SOURCE)},
           "sass_wide_by_kernel": sass_counts(
               _build.library_path(fa.WIDE_SOURCE), by_kernel=True),
+          "sass_fwd_by_kernel": sass_counts(
+              _build.library_path(fa.SOURCE), by_kernel=True),
           "ptxas": [line.strip() for log in _build.BUILD_LOG.values()
                     for line in log.splitlines()
                     if "registers" in line or "spill" in line
@@ -6640,12 +6675,15 @@ def main() -> int:
                     "bound_share", "tflops")
     library_timed = ("library_ms", "library_profiler_ms", "library_backend")
 
-    def device_kernels(name: str, wide: str) -> dict:
+    def device_kernels(name: str, f32: str, wide: str) -> dict:
         """The CUDA kernels behind one entry, by head dim and dtype."""
-        return {"d <= 128": name, "bf16 136-256": f"wide_{name}",
-                "f32 > 128, bf16 > 256": wide,
+        return {"bf16 d <= 128": name, "bf16 136-256": f"wide_{name}",
+                "bf16 > 256": wide, "f32": f32,
                 "wide_source": "kubeflow_tpu_torch/ops/csrc/"
                                "flash_attention_wide.cu"}
+
+    f32_fwd = ("fwd_f32_tiled_kernel (kubeflow_tpu_torch/ops/csrc/"
+               "flash_attention_f32.cuh)")
 
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -6664,8 +6702,8 @@ def main() -> int:
                 **{name: {key: row[f"fwd_{key}"] for key in timed}
                    for name, row in dims_timed.items()}},
          "tensor_map_encode_us": decode["tensor_map_encode_us"],
-         "device_kernels": device_kernels("fwd_bf16_kernel",
-                                          "wide_fwd_kernel")},
+         "device_kernels": device_kernels("fwd_bf16_kernel", f32_fwd,
+                                          "wide_fwd_bf16_sliced_kernel")},
         *({"name": f"flash_attention_bwd_{key}", "route": "cuda",
            "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
            "replaces": f"kubeflow_tpu/ops/flash_attention.py:{line}",
@@ -6686,8 +6724,10 @@ def main() -> int:
                                     *dims_timed.items()]},
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)",
-           "device_kernels": device_kernels(f"{key}_bf16_kernel",
-                                            f"wide_{key}_kernel")}
+           "device_kernels": device_kernels(
+               f"{key}_bf16_kernel",
+               f"{key}_f32_kernel (d <= 128), wide_{key}_kernel",
+               f"wide_{key}_kernel")}
           for key, line, outs in (("dq", 167, ("dq",)),
                                   ("dkv", 195, ("dk", "dv")))),
         {"name": "flash_attention_partial", "route": "cuda",
@@ -6709,8 +6749,9 @@ def main() -> int:
                    if "partial_ms" in row}},
          "library_call": "F.scaled_dot_product_attention(is_causal=True): "
                          "the same products, normalized",
-         "device_kernels": device_kernels("partial_bf16_kernel",
-                                          "wide_fwd_kernel")}]})
+         "device_kernels": device_kernels(
+             "partial_bf16_kernel", f32_fwd,
+             "wide_partial_bf16_sliced_kernel")}]})
     emit({"phase": "wall", "script_sec": time.perf_counter() - STARTED})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

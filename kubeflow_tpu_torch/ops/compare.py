@@ -16,7 +16,10 @@ and the backward's dQ and dK/dV kernels at the train step's shape (dQ
 computing delta) and at the long-context one-card hop (delta given, as
 the ring's backward calls them); and the wide library's forward, partial,
 dQ and dK/dV at the train shape with 256-column heads (``*_d256``), the
-backward also at the wide_heads step's 8 heads (``bwd_wide_heads``).
+backward also at the wide_heads step's 8 heads (``bwd_wide_heads``);
+and the f32 forward and partial at d = 32, 128 and 256 and the bf16 ones
+at d = 320, each at ``[8, 1024, 16, d]`` and ``[1, 1024, 8, d]``
+(``*_small``).
 
 Run from the root of a checkout, on a machine with one card::
 
@@ -50,18 +53,27 @@ from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import flash_attention as fa
 
 CASES = (
-    # name, kernel, [b, s, h, d], (q_offset, k_offset) or None: the causal
-    # forward, or the backward computing delta
-    ("fwd_decode", "fwd", (8, 1024, 16, 128), None),
-    ("fwd_8192", "fwd", (1, 8192, 16, 128), None),
-    ("partial_decode", "partial", (8, 1024, 16, 128), (0, 0)),
-    ("partial_8192", "partial", (1, 8192, 16, 128), (0, 0)),
-    ("bwd_train", "bwd", (8, 1024, 16, 128), None),
-    ("bwd_8192_hop", "bwd", (1, 8192, 16, 128), (0, 0)),
-    ("fwd_d256", "fwd", (8, 1024, 16, 256), None),
-    ("partial_d256", "partial", (8, 1024, 16, 256), (0, 0)),
-    ("bwd_d256", "bwd", (8, 1024, 16, 256), None),
-    ("bwd_wide_heads", "bwd", (8, 1024, 8, 256), None),
+    # name, kernel, [b, s, h, d], (q_offset, k_offset) or None, dtype: the
+    # causal forward, or the backward computing delta
+    ("fwd_decode", "fwd", (8, 1024, 16, 128), None, "bfloat16"),
+    ("fwd_8192", "fwd", (1, 8192, 16, 128), None, "bfloat16"),
+    ("partial_decode", "partial", (8, 1024, 16, 128), (0, 0), "bfloat16"),
+    ("partial_8192", "partial", (1, 8192, 16, 128), (0, 0), "bfloat16"),
+    ("bwd_train", "bwd", (8, 1024, 16, 128), None, "bfloat16"),
+    ("bwd_8192_hop", "bwd", (1, 8192, 16, 128), (0, 0), "bfloat16"),
+    ("fwd_d256", "fwd", (8, 1024, 16, 256), None, "bfloat16"),
+    ("partial_d256", "partial", (8, 1024, 16, 256), (0, 0), "bfloat16"),
+    ("bwd_d256", "bwd", (8, 1024, 16, 256), None, "bfloat16"),
+    ("bwd_wide_heads", "bwd", (8, 1024, 8, 256), None, "bfloat16"),
+    # The f32 forward and partial (every head dim) and the bf16 ones above
+    # 256 columns: at a shape that fills the card, [8, 1024, 16, d], and at
+    # [1, 1024, 8, d] (64-128 CTAs).
+    *((f"{kernel}_{tag0}_d{d}{tag}", kernel, shape, offsets, dtype)
+      for dtype, tag0, dims in (("float32", "f32", (32, 128, 256)),
+                                ("bfloat16", "bf16", (320,)))
+      for d in dims
+      for tag, shape in (("", (8, 1024, 16, d)), ("_small", (1, 1024, 8, d)))
+      for kernel, offsets in (("fwd", None), ("partial", (0, 0)))),
 )
 SIMPLE_DQ = "this_simple_dq"
 
@@ -89,14 +101,27 @@ def time_ms(fn, *, warmup=5, runs=30, batch=10) -> float:
     return statistics.median(times)
 
 
+def _kernel_name(line: str) -> str | None:
+    """The redesigned kernels' names in a ptxas line's mangled one: the
+    bf16 kernels (``name<D>``), the sliced bf16 forward and partial, and
+    the f32 forward (``fwd_f32_tiled_kernel<DV, partial>``)."""
+    found = re.search(r"([a-z_]+_bf16_kernel)ILi(\d+)E", line)
+    if found:
+        return f"{found[1]}<{found[2]}>"
+    found = re.search(r"(fwd_f32_tiled_kernel)ILi(\d+)ELb([01])E", line)
+    if found:
+        return f"{found[1]}<{found[2]}, {('false', 'true')[int(found[3])]}>"
+    found = re.search(r"([a-z_]+_bf16_sliced_kernel)E", line)
+    return found[1] if found else None
+
+
 def ptxas_notes(log: str) -> list[str]:
-    """Each bf16 kernel's register and spill lines and ptxas's performance
-    notes (C75xx) from one nvcc log."""
+    """Each redesigned kernel's register and spill lines and ptxas's
+    performance notes (C75xx) from one nvcc log."""
     notes, kernel = [], None
     for line in log.splitlines():
-        found = re.search(r"([a-z_]+_bf16_kernel)ILi(\d+)E", line)
         if "entry function" in line:
-            kernel = f"{found[1]}<{found[2]}>" if found else None
+            kernel = _kernel_name(line)
         elif kernel and ("spill" in line or "registers" in line):
             notes.append(f"{kernel}: {line.strip()}")
         if "C75" in line:
@@ -160,7 +185,8 @@ def builds(others: dict) -> dict:
             for label, d in dirs.items()}
 
 
-def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False):
+def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False,
+                  dtype="bfloat16"):
     """Inputs for one case and, per kernel timed, the call of each build
     and SDPA's call on the same inputs. Heads above 128 columns run each
     build's wide library; with ``simple_dq`` their dQ also runs this
@@ -173,7 +199,7 @@ def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False):
             for label, lib in libs.items()}
     gen = torch.Generator(device="cuda").manual_seed(97)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(getattr(torch, dtype)) for _ in range(4))
     scale = shape[-1] ** -0.5
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -199,7 +225,7 @@ def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False):
     dq = {label: (lambda lib=lib["bwd"]: fa._launch_dq(
         q, k, v, o_in, lse, do, given, True, scale, q_off, k_off, lib=lib))
         for label, lib in libs.items()}
-    if wide and simple_dq:
+    if wide and simple_dq and dtype == "bfloat16":
         simple = (0, -(-shape[-1] // fa.WIDE_SLICE_COLS))
         dq[SIMPLE_DQ] = lambda: fa._launch_dq(
             q, k, v, o_in, lse, do, given, True, scale, q_off, k_off,
@@ -212,11 +238,13 @@ def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False):
                                         retain_graph=True))
 
 
-def run_case(name, kernel, shape, offsets, libs, rounds: int,
+def run_case(name, kernel, shape, offsets, dtype, libs, rounds: int,
              simple_dq: bool = False) -> dict:
-    calls, library = _kernel_calls(kernel, shape, offsets, libs, simple_dq)
+    calls, library = _kernel_calls(kernel, shape, offsets, libs, simple_dq,
+                                   dtype)
     row = {"case": name, "shape": list(shape), "offsets": offsets,
-           "ms": {}, "ms_rounds": {}, "max_diff_vs_first": {}}
+           "dtype": dtype, "ms": {}, "ms_rounds": {},
+           "max_diff_vs_first": {}}
     for key, by_build in calls.items():
         outs = {label: call() for label, call in by_build.items()}
         torch.cuda.synchronize()

@@ -90,12 +90,13 @@
 //    of 8: a TMA stride is a multiple of 16 bytes, and the heads of a qkv
 //    slice lie d elements apart. A narrow head does the wide tile's
 //    tensor-core work; at d = 16 and 32 the kernel moves few bytes for it.
-//  * f32 (not on the main paths): a warp per query row, FMA on the CUDA
-//    cores, keeping f32 products exact rather than rounding through TF32;
-//    lanes past d idle when d < 32.
+//  * f32 (not on the main paths): flash_attention_f32.cuh's register-tiled
+//    loop on the CUDA cores (exact f32 FMAs, TMA panel loads; its header
+//    has its bound and design), at 16, 32, 64 or 128 output columns.
 
 #include <chrono>
 
+#include "flash_attention_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -103,7 +104,6 @@ namespace {
 using namespace kftpu;
 
 constexpr float kNegBig = -1e30f;
-constexpr int kThreads = 128;  // the f32 path
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -495,112 +495,6 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   hopper_attention<D, true>(qmap, kmap, vmap, p);
 }
 
-// ----------------------------------------------------------------- f32 path
-
-constexpr int kRowsPerCta = kThreads / 32;
-
-// The body of both f32 kernels: kPartial selects the ring hop's epilogue.
-// D (32, 64 or 128) is at least the true head dim p.d; lane j owns columns
-// j, j + 32, ... below p.d.
-template <int D, bool kPartial>
-__device__ __forceinline__ void f32_attention(const Params& p) {
-  constexpr int kPer = D / 32;  // output columns per lane, at most
-  __shared__ float qs[kRowsPerCta][D];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // One grid dimension (x) over (b*h, row block): any batch * heads fits.
-  const int row_blocks = (p.s + kRowsPerCta - 1) / kRowsPerCta;
-  const int bh = blockIdx.x / row_blocks, bi = bh / p.h, hi = bh % p.h;
-  const int row = (blockIdx.x % row_blocks) * kRowsPerCta + warp;
-  if (row >= p.s) return;
-
-  const float* q = static_cast<const float*>(p.q) + bi * p.q_sb +
-                   hi * p.q_sh + static_cast<long long>(row) * p.q_ss;
-  const float* k = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-  for (int i = lane; i < p.d; i += 32) qs[warp][i] = q[i];
-  __syncwarp();
-
-  float acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  float m_run = kNegBig, l_run = 0.f;
-  const int qpos = p.q_offset + row;  // this row's global position
-  const int n_end =
-      p.causal ? max(0, min(p.s, qpos - p.k_offset + 1)) : p.s;
-
-  for (int n0 = 0; n0 < n_end; n0 += 32) {
-    // Lane j scores key n0 + j.
-    const int key = n0 + lane;
-    float x = kNegBig;
-    if (key < p.s && !(p.causal && p.k_offset + key > qpos)) {
-      const float* kr = k + static_cast<long long>(key) * p.k_ss;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int i = 0; i < p.d; ++i) dot = fmaf(qs[warp][i], kr[i], dot);
-      x = dot * p.scale;
-    }
-    float mx = x;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    const float m_new = fmaxf(m_run, mx);
-    const float pj = expf(x - m_new);
-    float ps = pj;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      ps += __shfl_xor_sync(0xffffffffu, ps, off);
-    }
-    const float corr = expf(m_run - m_new);
-    l_run = l_run * corr + ps;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[i] *= corr;
-    const int count = min(32, p.s - n0);
-    for (int j = 0; j < count; ++j) {
-      const float pb = __shfl_sync(0xffffffffu, pj, j);
-      const float* vr = v + static_cast<long long>(n0 + j) * p.v_ss;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        if (lane + 32 * i < p.d) acc[i] = fmaf(pb, vr[lane + 32 * i], acc[i]);
-      }
-    }
-  }
-
-  float* o = static_cast<float*>(p.o) + bi * p.o_sb + hi * p.o_sh +
-             static_cast<long long>(row) * p.o_ss;
-  const long long at = static_cast<long long>(bh) * p.s + row;
-  if constexpr (kPartial) {
-    const bool seen = n_end > 0;  // key 0 reaches this row
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (lane + 32 * i < p.d) o[lane + 32 * i] = seen ? acc[i] : 0.f;
-    }
-    if (lane == 0) {
-      p.m[at] = seen ? m_run : kNegBig;
-      p.l[at] = seen ? l_run : 0.f;
-    }
-  } else {
-    const float l = fmaxf(l_run, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (lane + 32 * i < p.d) o[lane + 32 * i] = acc[i] / l;
-    }
-    if (lane == 0) p.lse[at] = m_run + logf(l);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) fwd_f32_kernel(Params p) {
-  f32_attention<D, false>(p);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) partial_f32_kernel(Params p) {
-  f32_attention<D, true>(p);
-}
-
-
 // The maps of q, k and v at their true head dim p.d.
 int encode_qkv(CUtensorMap (&maps)[3], const Params& p) {
   int err = encode(&maps[0], p.q, p.b, p.s, p.h, p.d, p.q_sb, p.q_ss, p.q_sh,
@@ -644,18 +538,40 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, bool kPartial>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) =
-      kPartial ? &partial_f32_kernel<D> : &fwd_f32_kernel<D>;
-  const dim3 grid((p.s + kRowsPerCta - 1) / kRowsPerCta * p.b * p.h);
-  kernel<<<grid, kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+// The f32 forward (kPartial false) or partial of flash_attention_f32.cuh
+// on the narrowest output width that holds d.
+template <bool kPartial>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  f32fwd::Params f{};
+  f.q = static_cast<const float*>(p.q);
+  f.k = static_cast<const float*>(p.k);
+  f.v = static_cast<const float*>(p.v);
+  f.o = static_cast<float*>(p.o);
+  f.lse = p.lse;
+  f.m = p.m;
+  f.l = p.l;
+  f.b = p.b, f.s = p.s, f.h = p.h, f.d = p.d;
+  const long long st[4][3] = {{p.q_sb, p.q_ss, p.q_sh},
+                              {p.k_sb, p.k_ss, p.k_sh},
+                              {p.v_sb, p.v_ss, p.v_sh},
+                              {p.o_sb, p.o_ss, p.o_sh}};
+  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 3; ++j) f.st[i][j] = st[i][j];
+  }
+  f.scale = p.scale;
+  f.causal = p.causal;
+  f.q_offset = p.q_offset;
+  f.k_offset = p.k_offset;
+  f.slices = 1;
+  if (p.d <= 16) return f32fwd::launch<16, kPartial>(f, stream);
+  if (p.d <= 32) return f32fwd::launch<32, kPartial>(f, stream);
+  return p.d <= 64 ? f32fwd::launch<64, kPartial>(f, stream)
+                   : f32fwd::launch<128, kPartial>(f, stream);
 }
 
-// Head dims: a multiple of 8 up to 128, on the narrowest tile that holds
-// it (bf16: 64 or 128 columns; f32: 32, 64 or 128 lanes' columns); wider
-// heads run flash_attention_wide.cu's kernels.
+// Head dims: a multiple of 8 up to 128 (bf16 on the narrowest tile that
+// holds it, 64 or 128 columns; f32 on the narrowest output width, 16, 32,
+// 64 or 128); wider heads run flash_attention_wide.cu's kernels.
 template <bool kPartial>
 int launch(Params p, int d, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -667,9 +583,7 @@ int launch(Params p, int d, int dtype, void* stream) {
     return d <= 64 ? launch_bf16<64, kPartial>(p, st)
                    : launch_bf16<128, kPartial>(p, st);
   }
-  if (d <= 32) return launch_f32<32, kPartial>(p, st);
-  return d <= 64 ? launch_f32<64, kPartial>(p, st)
-                 : launch_f32<128, kPartial>(p, st);
+  return launch_f32<kPartial>(p, st);
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o,

@@ -25,9 +25,15 @@
 //    wide_dkv_bf16_kernel, all on wgmma and TMA, at D = 192 columns
 //    (d <= 192) or 256 (TMA fills the columns past d with zeros, which add
 //    exactly 0 to Q K^T, dO V^T and delta; the epilogues store d columns).
-//  * f32 at any d, and bf16 above 256: the simple kernels (wide_fwd_kernel
-//    for the forward and the partial, wide_dq_kernel, wide_dkv_kernel), FMA
-//    on the CUDA cores, with the output columns split into slices of 256.
+//  * bf16 above 256 (the plan (0, slices)): the forward and the partial run
+//    wide_fwd_bf16_sliced_kernel / wide_partial_bf16_sliced_kernel, on
+//    wgmma and TMA, one CTA a 256-column slice of the output (below).
+//  * f32 at any d (the plan (0, slices)): the forward and the partial run
+//    flash_attention_f32.cuh's register-tiled loop on the CUDA cores (its
+//    header has its design), one CTA a 256-column slice.
+//  * dQ and dK/dV of f32 and of bf16 above 256: the simple kernels
+//    (wide_dq_kernel, wide_dkv_kernel), FMA on the CUDA cores, with the
+//    output columns split into slices of 256.
 //
 // Bounds on an H100 SXM (989 TFLOP/s dense bf16, 67 TFLOP/s f32 outside
 // the tensor cores, 3.35 TB/s) at [8, 1024, 16, 256] bf16, causal: the
@@ -87,28 +93,46 @@
 //    group's tiles from the heaviest causal tile on. No atomics: the
 //    results are deterministic.
 //
-// The simple kernels (f32; bf16 above 256 columns): one CTA of
-// 128 threads (4 warps) per (b*h, 16 owned rows, column slice): query rows
-// for the forward, the partial and dQ, key rows for dK/dV.
+// The sliced bf16 forward and partial (d > 256). Bound at [8, 1024, 16,
+// 320] causal by bytes: 335.5 MB of q, k, v and o (0.100 ms) against 86.9
+// us of the function's products at the bf16 peak. Each 256-column slice of
+// O recomputes S = Q K^T over all of d, so the slices' products are more
+// than the function's: at d = 320 two slices contract S over 320 columns
+// each and P V over 256 (the second slice's 192 columns past d are
+// multiplied, not stored): 1.8 times one pass's 640. The design is the
+// wgmma forward's (a producer and two consumer warpgroups of 64 Q rows, 64-
+// key tiles, O in 128 registers, ex2.approx.ftz, P rounded to bf16 in
+// registers), with the contraction over d in 64-column panels: K's panels
+// through a ring of 4 stages, each panel its own commit group so that the
+// next panel's wait overlaps this one's products, Q's panels resident for
+// d up to 512 (176 KB at d = 320) and streamed beside K's above; the
+// slice's V tile through 2 stages. The slices of one Q tile launch side by
+// side, so the second reads K and V from L2. Every slice computes S, the
+// max and the sum in the same order: the statistics are bitwise equal and
+// slice 0 alone writes them.
+//
+// The simple kernels (the backward of f32 and of bf16 above 256 columns):
+// one CTA of 128 threads (4 warps) per (b*h, 16 owned rows, column slice):
+// query rows for dQ, key rows for dK/dV.
 //  * The output-column split: a CTA accumulates the slice [256 y, 256 y +
-//    256) of the output's columns (O or acc, dQ, dK and dV; blockIdx.y),
-//    so the f32 accumulators take 16 KB each whatever d. The scores (S,
-//    and dP) still contract over all of d, so every slice computes the
-//    softmax statistics (lse; m and l; delta) from the same numbers in the
-//    same order: they are bitwise equal, and slice 0 alone writes them.
-//  * The owned rows' inputs (Q; Q and dO; K and V) stay in shared memory
+//    256) of the output's columns (dQ, dK and dV; blockIdx.y), so the f32
+//    accumulators take 16 KB each whatever d. The scores (S, and dP) still
+//    contract over all of d, so every slice computes the softmax statistics
+//    (delta) from the same numbers in the same order: they are bitwise
+//    equal, and slice 0 alone writes them.
+//  * The owned rows' inputs (Q and dO; K and V) stay in shared memory
 //    at full width where they fit (dK/dV: d up to about 1300), else they
 //    are read 64 columns at a time beside the streamed chunk.
 //  * The other side streams in tiles of 32 rows (lane j takes streamed row
 //    j), read through its strides in chunks of 64 columns into a
 //    [32][65] f32 buffer, rows and columns past the edge as zeros. Warp w
-//    holds owned rows 4w .. 4w + 3 against the 32 streamed rows, so the
-//    row max and row sum of the online softmax are warp shuffles. The
+//    holds owned rows 4w .. 4w + 3 against the 32 streamed rows. The
 //    products into the accumulators: thread t takes column t % 64 of a
 //    chunk for 8 of the 16 owned rows. Every product is an f32 FMA, and
 //    each reads one operand from shared memory: these kernels are right,
 //    not fast (PERF.md has their times).
 
+#include "flash_attention_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -119,7 +143,7 @@ constexpr float kNegBig = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxSmem = 232448;  // bytes a CTA may have on sm_90
-constexpr int kSliceCols = 256;   // output columns a simple CTA accumulates
+constexpr int kSliceCols = 256;   // output columns a sliced CTA accumulates
 constexpr int kHopperMaxCols = 256;  // the widest wgmma instantiation
 
 // The tensors whose (batch, seq, head) strides a launch is given, in
@@ -145,14 +169,16 @@ struct Params {
   long long st[kTensors][3];
   float scale;
   int causal, q_offset, k_offset, compute_delta, partial;
-  int held;   // the simple kernels: the owned rows' inputs in shared memory
-  int group;  // the wgmma kernels' launch order: (batch, head) pairs a group
+  int held;    // the simple kernels: the owned rows' inputs in shared memory
+  int group;   // the wgmma kernels' launch order: (batch, head) pairs a group
+  int slices;  // the sliced forward: output-column slices of kSliceCols
 };
 
 // Whether the library has the kernels of a plan for head dim d and dtype
 // (0 f32, 1 bf16): the wgmma kernels at `width` columns (192 or 256, bf16,
-// d <= width, one slice), or (width 0) the simple kernels over `slices`
-// column slices of kSliceCols, as many as d fills.
+// d <= width, one slice), or (width 0) the sliced forward (bf16 on wgmma,
+// f32 on the CUDA cores) and the simple backward over `slices` column
+// slices of kSliceCols, as many as d fills.
 bool has_plan(int d, int dtype, int width, int slices) {
   if (width == 0) {
     return slices == (d + kSliceCols - 1) / kSliceCols && slices <= 65535;
@@ -184,10 +210,6 @@ __host__ __device__ constexpr int acc_cols(int d) {
   return d < kSliceCols ? d : kSliceCols;
 }
 
-constexpr int fwd_smem(int d, bool held) {
-  return 4 * (own_floats(d, held) + kOwn * acc_cols(d) + kStream * kPitch +
-              kOwn * kTilePitch + 3 * kOwn);
-}
 constexpr int dq_smem(int d, bool held) {
   return 4 * (2 * own_floats(d, held) + kOwn * acc_cols(d) +
               2 * kStream * kPitch + kOwn * kTilePitch);
@@ -198,8 +220,7 @@ constexpr int dkv_smem(int d, bool held) {
 }
 // Streaming the owned inputs fits at any width.
 static_assert(dkv_smem(1 << 20, false) <= kMaxSmem &&
-                  dq_smem(1 << 20, false) <= kMaxSmem &&
-                  fwd_smem(1 << 20, false) <= kMaxSmem,
+                  dq_smem(1 << 20, false) <= kMaxSmem,
               "every simple kernel fits at any head dim");
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
@@ -218,14 +239,6 @@ __device__ __forceinline__ float round_to(float x) {
   } else {
     return x;
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -329,8 +342,7 @@ __device__ __forceinline__ void accumulate(float* acc, const float* tile,
 }
 
 // The CTA's (b*h, owned tile, column slice), heaviest causal tiles first
-// when `last_first` (the forward's and dQ's last query tiles see the most
-// keys).
+// when `last_first` (dQ's last query tiles see the most keys).
 struct Tile {
   int bh, bi, hi, r0, c_lo, c_hi;
 };
@@ -342,118 +354,6 @@ __device__ __forceinline__ Tile tile_of(const Params& p, int rows,
   const int c_lo = blockIdx.y * kSliceCols;
   return {bh, bh / p.h, bh % p.h, (last_first ? tiles - 1 - t : t) * kOwn,
           c_lo, min(p.d, c_lo + kSliceCols)};
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wide_fwd_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int w = acc_cols(p.d);
-  float* qs = smem;                          // held [kOwn][d], or a chunk
-  float* os = qs + own_floats(p.d, p.held);  // [kOwn][w] f32 acc
-  float* kv = os + kOwn * w;                 // [kStream][kPitch]
-  float* ps = kv + kStream * kPitch;         // [kOwn][kTilePitch]
-  float* corr = ps + kOwn * kTilePitch;      // [kOwn]
-  float* fin_m = corr + kOwn;
-  float* fin_l = fin_m + kOwn;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Tile t = tile_of(p, p.s_q, p.causal);
-
-  if (p.held) load_owned<T>(qs, p.q, p, kQ, t.bi, t.hi, t.r0, p.s_q);
-  for (int idx = threadIdx.x; idx < kOwn * w; idx += kThreads) os[idx] = 0.f;
-  __syncthreads();
-
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp];
-#pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j) {
-    m_run[j] = kNegBig;
-    l_run[j] = 0.f;
-  }
-  // Keys [0, n_end) reach some row of the tile.
-  const int last = min(t.r0 + kOwn, p.s_q) - 1;
-  const int n_end =
-      p.causal ? max(0, min(p.s_k, p.q_offset + last - p.k_offset + 1))
-               : p.s_k;
-  for (int n0 = 0; n0 < n_end; n0 += kStream) {
-    float s[kRowsPerWarp] = {};
-    for (int c0 = 0; c0 < p.d; c0 += kChunk) {
-      load_chunk<T, kStream>(kv, p.k, p, kK, t.bi, t.hi, n0, p.s_k, c0);
-      int pitch;
-      const float* own = owned_chunk<T>(qs, p.q, p, kQ, t.bi, t.hi, t.r0,
-                                        p.s_q, c0, pitch);
-      __syncthreads();
-      const int cols = chunk_cols(p, c0);
-      for (int i = 0; i < cols; ++i) {
-        const float kval = kv[lane * kPitch + i];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const int r = warp * kRowsPerWarp + j;
-          s[j] = fmaf(own[r * pitch + i], kval, s[j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      const int r = warp * kRowsPerWarp + j;
-      const bool live = visible(p, t.r0 + r, n0 + lane);
-      const float x = live ? s[j] * p.scale : kNegBig;
-      const float m_new = fmaxf(m_run[j], warp_max(x));
-      const float pr = live ? expf(x - m_new) : 0.f;
-      const float c = expf(m_run[j] - m_new);
-      l_run[j] = l_run[j] * c + warp_sum(pr);
-      m_run[j] = m_new;
-      ps[r * kTilePitch + lane] = round_to<T>(pr);
-      if (lane == 0) corr[r] = c;
-    }
-    __syncthreads();
-    for (int c0 = t.c_lo; c0 < t.c_hi; c0 += kChunk) {
-      load_chunk<T, kStream>(kv, p.v, p, kV, t.bi, t.hi, n0, p.s_k, c0);
-      __syncthreads();
-      const int col = threadIdx.x % kColThreads;
-      const int group = threadIdx.x / kColThreads;
-      if (col < chunk_cols(p, c0)) {  // the O rescale, once per tile
-        for (int rr = 0; rr < kRowsPerGroup; ++rr) {
-          const int r = group * kRowsPerGroup + rr;
-          os[r * w + c0 - t.c_lo + col] *= corr[r];
-        }
-      }
-      accumulate(os, ps, kv, w, c0 - t.c_lo, chunk_cols(p, c0));
-      __syncthreads();
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      fin_m[warp * kRowsPerWarp + j] = m_run[j];
-      fin_l[warp * kRowsPerWarp + j] = l_run[j];
-    }
-  }
-  __syncthreads();
-  const int rows = min(kOwn, p.s_q - t.r0);
-  const int cols = t.c_hi - t.c_lo;
-  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-    const int r = idx / cols, i = idx % cols;
-    const float acc = os[r * w + i];
-    if (p.partial) {
-      // A row no key reaches has acc 0, m -1e30 and l 0 as it stands.
-      *(out_row_of<float>(p.o_out, p, kO, t.bi, t.hi, t.r0 + r) + t.c_lo +
-        i) = acc;
-    } else {
-      store(out_row_of<T>(p.o_out, p, kO, t.bi, t.hi, t.r0 + r) + t.c_lo + i,
-            acc / fmaxf(fin_l[r], 1e-30f));
-    }
-  }
-  if (blockIdx.y == 0 && threadIdx.x < rows) {  // every slice's are equal
-    const int r = threadIdx.x;
-    const long long at = static_cast<long long>(t.bh) * p.s_q + t.r0 + r;
-    if (p.partial) {
-      p.m[at] = fin_m[r];
-      p.l[at] = fin_l[r];
-    } else {
-      p.lse_out[at] = fin_m[r] + logf(fmaxf(fin_l[r], 1e-30f));
-    }
-  }
 }
 
 template <typename T>
@@ -726,13 +626,13 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
 
 // The launch order: (batch, head) pairs in groups of p.group, each group's
 // tiles from the heaviest (the last when `last_first`) on, the group's
-// heads side by side.
+// heads side by side; `idx` is the CTA's place in that order.
 __device__ __forceinline__ void group_tile(const Params& p, int tiles,
                                            bool last_first, int& bh,
-                                           int& tile) {
+                                           int& tile, int idx = blockIdx.x) {
   const int bhs = p.b * p.h;
   const int per_group = p.group * tiles;
-  const int g = blockIdx.x / per_group, rem = blockIdx.x % per_group;
+  const int g = idx / per_group, rem = idx % per_group;
   const int heads = min(p.group, bhs - g * p.group);
   bh = g * p.group + rem % heads;
   tile = last_first ? tiles - 1 - rem / heads : rem / heads;
@@ -1014,6 +914,254 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                              const __grid_constant__ CUtensorMap vmap,
                              const Params p) {
   hopper_fwd<D, true>(qmap, kmap, vmap, p);
+}
+
+// ------------------------------- forward and partial above 256 columns
+
+// The bf16 forward over output-column slices (d > 256; the plan (0,
+// slices)): one CTA per (b*h, 128-row Q tile, slice of kSliceCols O
+// columns), the producer and two consumer warpgroups of hopper_fwd, O in
+// 128 registers (D = 256). S = Q K^T contracts over all of d in 64-column
+// panels: K's panels of each 64-key tile come through a ring of
+// kSliceStages stages, and Q's either stay in shared memory (resident, d up
+// to 512) or come through the ring beside K's (streamed). The slice's V
+// tile (4 panels, those past d not loaded) comes through 2 stages.
+constexpr int kSliceStages = 4;
+constexpr int kSliceVTile = (kSliceCols / kPanelCols) * kPanel64;  // 32 KB
+
+struct SlicedLayout {
+  int panels;     // 64-column panels of d
+  bool resident;  // Q's panels stay for the whole loop
+  int q, ring, stage, v, bars, smem;  // offsets and sizes in bytes
+};
+
+__host__ __device__ constexpr SlicedLayout sliced_layout(int d) {
+  SlicedLayout L{};
+  L.panels = (d + kPanelCols - 1) / kPanelCols;
+  // q_full, full and empty a stage, V full and empty a stage.
+  constexpr int kBarBytes = 8 * (1 + 2 * kSliceStages + 4);
+  const int resident = L.panels * kPanel128 + kSliceStages * kPanel64 +
+                       2 * kSliceVTile + kBarBytes + 1024;
+  L.resident = resident <= kMaxSmem;
+  L.q = 0;
+  L.ring = L.resident ? L.panels * kPanel128 : 0;
+  L.stage = L.resident ? kPanel64 : kPanel128 + kPanel64;  // (Q |) K
+  L.v = L.ring + kSliceStages * L.stage;
+  L.bars = L.v + 2 * kSliceVTile;
+  L.smem = L.bars + kBarBytes + 1024;
+  return L;
+}
+static_assert(sliced_layout(264).resident &&
+                  sliced_layout(264).smem == 181352 &&
+                  sliced_layout(320).resident &&
+                  sliced_layout(320).smem == 181352 &&
+                  sliced_layout(512).resident &&
+                  sliced_layout(512).smem == 230504 &&
+                  !sliced_layout(1024).resident &&
+                  sliced_layout(1024).smem == 164968 &&
+                  !sliced_layout(1 << 20).resident &&
+                  sliced_layout(1 << 20).smem <= kMaxSmem,
+              "the sliced forward's shared memory at d 264, 320, 512 (Q "
+              "resident), 1024 and any wider head (Q streamed)");
+
+template <bool kPartial>
+__device__ __forceinline__ void sliced_fwd(const CUtensorMap& qmap,
+                                           const CUtensorMap& kmap,
+                                           const CUtensorMap& vmap,
+                                           const Params& p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const SlicedLayout L = sliced_layout(p.d);
+  const uint32_t bars = base + L.bars;
+  const uint32_t q_full = bars;
+  const auto full = [&](int st) { return bars + 8 * (1 + st); };
+  const auto empty = [&](int st) {
+    return bars + 8 * (1 + kSliceStages + st);
+  };
+  const auto v_full = [&](int vb) {
+    return bars + 8 * (1 + 2 * kSliceStages + vb);
+  };
+  const auto v_empty = [&](int vb) {
+    return bars + 8 * (3 + 2 * kSliceStages + vb);
+  };
+  const int m_blocks = (p.s_q + kBlockM - 1) / kBlockM;
+  const int slice = blockIdx.x % p.slices;  // slices side by side
+  int bh, tile;
+  group_tile(p, m_blocks, true, bh, tile, blockIdx.x / p.slices);
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int m0 = tile * kBlockM;
+  const int c_lo = slice * kSliceCols;
+  const int cols = min(kSliceCols, p.d - c_lo);
+  const int n_end =
+      p.causal ? max(0, min(p.s_k, p.q_offset + min(m0 + kBlockM, p.s_q) -
+                                       p.k_offset))
+               : p.s_k;
+  const int n_tiles = (n_end + kTileRows - 1) / kTileRows;
+  const int np = L.panels;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kSliceStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumerWarps);
+    }
+    for (int vb = 0; vb < 2; ++vb) {
+      mbar_init(v_full(vb), 1);
+      mbar_init(v_empty(vb), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      if (L.resident) {
+        mbar_expect_tx(q_full, np * kPanel128);
+        for (int pn = 0; pn < np; ++pn) {
+          tma_load(base + L.q + pn * kPanel128, qmap, q_full,
+                   pn * kPanelCols, hi, m0, bi);
+        }
+      }
+      const int vpanels =
+          min(kSliceCols / kPanelCols, (cols + kPanelCols - 1) / kPanelCols);
+      for (int j = 0; j < n_tiles; ++j) {
+        for (int pn = 0; pn < np; ++pn) {
+          const int g = j * np + pn, st = g % kSliceStages;
+          // The stage's previous panels were released (round 0 passes).
+          mbar_wait(empty(st), ((g / kSliceStages) & 1) ^ 1);
+          const uint32_t stage = base + L.ring + st * L.stage;
+          mbar_expect_tx(full(st), L.stage);
+          if (!L.resident) {
+            tma_load(stage, qmap, full(st), pn * kPanelCols, hi, m0, bi);
+          }
+          tma_load(L.resident ? stage : stage + kPanel128, kmap, full(st),
+                   pn * kPanelCols, hi, j * kTileRows, bi);
+        }
+        const int vb = j & 1;
+        mbar_wait(v_empty(vb), ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(v_full(vb), vpanels * kPanel64);
+        for (int pn = 0; pn < vpanels; ++pn) {
+          tma_load(base + L.v + vb * kSliceVTile + pn * kPanel64, vmap,
+                   v_full(vb), c_lo + pn * kPanelCols, hi, j * kTileRows, bi);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int t = threadIdx.x - wg * kWgThreads;
+  const int lane = t & 31, tq = lane & 3;
+  const int m0w = m0 + c * kWgRows;
+  const int row[2] = {m0w + (t >> 5) * 16 + (lane >> 2),
+                      m0w + (t >> 5) * 16 + (lane >> 2) + 8};
+  const float scale2 = p.scale * kLog2e;
+  float o[kSliceCols / 2];
+#pragma unroll
+  for (int i = 0; i < kSliceCols / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegBig, kNegBig};  // log2 units
+  float l_run[2] = {0.f, 0.f};
+  float s[32], corr[2];
+  uint32_t pf[4][4];
+  if (n_tiles > 0 && L.resident) mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = j * kTileRows;
+    // S = Q K^T, one commit group a panel; a panel's stage is released
+    // once the next panel's products are issued and its own have landed.
+    for (int pn = 0; pn < np; ++pn) {
+      const int g = j * np + pn, st = g % kSliceStages;
+      mbar_wait(full(st), (g / kSliceStages) & 1);
+      const uint32_t stage = base + L.ring + st * L.stage;
+      const uint32_t q_addr =
+          (L.resident ? base + L.q + pn * kPanel128 : stage) +
+          c * kWgRows * kRowBytes;
+      const uint32_t k_addr = L.resident ? stage : stage + kPanel128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_n64(s, smem_desc(q_addr + kk * 32, 16, kSbo),
+                     smem_desc(k_addr + kk * 32, 16, kSbo), pn > 0 || kk > 0);
+      }
+      wgmma_commit();
+      if (pn > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty((g - 1) % kSliceStages));
+      }
+    }
+    wgmma_wait<0>();
+    hold(s);
+    if (lane == 0) mbar_arrive(empty((j * np + np - 1) % kSliceStages));
+    const bool need_mask =
+        n0 + kTileRows > p.s_k ||
+        (p.causal && p.k_offset + n0 + kTileRows - 1 > p.q_offset + m0w);
+    online_softmax(s, m_run, l_run, corr, n0, need_mask, row[0], tq, p,
+                   scale2);
+#pragma unroll
+    for (int i = 0; i < kSliceCols / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    pack_a(s, pf);
+    const int vb = j & 1;
+    mbar_wait(v_full(vb), (j >> 1) & 1);
+    wgmma_fence();
+    issue_rs<kSliceCols>(o, pf, base + L.v + vb * kSliceVTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(o);
+    hold(pf);
+    if (lane == 0) mbar_arrive(v_empty(vb));  // one arrive a warp
+  }
+
+  // o[j * 4 + i * 2 + e]: row row[i], slice column j * 8 + tq * 2 + e;
+  // columns past the slice's (past d) are not stored.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= p.s_q) continue;
+    const long long at = static_cast<long long>(bh) * p.s_q + row[i];
+    if constexpr (kPartial) {
+      // A row that saw a key has a real max: each row that sees any key of
+      // the block sees key 0, which is in the first tile.
+      const bool seen = m_run[i] != kNegBig;
+      float* orow = out_row_of<float>(p.o_out, p, kO, bi, hi, row[i]) + c_lo;
+#pragma unroll
+      for (int j = 0; j < kSliceCols / 8; ++j) {
+        if (j * 8 >= cols) break;
+        *reinterpret_cast<float2*>(orow + j * 8 + tq * 2) =
+            seen ? make_float2(o[j * 4 + i * 2], o[j * 4 + i * 2 + 1])
+                 : make_float2(0.f, 0.f);
+      }
+      if (slice == 0 && tq == 0) {  // every slice's are equal
+        p.m[at] = seen ? m_run[i] * kLn2 : kNegBig;  // log2 -> natural
+        p.l[at] = seen ? l_run[i] : 0.f;
+      }
+    } else {
+      const float l = fmaxf(l_run[i], 1e-30f);
+      bf16* orow = out_row_of<bf16>(p.o_out, p, kO, bi, hi, row[i]) + c_lo;
+#pragma unroll
+      for (int j = 0; j < kSliceCols / 8; ++j) {
+        if (j * 8 >= cols) break;
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) =
+            pack_bf16(o[j * 4 + i * 2] / l, o[j * 4 + i * 2 + 1] / l);
+      }
+      if (slice == 0 && tq == 0) p.lse_out[at] = m_run[i] * kLn2 + logf(l);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    wide_fwd_bf16_sliced_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const Params p) {
+  sliced_fwd<false>(qmap, kmap, vmap, p);
+}
+
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    wide_partial_bf16_sliced_kernel(const __grid_constant__ CUtensorMap qmap,
+                                    const __grid_constant__ CUtensorMap kmap,
+                                    const __grid_constant__ CUtensorMap vmap,
+                                    const Params p) {
+  sliced_fwd<true>(qmap, kmap, vmap, p);
 }
 
 // ------------------------------------------------------------------- dQ
@@ -1633,6 +1781,68 @@ int launch_fwd_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool kPartial>
+int launch_fwd_sliced(const Params& p, int slices, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  int err = encode_tensor(&maps[0], p.q, p, kQ, p.s_q, kBlockM);
+  if (err == 0) err = encode_tensor(&maps[1], p.k, p, kK, p.s_k, kTileRows);
+  if (err == 0) err = encode_tensor(&maps[2], p.v, p, kV, p.s_k, kTileRows);
+  if (err != 0) return err;
+  const void* kernel =
+      kPartial ? reinterpret_cast<const void*>(&wide_partial_bf16_sliced_kernel)
+               : reinterpret_cast<const void*>(&wide_fwd_bf16_sliced_kernel);
+  static std::atomic<int> l2_bytes[kMaxDevices];
+  int l2 = 0;
+  // The limit every head dim's layout fits under.
+  err = prepare(kernel, kMaxSmem, l2_bytes, &l2);
+  if (err != 0) return err;
+  Params grouped = p;  // K and V stream through every Q tile of a head
+  grouped.group = heads_a_group(static_cast<long long>(p.b) * p.h,
+                                2LL * p.s_k * p.d * 2, l2);
+  grouped.slices = slices;
+  const long long ctas = static_cast<long long>(p.b) * p.h *
+                         ((p.s_q + kBlockM - 1) / kBlockM) * slices;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int smem = sliced_layout(p.d).smem;
+  if constexpr (kPartial) {
+    wide_partial_bf16_sliced_kernel<<<static_cast<unsigned>(ctas),
+                                      kHopperThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], grouped);
+  } else {
+    wide_fwd_bf16_sliced_kernel<<<static_cast<unsigned>(ctas), kHopperThreads,
+                                  smem, stream>>>(maps[0], maps[1], maps[2],
+                                                  grouped);
+  }
+  return cudaGetLastError();
+}
+
+// The f32 forward (kPartial false) or partial of flash_attention_f32.cuh
+// over `slices` output-column slices: 192 columns for heads up to 192,
+// else 256 a slice.
+template <bool kPartial>
+int launch_fwd_f32(const Params& p, int slices, cudaStream_t stream) {
+  f32fwd::Params f{};
+  f.q = static_cast<const float*>(p.q);
+  f.k = static_cast<const float*>(p.k);
+  f.v = static_cast<const float*>(p.v);
+  f.o = static_cast<float*>(p.o_out);
+  f.lse = p.lse_out;
+  f.m = p.m;
+  f.l = p.l;
+  f.b = p.b, f.s = p.s_q, f.h = p.h, f.d = p.d;
+  const int which[4] = {kQ, kK, kV, kO};
+  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 3; ++j) f.st[i][j] = p.st[which[i]][j];
+  }
+  f.scale = p.scale;
+  f.causal = p.causal;
+  f.q_offset = p.q_offset;
+  f.k_offset = p.k_offset;
+  f.slices = slices;
+  return p.d <= 192 ? f32fwd::launch<192, kPartial>(f, stream)
+                    : f32fwd::launch<256, kPartial>(f, stream);
+}
+
 template <int D>
 int launch_dq_bf16(const Params& p, cudaStream_t stream) {
   constexpr int kSmem = DqCfg<D>::kSmem;
@@ -1708,7 +1918,7 @@ int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
 // inputs held in shared memory where `smem_of(d, true)` fits (never above
 // kMaxHeldCols, which keeps the sum in an int).
 constexpr int kMaxHeldCols = 4096;
-static_assert(fwd_smem(kMaxHeldCols, true) > kMaxSmem,
+static_assert(dq_smem(kMaxHeldCols, true) > kMaxSmem,
               "no held width is cut off by kMaxHeldCols");
 
 int launch_simple(void (*kernel)(Params), Params p, int rows, int slices,
@@ -1726,7 +1936,6 @@ int launch_simple(void (*kernel)(Params), Params p, int rows, int slices,
   return cudaGetLastError();
 }
 
-int smem_fwd(int d, bool held) { return fwd_smem(d, held); }
 int smem_dq(int d, bool held) { return dq_smem(d, held); }
 int smem_dkv(int d, bool held) { return dkv_smem(d, held); }
 
@@ -1796,9 +2005,12 @@ extern "C" int kftpu_wide_fwd(const void* q, const void* k, const void* v,
     return partial ? launch_fwd_bf16<256, true>(p, st)
                    : launch_fwd_bf16<256, false>(p, st);
   }
-  return launch_simple(dtype == 1 ? &wide_fwd_kernel<__nv_bfloat16>
-                                  : &wide_fwd_kernel<float>,
-                       p, s, slices, &smem_fwd, st);
+  if (dtype == 0) {
+    return partial ? launch_fwd_f32<true>(p, slices, st)
+                   : launch_fwd_f32<false>(p, slices, st);
+  }
+  return partial ? launch_fwd_sliced<true>(p, slices, st)
+                 : launch_fwd_sliced<false>(p, slices, st);
 }
 
 // dQ, and delta = rowsum(dO * O) into `delta` first when compute_delta.

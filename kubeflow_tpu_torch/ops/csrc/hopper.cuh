@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_wide.cu):
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_wide.cu,
+// flash_attention_f32.cuh):
 // mbarriers, TMA loads through 4-D tensor maps of [b, s, h, d] tensors,
 // wgmma descriptors and the wgmma forms the kernels issue, the row sums of
 // two swizzled tiles (the dQ kernels' delta), and the host side that
@@ -338,33 +339,50 @@ inline EncodeTiled encoder() {
 // A failed encode returns kEncodeError + its CUresult.
 constexpr int kEncodeError = 100000;
 
-// The 4-D map of one bf16 [b, s, h, d] tensor (strides in elements, unit d
-// stride): dims (d, h, s, b), boxes of 64 columns x 1 head x `box_rows`
-// rows, a 128-byte swizzle, rows past s and columns past d read as zeros
-// (a head dim under a panel's 64 columns fills the rest of the panel with
-// zeros; the strides must be multiples of 16 bytes, so d of 8).
-inline int encode(CUtensorMap* map, const void* ptr, int b, int s, int h,
-                  int d, long long sb, long long ss, long long sh,
-                  int box_rows) {
+// The 4-D map of one [b, s, h, d] tensor of `elt`-byte elements (strides in
+// elements, unit d stride): dims (d, h, s, b), boxes of one 128-byte row
+// (64 bf16 or 32 f32 columns) x 1 head x `box_rows` rows, a 128-byte
+// swizzle, rows past s and columns past d read as zeros (a head dim under
+// a panel's columns fills the rest of the panel with zeros; the strides
+// must be multiples of 16 bytes, so d of 8).
+inline int encode_map(CUtensorMap* map, const void* ptr,
+                      CUtensorMapDataType type, int elt, int b, int s, int h,
+                      int d, long long sb, long long ss, long long sh,
+                      int box_rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kPanelCols, 1,
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * elt,
+                                 static_cast<cuuint64_t>(ss) * elt,
+                                 static_cast<cuuint64_t>(sb) * elt};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kRowBytes / elt), 1,
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+// A bf16 tensor's map: 64-column panels.
+inline int encode(CUtensorMap* map, const void* ptr, int b, int s, int h,
+                  int d, long long sb, long long ss, long long sh,
+                  int box_rows) {
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, s, h,
+                    d, sb, ss, sh, box_rows);
+}
+
+// An f32 tensor's map: 32-column panels.
+inline int encode_f32(CUtensorMap* map, const void* ptr, int b, int s, int h,
+                      int d, long long sb, long long ss, long long sh,
+                      int box_rows) {
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, s, h,
+                    d, sb, ss, sh, box_rows);
 }
 
 constexpr int kMaxDevices = 64;

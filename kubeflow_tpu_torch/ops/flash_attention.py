@@ -10,7 +10,8 @@ backward is :func:`flash_attention_partial_grads` on the backward kernels.
 The CUDA sources are ``csrc/flash_attention_fwd.cu`` (the forward and the
 partial share its loop) and ``csrc/flash_attention_bwd.cu``, built on the
 Hopper helpers of ``csrc/hopper.cuh``, for heads up to 128 columns, and
-``csrc/flash_attention_wide.cu`` for wider heads; their headers state each
+``csrc/flash_attention_wide.cu`` for wider heads; both run the f32 forward
+and partial of ``csrc/flash_attention_f32.cuh``. Their headers state each
 kernel's bound on an H100 and what the design does about it.
 
 Dispatch is by the tensors' device. A CUDA tensor launches the kernel
@@ -34,8 +35,11 @@ kernels take every multiple of 8 up to ``TILE_MAX_HEAD_DIM`` (128; a
 narrower head runs on a 64- or 128-column tile whose columns past it are
 zeros); wider heads run the wide library, whose kernel for each head dim
 and dtype :func:`_wide_plan` chooses: the bf16 forward, partial, dQ and
-dK/dV on wgmma at 192 or 256 columns up to 256, everything else on simple
-kernels that split the output's columns into slices of 256. A head dim
+dK/dV on wgmma at 192 or 256 columns up to 256; above that, and in f32,
+kernels that split the output's columns into slices of 256 (the forward
+and partial on wgmma in bf16 and on the CUDA cores' register-tiled loop
+in f32, the f32 forward's at every head dim; dQ and dK/dV on simple
+CUDA-core kernels). A head dim
 that is no multiple of 8 is copied into zero-padded ``[b, s, h,
 round_up(d, 8)]`` tensors first (zero columns add exactly 0 to every
 product and to delta; the scale stays ``1/sqrt(d)`` of the true d), and
@@ -181,8 +185,10 @@ def _wide(q) -> bool:
 
 class WidePlan(NamedTuple):
     """How the wide library (``WIDE_SOURCE``) runs one head dim: on the
-    ``"wgmma"`` kernels at ``width`` columns, or on the ``"simple"``
-    kernels over ``slices`` output-column slices."""
+    ``"wgmma"`` kernels at ``width`` columns, or (``"simple"``) over
+    ``slices`` output-column slices: there the forward and the partial run
+    the sliced kernels (bf16 on wgmma, f32 on the CUDA cores' register
+    tiles) and dQ and dK/dV the simple kernels."""
     kernels: str
     width: int | None
     slices: int
@@ -191,9 +197,13 @@ class WidePlan(NamedTuple):
 def _wide_plan(d: int, dtype: torch.dtype) -> WidePlan:
     """The wide library's kernels for head dim d (a multiple of 8) in
     ``dtype``: bf16 up to 256 columns on wgmma at the narrowest width
-    that holds d (TMA zero-fills the columns past d), f32 and wider bf16
-    heads on the simple kernels. The launches hand this plan to the
-    library, which checks that it has its kernels and does not choose."""
+    that holds d (TMA zero-fills the columns past d); f32 and wider bf16
+    heads over 256-column output slices, whose forward and partial run
+    the sliced kernels (bf16: ``wide_{fwd,partial}_bf16_sliced_kernel``
+    on wgmma; f32: ``fwd_f32_tiled_kernel`` on the CUDA cores) and whose
+    dQ and dK/dV run the simple kernels. The launches hand this plan to
+    the library, which checks that it has its kernels and does not
+    choose."""
     if dtype == torch.bfloat16 and d <= WIDE_WGMMA_WIDTHS[-1]:
         width = min(w for w in WIDE_WGMMA_WIDTHS if w >= d)
         return WidePlan("wgmma", width, 1)

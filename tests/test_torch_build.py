@@ -5,6 +5,7 @@ import ctypes
 import re
 import shutil
 
+import pytest
 import torch
 
 from kubeflow_tpu_torch.ops import _build, compare
@@ -104,6 +105,45 @@ def test_ptxas_notes_keep_each_bf16_kernels_registers_spills_and_c75xx():
         "stores, 0 bytes spill loads",
         "ptxas /tmp/x.ptx, line 9; warning : (C7518) Potential Performance "
         "Loss: wgmma.mma_async instructions are serialized"]
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN5kftpu6f32fwd20fwd_f32_tiled_kernelILi64ELb0EEEv14CUtensorMap_st"
+     "S2_S2_NS0_6ParamsE", "fwd_f32_tiled_kernel<64, false>"),
+    ("_ZN55_GLOBAL__N__038de090_22_flash_attention_fwd_cu_846ea7076f32fwd20"
+     "fwd_f32_tiled_kernelILi256ELb1EEEv14CUtensorMap_stS2_S2_NS1_6ParamsE",
+     "fwd_f32_tiled_kernel<256, true>"),
+    ("_ZN56_GLOBAL__N__d2dbf473_23_flash_attention_wide_cu_5734265b27wide_"
+     "fwd_bf16_sliced_kernelE14CUtensorMap_stS0_S0_NS_6ParamsE",
+     "wide_fwd_bf16_sliced_kernel"),
+    ("_ZN12_GLOBAL__N_119wide_dq_bf16_kernelILi192EEEv14CUtensorMap_st",
+     "wide_dq_bf16_kernel<192>"),
+    ("_ZN12_GLOBAL__N_114wide_dq_kernelIfEEvNS_6ParamsE", None),
+])
+def test_ptxas_notes_name_the_redesigned_kernels(mangled, name):
+    # The f32 forward and the sliced bf16 forward are named in ptxas's
+    # notes beside the wgmma kernels; the simple kernels are not.
+    line = f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'"
+    assert compare._kernel_name(line) == name
+    notes = compare.ptxas_notes(
+        line + "\nptxas info    : Used 168 registers, used 1 barriers")
+    assert notes == ([] if name is None else [
+        f"{name}: ptxas info    : Used 168 registers, used 1 barriers"])
+
+
+def test_compare_cases_time_the_redesigned_forward_routes():
+    # f32 at d 32, 128 and 256 and bf16 at d 320, the forward and the
+    # partial each, at the shape that fills the card and at [1, 1024, 8, d].
+    cases = {c[0]: c[1:] for c in compare.CASES}
+    for dtype, tag, dims in (("float32", "f32", (32, 128, 256)),
+                             ("bfloat16", "bf16", (320,))):
+        for d in dims:
+            for kernel, offsets in (("fwd", None), ("partial", (0, 0))):
+                assert cases[f"{kernel}_{tag}_d{d}"] == (
+                    kernel, (8, 1024, 16, d), offsets, dtype)
+                assert cases[f"{kernel}_{tag}_d{d}_small"] == (
+                    kernel, (1, 1024, 8, d), offsets, dtype)
+    assert all(len(c) == 5 for c in compare.CASES)
 
 
 def test_sass_counts_by_library_and_by_kernel():

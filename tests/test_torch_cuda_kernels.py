@@ -395,7 +395,7 @@ def test_wide_dkv_kernel_is_deterministic(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_column_slices_share_their_softmax_statistics(cuda, dtype):
-    # At d = 1024 each of the four output-column slices of a simple kernel
+    # At d = 1024 each of the four output-column slices of a wide kernel
     # computes the softmax statistics (lse; m and l; delta) on its own, and
     # slice 0 alone writes them. With q, k, v and dO made of four equal
     # 256-column blocks, every slice's output block comes from the same
@@ -736,6 +736,141 @@ def test_partial_kernel_reads_qkv_column_slices_through_their_strides(cuda):
                                        v.contiguous(), 512, 512)
     for a, c in zip(sliced, dense):
         assert torch.equal(a, c)
+
+
+# The redesigned forward kernels: f32 at every head dim on the CUDA cores
+# (flash_attention_f32.cuh: 16-128 output columns in the 128-column
+# library, 192 and 256-column slices in the wide one) and bf16 above 256
+# columns on wgmma (wide_{fwd,partial}_bf16_sliced_kernel: Q resident up
+# to 512 columns, streamed above). Causal cases span several 64- and
+# 128-row Q tiles and 64-key K tiles; full cases are ragged.
+REDESIGNED_FWD = ([(d, torch.float32)
+                   for d in (16, 32, 64, 128, 136, 256, 264, 1024)]
+                  + [(d, torch.bfloat16) for d in (264, 320, 512, 1024)])
+
+
+def _redesigned_shape(d, causal):
+    if d >= 512:
+        return (1, 200, 2, d) if causal else (1, 137, 2, d)
+    return (2, 300, 3, d) if causal else (2, 211, 3, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dtype", REDESIGNED_FWD)
+def test_redesigned_forward_matches_plain_version(cuda, d, dtype, causal):
+    q, k, v = _qkv(_redesigned_shape(d, causal), dtype, cuda, seed=d)
+    before = fa.LAUNCHES
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    again = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 2
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=causal)
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), ro.float(), rtol=0,
+                               atol=TOL_O[dtype])
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
+    # Two launches on the same inputs: the same bits.
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["below", "diagonal", "above"])
+@pytest.mark.parametrize("d,dtype", REDESIGNED_FWD)
+def test_redesigned_partial_matches_plain_version(cuda, case, d, dtype):
+    shape, q_off, k_off = PARTIAL_CASES[case]
+    shape = (1, 256, 2, d) if d >= 512 else shape[:3] + (d,)
+    q, k, v = _qkv(shape, dtype, cuda, seed=d + 1)
+    before = fa.PARTIAL_LAUNCHES
+    got = fa.flash_attention_partial(q, k, v, q_off, k_off)
+    again = fa.flash_attention_partial(q, k, v, q_off, k_off)
+    torch.cuda.synchronize()
+    assert fa.PARTIAL_LAUNCHES == before + 2
+    _assert_partial_close(got, fa.flash_attention_partial_reference(
+        q, k, v, q_off, k_off), dtype)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    if case == "above":        # no key reaches any query: exactly nothing
+        o, m, l = got
+        assert bool((o == 0).all()) and bool((l == 0).all())
+        assert bool((m == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(16, torch.float32),
+                                     (136, torch.float32),
+                                     (264, torch.float32),
+                                     (264, torch.bfloat16),
+                                     (320, torch.bfloat16),
+                                     (1024, torch.bfloat16)])
+def test_redesigned_forward_reads_qkv_column_slices(cuda, d, dtype):
+    """Heads d elements apart in one [b, s, 3*h*d] product, as the models
+    hand them over: the forward and the partial give the contiguous
+    case's bits."""
+    b, s, h = 2, 160, 3
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=cuda).to(dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    dense = [t.contiguous() for t in (q, k, v)]
+    for got, want in ((fa.flash_attention_fwd(q, k, v),
+                       fa.flash_attention_fwd(*dense)),
+                      (fa.flash_attention_partial(q, k, v, s, 0),
+                       fa.flash_attention_partial(*dense, s, 0))):
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(512, torch.bfloat16),
+                                     (512, torch.float32),
+                                     (2048, torch.bfloat16)])
+def test_redesigned_forward_slices_share_their_statistics(cuda, d, dtype):
+    # Two slices with Q resident (bf16 512), two f32 slices, and eight with
+    # Q streamed (bf16 2048): with q, k, v made of equal 256-column blocks
+    # every slice's block of o and acc is bitwise equal to slice 0's, and
+    # lse, m and l (which slice 0 writes) hold against the plain versions.
+    q, k, v = (t.repeat(1, 1, 1, d // 256)
+               for t in _qkv((1, 192, 2, 256), dtype, cuda, seed=15))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    acc, m, l = fa.flash_attention_partial(q, k, v, 0, 0)
+    torch.cuda.synchronize()
+    for t in (o, acc):
+        parts = t.split(256, dim=-1)
+        assert all(torch.equal(parts[0], x) for x in parts[1:])
+    _, rlse = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
+    _assert_partial_close((acc, m, l), fa.flash_attention_partial_reference(
+        q, k, v, 0, 0), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,kernel", [
+    (16, torch.float32, "fwd_f32_tiled_kernel<16, {}>"),
+    (64, torch.float32, "fwd_f32_tiled_kernel<64, {}>"),
+    (128, torch.float32, "fwd_f32_tiled_kernel<128, {}>"),
+    (136, torch.float32, "fwd_f32_tiled_kernel<192, {}>"),
+    (264, torch.float32, "fwd_f32_tiled_kernel<256, {}>"),
+    (264, torch.bfloat16, "wide_{}_bf16_sliced_kernel"),
+    (320, torch.bfloat16, "wide_{}_bf16_sliced_kernel"),
+])
+def test_forward_launches_the_kernel_of_its_route(cuda, d, dtype, kernel):
+    # Every f32 head runs the CUDA-core design at the narrowest output
+    # width that holds it; bf16 above 256 columns the sliced wgmma kernel.
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _qkv((1, 128, 2, d), dtype, cuda)
+    fa.flash_attention_fwd(q, k, v)
+    fa.flash_attention_partial(q, k, v, 0, 0)   # built, loaded
+    torch.cuda.synchronize()
+    for run, want in (
+            (lambda: fa.flash_attention_fwd(q, k, v),
+             kernel.format("false" if "f32" in kernel else "fwd")),
+            (lambda: fa.flash_attention_partial(q, k, v, 0, 0),
+             kernel.format("true" if "f32" in kernel else "partial"))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()
+                 if "f32_tiled" in ev.key or "bf16_sliced" in ev.key]
+        assert len(names) == 1 and want in names[0], (want, names)
 
 
 @pytest.mark.cuda
