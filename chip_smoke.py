@@ -106,8 +106,9 @@ last line. With no CUDA device it exits 1 and prints no result.
 14. head_dims (run after bwd_kernels) — the four kernels at head dims 16
    and 32, at 20 and 36 (no multiple of 8: zero-padded onto the 128-column
    kernels), at 136, 192, 200 and 256 (the wide library's wgmma kernels
-   in bf16) and at 264, 832 and 1024 (its simple kernels over 256-column
-   output slices), bf16 and f32, causal and full, against their plain
+   in bf16) and at 264, 832 and 1024 (256-column output slices: the
+   simple backward in bf16, the register-tiled pair in f32), bf16 and
+   f32, causal and full, against their plain
    versions at the tolerances above, four cases also through qkv column
    slices (bitwise equal), and b*h = 66560 ([1040, 64, 64, 16]) in both
    dtypes; at d = 1024 the four column slices' outputs bitwise equal where the inputs' are
@@ -118,9 +119,10 @@ last line. With no CUDA device it exits 1 and prints no result.
    and the wide_heads step's [8, 1024, 8, 256]) the forward, dQ and dK/dV
    (at d = 256 also the partial, and the simple dQ through the plan
    (0, 1) beside the wgmma one) timed beside their bounds, plain versions
-   and SDPA; then the simple kernels' routes, f32 at d = 256 and bf16 at
-   d = 320 ([1, 1024, 8, d]), the forward, partial, dQ and dK/dV timed
-   the same way.
+   and SDPA; then the f32 route (the register-tiled forward and backward)
+   at d = 32, 128 and 256 and the bf16 route above 256 at d = 320, each at
+   [1, 1024, 8, d] and [8, 1024, 16, d], the forward, partial, dQ and
+   dK/dV timed the same way.
 15. moe_grads — ``MOE_MODEL`` (bench.py's, uncut) at batch 8: the loss
    of ``attention="flash"`` against the dense path, the share of tokens
    whose top-1 expert differs between the two, and the gradients against
@@ -644,7 +646,7 @@ TOL_RING_GRAD = 2e-2
 # which the wrapper zero-pads onto the 128-column kernels; and heads above
 # 128, which run the wide library: 136 and 192 (bf16: the wgmma kernels at
 # 192 columns), 200 and Gemma's 256 (at 256), 264 (two 256-column output
-# slices of the simple kernels), 832 and 1024 (four). (name, [b, s, h,
+# slices), 832 and 1024 (four). (name, [b, s, h,
 # d], dtype, causal), each through the forward, dQ and dK/dV, and (causal)
 # the partial at a hop below and on the diagonal, at the tolerances above
 # (TOL_O, TOL_LSE, TOL_GRAD, TOL_PARTIAL_*). Causal cases span 2.5 of the
@@ -673,7 +675,8 @@ MANY_HEADS = ("bh66560", (1040, 64, 64, 16))
 # ones (the wide library's wgmma kernels, also the partial and the simple
 # dQ): [8, 1024, 16, 256], and the wide_heads step's [8, 1024, 8, 256].
 # Then the routes of f32 heads (every d: the CUDA-core forward of
-# flash_attention_f32.cuh) and of bf16 heads wider than 256 (the sliced
+# flash_attention_f32.cuh and the register-tiled backward pair of
+# flash_attention_f32_bwd.cuh) and of bf16 heads wider than 256 (the sliced
 # wgmma forward; their backward on the simple kernels): f32 at d = 32, 128
 # and 256 and bf16 at d = 320, each at [1, 1024, 8, d] and at [8, 1024,
 # 16, d], a batch that fills the card (also the partial).
@@ -692,9 +695,8 @@ HEAD_DIM_TIMED = [
     ("d256_f32_b8h16", (8, 1024, 16, 256), "float32", True, 0, 0, False),
     ("d320_bf16_b8h16", (8, 1024, 16, 320), "bfloat16", True, 0, 0, False),
 ]
-# The backward of f32 heads and of bf16 heads wider than 256 runs the
-# simple CUDA-core kernels, tens of ms a call at the larger shapes: fewer
-# calls time them.
+# The backward of bf16 heads wider than 256 runs the simple CUDA-core
+# kernels, tens of ms a call at the larger shapes: fewer calls time them.
 SIMPLE_BWD_RUNS = dict(warmup=2, runs=10, batch=2)
 # The simple dQ (the wide library's plan (0, 1)), timed beside the wgmma
 # dQ at the d = 256 shapes: tens of ms a call, so fewer calls.
@@ -773,7 +775,8 @@ KERNEL_CATEGORIES = (
                                        "partial_bf16_kernel",
                                        "fwd_f32_tiled_kernel",
                                        "bf16_sliced_kernel",
-                                       "dq_f32_kernel", "dkv_f32_kernel",
+                                       "dq_f32_tiled_kernel",
+                                       "dkv_f32_tiled_kernel",
                                        "wide_dq_kernel",
                                        "wide_dkv_kernel",
                                        "wide_fwd_bf16_kernel",
@@ -978,7 +981,7 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
                                                    **kw),
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, lse, do, delta, **kw))}
-    simple = dtype == "float32" or shape[3] > fa.WIDE_WGMMA_WIDTHS[-1]
+    simple = dtype == "bfloat16" and shape[3] > fa.WIDE_WGMMA_WIDTHS[-1]
     runs = SIMPLE_BWD_RUNS if simple else {}
     for key, (run, plain) in calls.items():
         row[f"{key}_ms"] = time_ms(run, **runs)
@@ -6685,6 +6688,10 @@ def main() -> int:
     f32_fwd = ("fwd_f32_tiled_kernel (kubeflow_tpu_torch/ops/csrc/"
                "flash_attention_f32.cuh)")
 
+    def f32_bwd(key: str) -> str:
+        return (f"{key}_f32_tiled_kernel (kubeflow_tpu_torch/ops/csrc/"
+                "flash_attention_f32_bwd.cuh)")
+
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -6725,9 +6732,7 @@ def main() -> int:
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)",
            "device_kernels": device_kernels(
-               f"{key}_bf16_kernel",
-               f"{key}_f32_kernel (d <= 128), wide_{key}_kernel",
-               f"wide_{key}_kernel")}
+               f"{key}_bf16_kernel", f32_bwd(key), f"wide_{key}_kernel")}
           for key, line, outs in (("dq", 167, ("dq",)),
                                   ("dkv", 195, ("dk", "dv")))),
         {"name": "flash_attention_partial", "route": "cuda",

@@ -19,7 +19,8 @@ dQ and dK/dV at the train shape with 256-column heads (``*_d256``), the
 backward also at the wide_heads step's 8 heads (``bwd_wide_heads``);
 and the f32 forward and partial at d = 32, 128 and 256 and the bf16 ones
 at d = 320, each at ``[8, 1024, 16, d]`` and ``[1, 1024, 8, d]``
-(``*_small``).
+(``*_small``); and the f32 backward (dQ computing delta, and dK/dV) at
+d = 32, 128 and 256 at the same two shapes (``bwd_f32_d*``).
 
 Run from the root of a checkout, on a machine with one card::
 
@@ -74,6 +75,10 @@ CASES = (
       for d in dims
       for tag, shape in (("", (8, 1024, 16, d)), ("_small", (1, 1024, 8, d)))
       for kernel, offsets in (("fwd", None), ("partial", (0, 0)))),
+    # The f32 backward's register-tiled pair at the same two shapes.
+    *((f"bwd_f32_d{d}{tag}", "bwd", shape, None, "float32")
+      for d in (32, 128, 256)
+      for tag, shape in (("", (8, 1024, 16, d)), ("_small", (1, 1024, 8, d)))),
 )
 SIMPLE_DQ = "this_simple_dq"
 
@@ -103,9 +108,11 @@ def time_ms(fn, *, warmup=5, runs=30, batch=10) -> float:
 
 def _kernel_name(line: str) -> str | None:
     """The redesigned kernels' names in a ptxas line's mangled one: the
-    bf16 kernels (``name<D>``), the sliced bf16 forward and partial, and
-    the f32 forward (``fwd_f32_tiled_kernel<DV, partial>``)."""
-    found = re.search(r"([a-z_]+_bf16_kernel)ILi(\d+)E", line)
+    bf16 kernels (``name<D>``), the sliced bf16 forward and partial, the
+    f32 forward (``fwd_f32_tiled_kernel<DV, partial>``) and the f32
+    backward (``dq_f32_tiled_kernel<DV>``, ``dkv_f32_tiled_kernel<DV>``)."""
+    found = re.search(r"([a-z_]+_bf16_kernel|d(?:q|kv)_f32_tiled_kernel)"
+                      r"ILi(\d+)E", line)
     if found:
         return f"{found[1]}<{found[2]}>"
     found = re.search(r"(fwd_f32_tiled_kernel)ILi(\d+)ELb([01])E", line)

@@ -90,10 +90,13 @@
 //    64 < d <= 128; the tensor maps carry the true d, so every tile's
 //    columns past d arrive as zeros (S, dP and delta sum zeros there; dQ,
 //    dK and dV come out zero there) and the epilogues store d columns.
-//  * f32 (not on the training path): a warp per query row (dQ) or key row
-//    (dK/dV), FMA on the CUDA cores, keeping f32 products exact rather than
-//    rounding through TF32; lanes past d idle when d < 32.
+//  * f32: dq_f32_tiled_kernel and dkv_f32_tiled_kernel of
+//    flash_attention_f32_bwd.cuh (its header has their design and bound),
+//    register tiles on the CUDA cores whose FMAs keep f32 products exact
+//    rather than rounding through TF32, on the narrowest output width that
+//    holds d (16, 32, 64 or 128 columns).
 
+#include "flash_attention_f32_bwd.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -101,7 +104,6 @@ namespace {
 using namespace kftpu;
 
 constexpr float kNegBig = -1e30f;
-constexpr int kThreads = 128;  // the f32 path
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The tensors whose (batch, seq, head) strides a launch is given, in
@@ -126,26 +128,11 @@ struct Params {
   int group;  // the bf16 kernels' launch order: (batch, head) pairs a group
 };
 
-// The first element of head (bi, hi) of tensor `which`.
-template <typename T>
-__device__ __forceinline__ const T* head_of(const void* base, const Params& p,
-                                            int which, int bi, int hi) {
-  return static_cast<const T*>(base) + bi * p.st[which][0] +
-         hi * p.st[which][2];
-}
-
+// The first element of head (bi, hi) of output `which`.
 template <typename T>
 __device__ __forceinline__ T* out_head_of(void* base, const Params& p,
                                           int which, int bi, int hi) {
   return static_cast<T*>(base) + bi * p.st[which][0] + hi * p.st[which][2];
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
 }
 
 // ---------------------------------------------------------------- bf16 path
@@ -730,164 +717,6 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
-// ----------------------------------------------------------------- f32 path
-
-constexpr int kRowsPerCta = kThreads / 32;
-
-// A warp per query row; lane j scores key n0 + j, then the warp
-// accumulates dQ over the 32 keys: lane j owns columns j, j + 32, ...
-// below the true head dim p.d (D, 32, 64 or 128, is at least p.d).
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_f32_kernel(Params p) {
-  constexpr int kPer = D / 32;  // columns a lane, at most
-  __shared__ float qs[kRowsPerCta][D];
-  __shared__ float dos[kRowsPerCta][D];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // One grid dimension (x) over (b*h, row block): any batch * heads fits.
-  const int row_blocks = (p.s_q + kRowsPerCta - 1) / kRowsPerCta;
-  const int bh = blockIdx.x / row_blocks, bi = bh / p.h, hi = bh % p.h;
-  const int row = (blockIdx.x % row_blocks) * kRowsPerCta + warp;
-  if (row >= p.s_q) return;
-
-  const float* q = head_of<float>(p.q, p, kQ, bi, hi) +
-                   static_cast<long long>(row) * p.st[kQ][1];
-  const float* dout = head_of<float>(p.dout, p, kDO, bi, hi) +
-                      static_cast<long long>(row) * p.st[kDO][1];
-  const float* k = head_of<float>(p.k, p, kK, bi, hi);
-  const float* v = head_of<float>(p.v, p, kV, bi, hi);
-  for (int i = lane; i < p.d; i += 32) {
-    qs[warp][i] = q[i];
-    dos[warp][i] = dout[i];
-  }
-  __syncwarp();
-
-  const long long srow = static_cast<long long>(bh) * p.s_q + row;
-  float delta;
-  if (p.compute_delta) {
-    const float* o = head_of<float>(p.o, p, kO, bi, hi) +
-                     static_cast<long long>(row) * p.st[kO][1];
-    float part = 0.f;
-    for (int i = lane; i < p.d; i += 32) part += dos[warp][i] * o[i];
-    delta = warp_sum(part);
-    if (lane == 0) p.delta[srow] = delta;
-  } else {
-    delta = p.delta[srow];
-  }
-  const float lse = p.lse[srow];
-
-  float acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  const int n_end = p.causal
-                        ? max(0, min(p.s_k, p.q_offset + row - p.k_offset + 1))
-                        : p.s_k;
-  for (int n0 = 0; n0 < n_end; n0 += 32) {
-    const int key = n0 + lane;
-    float ds = 0.f;
-    if (key < n_end) {
-      const float* kr = k + static_cast<long long>(key) * p.st[kK][1];
-      const float* vr = v + static_cast<long long>(key) * p.st[kV][1];
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int i = 0; i < p.d; ++i) {
-        s = fmaf(qs[warp][i], kr[i], s);
-        dp = fmaf(dos[warp][i], vr[i], dp);
-      }
-      ds = expf(s * p.scale - lse) * (dp - delta);
-    }
-    const int count = min(32, n_end - n0);
-    for (int j = 0; j < count; ++j) {
-      const float dsj = __shfl_sync(0xffffffffu, ds, j);
-      const float* kr = k + static_cast<long long>(n0 + j) * p.st[kK][1];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        if (lane + 32 * i < p.d) acc[i] = fmaf(dsj, kr[lane + 32 * i], acc[i]);
-      }
-    }
-  }
-  float* dq = out_head_of<float>(p.dq, p, kDQ, bi, hi) +
-              static_cast<long long>(row) * p.st[kDQ][1];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    if (lane + 32 * i < p.d) dq[lane + 32 * i] = acc[i] * p.scale;
-  }
-}
-
-// A warp per key row; lane j takes query m0 + j, then the warp
-// accumulates dK and dV over the 32 queries, columns as dq_f32_kernel's.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dkv_f32_kernel(Params p) {
-  constexpr int kPer = D / 32;  // columns a lane, at most
-  __shared__ float ks[kRowsPerCta][D];
-  __shared__ float vs[kRowsPerCta][D];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // One grid dimension (x) over (b*h, row block): any batch * heads fits.
-  const int row_blocks = (p.s_k + kRowsPerCta - 1) / kRowsPerCta;
-  const int bh = blockIdx.x / row_blocks, bi = bh / p.h, hi = bh % p.h;
-  const int key = (blockIdx.x % row_blocks) * kRowsPerCta + warp;
-  if (key >= p.s_k) return;
-
-  const float* kr = head_of<float>(p.k, p, kK, bi, hi) +
-                    static_cast<long long>(key) * p.st[kK][1];
-  const float* vr = head_of<float>(p.v, p, kV, bi, hi) +
-                    static_cast<long long>(key) * p.st[kV][1];
-  for (int i = lane; i < p.d; i += 32) {
-    ks[warp][i] = kr[i];
-    vs[warp][i] = vr[i];
-  }
-  __syncwarp();
-  const float* q = head_of<float>(p.q, p, kQ, bi, hi);
-  const float* dout = head_of<float>(p.dout, p, kDO, bi, hi);
-  const float* lse = p.lse + static_cast<long long>(bh) * p.s_q;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.s_q;
-
-  float dk[kPer], dv[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) dk[i] = dv[i] = 0.f;
-  // Under the causal mask, the queries at or after this key's position.
-  const int m_begin = p.causal ? max(0, p.k_offset + key - p.q_offset) : 0;
-  for (int m0 = m_begin; m0 < p.s_q; m0 += 32) {
-    const int qi = m0 + lane;
-    float pr = 0.f, ds = 0.f;
-    if (qi < p.s_q) {
-      const float* qrow = q + static_cast<long long>(qi) * p.st[kQ][1];
-      const float* drow = dout + static_cast<long long>(qi) * p.st[kDO][1];
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int i = 0; i < p.d; ++i) {
-        s = fmaf(qrow[i], ks[warp][i], s);
-        dp = fmaf(drow[i], vs[warp][i], dp);
-      }
-      pr = expf(s * p.scale - lse[qi]);
-      ds = pr * (dp - delta[qi]);
-    }
-    const int count = min(32, p.s_q - m0);
-    for (int j = 0; j < count; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, pr, j);
-      const float dsj = __shfl_sync(0xffffffffu, ds, j);
-      const float* qrow = q + static_cast<long long>(m0 + j) * p.st[kQ][1];
-      const float* drow = dout + static_cast<long long>(m0 + j) * p.st[kDO][1];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        if (lane + 32 * i >= p.d) continue;
-        dv[i] = fmaf(pj, drow[lane + 32 * i], dv[i]);
-        dk[i] = fmaf(dsj, qrow[lane + 32 * i], dk[i]);
-      }
-    }
-  }
-  float* dk_out = out_head_of<float>(p.dk, p, kDK, bi, hi) +
-                  static_cast<long long>(key) * p.st[kDK][1];
-  float* dv_out = out_head_of<float>(p.dv, p, kDV, bi, hi) +
-                  static_cast<long long>(key) * p.st[kDV][1];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    if (lane + 32 * i >= p.d) continue;
-    dk_out[lane + 32 * i] = dk[i] * p.scale;
-    dv_out[lane + 32 * i] = dv[i];
-  }
-}
-
-
 // ------------------------------------------------------------------ launch
 
 // The map of tensor `which` at `s` rows and the true head dim p.d,
@@ -898,23 +727,23 @@ int encode_tensor(CUtensorMap* map, const void* ptr, const Params& p,
                 p.st[which][2], box_rows);
 }
 
-template <int D>
-int launch_dq_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.s_q + kRowsPerCta - 1) / kRowsPerCta * p.b * p.h);
-  dq_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+// The f32 dQ (kDkv false) or dK/dV of flash_attention_f32_bwd.cuh on the
+// narrowest output width that holds d (16, 32, 64 or 128), one slice.
+template <bool kDkv>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  f32bwd::Params f = f32bwd::params_of(p);
+  f.slices = 1;
+  f.slice_cols = p.d <= 16 ? 16 : p.d <= 32 ? 32 : p.d <= 64 ? 64 : 128;
+  switch (f.slice_cols) {
+    case 16: return f32bwd::launch<16, kDkv>(f, stream);
+    case 32: return f32bwd::launch<32, kDkv>(f, stream);
+    case 64: return f32bwd::launch<64, kDkv>(f, stream);
+    default: return f32bwd::launch<128, kDkv>(f, stream);
+  }
 }
 
 template <int D>
-int launch_dkv_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.s_k + kRowsPerCta - 1) / kRowsPerCta * p.b * p.h);
-  dkv_f32_kernel<D><<<grid, kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D>
-int launch_dq(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch_dq_f32<D>(p, stream);
+int launch_dq(const Params& p, cudaStream_t stream) {
   CUtensorMap maps[5] = {};  // q, k, v, o, dO; o only for delta
   const struct {
     const void* ptr;
@@ -946,8 +775,7 @@ int launch_dq(const Params& p, int dtype, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch_dkv_f32<D>(p, stream);
+int launch_dkv(const Params& p, cudaStream_t stream) {
   CUtensorMap maps[4];
   const struct {
     const void* ptr;
@@ -976,12 +804,11 @@ int launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tile width for head dim d, a multiple of 8 up to 128 (bf16: 64 or
-// 128 columns; f32: 32, 64 or 128 lanes' columns); 0 for one the kernels
-// do not take.
+// The bf16 tile width for head dim d, a multiple of 8 up to 128 (64 or 128
+// columns; f32 takes the same head dims); 0 for one the kernels do not
+// take.
 int tile_cols(int d, int dtype) {
   if (d < 8 || d > 128 || d % 8 != 0 || (dtype != 0 && dtype != 1)) return 0;
-  if (dtype == 0 && d <= 32) return 32;
   return d <= 64 ? 64 : 128;
 }
 
@@ -1040,9 +867,8 @@ extern "C" int kftpu_flash_attention_bwd_dq(
   if (cols == 0 || s_q < 1 || s_k < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (cols == 128) return launch_dq<128>(p, dtype, st);
-  if (cols == 64) return launch_dq<64>(p, dtype, st);
-  return launch_dq_f32<32>(p, st);
+  if (dtype == 0) return launch_f32<false>(p, st);
+  return cols == 128 ? launch_dq<128>(p, st) : launch_dq<64>(p, st);
 }
 
 // dK and dV from the delta the dQ launch wrote (or the caller gave).
@@ -1059,9 +885,8 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
   if (cols == 0 || s_q < 1 || s_k < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (cols == 128) return launch_dkv<128>(p, dtype, st);
-  if (cols == 64) return launch_dkv<64>(p, dtype, st);
-  return launch_dkv_f32<32>(p, st);
+  if (dtype == 0) return launch_f32<true>(p, st);
+  return cols == 128 ? launch_dkv<128>(p, st) : launch_dkv<64>(p, st);
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

@@ -29,11 +29,13 @@
 //    wide_fwd_bf16_sliced_kernel / wide_partial_bf16_sliced_kernel, on
 //    wgmma and TMA, one CTA a 256-column slice of the output (below).
 //  * f32 at any d (the plan (0, slices)): the forward and the partial run
-//    flash_attention_f32.cuh's register-tiled loop on the CUDA cores (its
-//    header has its design), one CTA a 256-column slice.
-//  * dQ and dK/dV of f32 and of bf16 above 256: the simple kernels
-//    (wide_dq_kernel, wide_dkv_kernel), FMA on the CUDA cores, with the
-//    output columns split into slices of 256.
+//    flash_attention_f32.cuh's register-tiled loop on the CUDA cores, dQ
+//    and dK/dV flash_attention_f32_bwd.cuh's register-tiled pair
+//    (dq_f32_tiled_kernel, dkv_f32_tiled_kernel; each header has its
+//    design), one CTA a 256-column slice.
+//  * dQ and dK/dV of bf16 above 256: the simple kernels (wide_dq_kernel,
+//    wide_dkv_kernel), FMA on the CUDA cores, with the output columns split
+//    into slices of 256.
 //
 // Bounds on an H100 SXM (989 TFLOP/s dense bf16, 67 TFLOP/s f32 outside
 // the tensor cores, 3.35 TB/s) at [8, 1024, 16, 256] bf16, causal: the
@@ -111,7 +113,7 @@
 // max and the sum in the same order: the statistics are bitwise equal and
 // slice 0 alone writes them.
 //
-// The simple kernels (the backward of f32 and of bf16 above 256 columns):
+// The simple kernels (the backward of bf16 above 256 columns):
 // one CTA of 128 threads (4 warps) per (b*h, 16 owned rows, column slice):
 // query rows for dQ, key rows for dK/dV.
 //  * The output-column split: a CTA accumulates the slice [256 y, 256 y +
@@ -133,6 +135,7 @@
 //    not fast (PERF.md has their times).
 
 #include "flash_attention_f32.cuh"
+#include "flash_attention_f32_bwd.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -176,9 +179,10 @@ struct Params {
 
 // Whether the library has the kernels of a plan for head dim d and dtype
 // (0 f32, 1 bf16): the wgmma kernels at `width` columns (192 or 256, bf16,
-// d <= width, one slice), or (width 0) the sliced forward (bf16 on wgmma,
-// f32 on the CUDA cores) and the simple backward over `slices` column
-// slices of kSliceCols, as many as d fills.
+// d <= width, one slice), or (width 0) over `slices` column slices of
+// kSliceCols, as many as d fills: the sliced forward (bf16 on wgmma, f32 on
+// the CUDA cores) and the backward (bf16: the simple kernels; f32: the
+// register-tiled pair).
 bool has_plan(int d, int dtype, int width, int slices) {
   if (width == 0) {
     return slices == (d + kSliceCols - 1) / kSliceCols && slices <= 65535;
@@ -1843,6 +1847,18 @@ int launch_fwd_f32(const Params& p, int slices, cudaStream_t stream) {
                     : f32fwd::launch<256, kPartial>(f, stream);
 }
 
+// The f32 dQ (kDkv false) or dK/dV of flash_attention_f32_bwd.cuh over
+// `slices` output-column slices: 192 columns for heads up to 192, else 256
+// a slice.
+template <bool kDkv>
+int launch_bwd_f32(const Params& p, int slices, cudaStream_t stream) {
+  f32bwd::Params f = f32bwd::params_of(p);
+  f.slice_cols = kSliceCols;
+  f.slices = slices;
+  return p.d <= 192 ? f32bwd::launch<192, kDkv>(f, stream)
+                    : f32bwd::launch<256, kDkv>(f, stream);
+}
+
 template <int D>
 int launch_dq_bf16(const Params& p, cudaStream_t stream) {
   constexpr int kSmem = DqCfg<D>::kSmem;
@@ -2039,9 +2055,9 @@ extern "C" int kftpu_wide_bwd_dq(
     return width == 192 ? launch_dq_bf16<192>(p, st)
                         : launch_dq_bf16<256>(p, st);
   }
-  return launch_simple(dtype == 1 ? &wide_dq_kernel<__nv_bfloat16>
-                                  : &wide_dq_kernel<float>,
-                       p, s_q, slices, &smem_dq, st);
+  if (dtype == 0) return launch_bwd_f32<false>(p, slices, st);
+  return launch_simple(&wide_dq_kernel<__nv_bfloat16>, p, s_q, slices,
+                       &smem_dq, st);
 }
 
 // dK and dV from the delta the dQ launch wrote (or the caller gave).
@@ -2069,9 +2085,9 @@ extern "C" int kftpu_wide_bwd_dkv(
     return width == 192 ? launch_dkv_bf16<192>(p, st)
                         : launch_dkv_bf16<256>(p, st);
   }
-  return launch_simple(dtype == 1 ? &wide_dkv_kernel<__nv_bfloat16>
-                                  : &wide_dkv_kernel<float>,
-                       p, s_k, slices, &smem_dkv, st);
+  if (dtype == 0) return launch_bwd_f32<true>(p, slices, st);
+  return launch_simple(&wide_dkv_kernel<__nv_bfloat16>, p, s_k, slices,
+                       &smem_dkv, st);
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

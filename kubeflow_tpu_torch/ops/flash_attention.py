@@ -11,7 +11,8 @@ The CUDA sources are ``csrc/flash_attention_fwd.cu`` (the forward and the
 partial share its loop) and ``csrc/flash_attention_bwd.cu``, built on the
 Hopper helpers of ``csrc/hopper.cuh``, for heads up to 128 columns, and
 ``csrc/flash_attention_wide.cu`` for wider heads; both run the f32 forward
-and partial of ``csrc/flash_attention_f32.cuh``. Their headers state each
+and partial of ``csrc/flash_attention_f32.cuh`` and the f32 dQ and dK/dV
+of ``csrc/flash_attention_f32_bwd.cuh``. Their headers state each
 kernel's bound on an H100 and what the design does about it.
 
 Dispatch is by the tensors' device. A CUDA tensor launches the kernel
@@ -30,16 +31,18 @@ block must be a multiple of it: ``block_q`` and ``block_k`` (the JAX
 default 1024) enter only that check. lse and delta are f32
 ``[batch * heads, seq]``. The kernels' own tiles are internal.
 
-Head dims: every head dim, as the JAX kernels take. The 128-column
-kernels take every multiple of 8 up to ``TILE_MAX_HEAD_DIM`` (128; a
-narrower head runs on a 64- or 128-column tile whose columns past it are
-zeros); wider heads run the wide library, whose kernel for each head dim
-and dtype :func:`_wide_plan` chooses: the bf16 forward, partial, dQ and
-dK/dV on wgmma at 192 or 256 columns up to 256; above that, and in f32,
-kernels that split the output's columns into slices of 256 (the forward
-and partial on wgmma in bf16 and on the CUDA cores' register-tiled loop
-in f32, the f32 forward's at every head dim; dQ and dK/dV on simple
-CUDA-core kernels). A head dim
+Head dims: every head dim, as the JAX kernels take. f32 runs the CUDA
+cores' register-tiled kernels at every head dim (the forward and partial
+of ``flash_attention_f32.cuh``, dQ and dK/dV of
+``flash_attention_f32_bwd.cuh``), on the narrowest output width that
+holds d up to 128 and over 256-column output slices above. In bf16 the
+128-column kernels take every multiple of 8 up to ``TILE_MAX_HEAD_DIM``
+(128; a narrower head runs on a 64- or 128-column tile whose columns past
+it are zeros); wider heads run the wide library, whose kernel for each
+head dim and dtype :func:`_wide_plan` chooses: the forward, partial, dQ
+and dK/dV on wgmma at 192 or 256 columns up to 256; above that, kernels
+that split the output's columns into slices of 256 (the forward and
+partial on wgmma, dQ and dK/dV on simple CUDA-core kernels). A head dim
 that is no multiple of 8 is copied into zero-padded ``[b, s, h,
 round_up(d, 8)]`` tensors first (zero columns add exactly 0 to every
 product and to delta; the scale stays ``1/sqrt(d)`` of the true d), and
@@ -77,7 +80,7 @@ WIDE_SOURCE = "flash_attention_wide.cu"
 # (others are padded to one), the 128-column ones up to their widest tile.
 TILE_MAX_HEAD_DIM = 128
 # The wide library's wgmma kernels (bf16 forward, partial, dQ, dK/dV) come
-# at 192 and 256 columns; its simple kernels accumulate 256 output columns
+# at 192 and 256 columns; its sliced kernels accumulate 256 output columns
 # a CTA (its kSliceCols).
 WIDE_WGMMA_WIDTHS = (192, 256)
 WIDE_SLICE_COLS = 256
@@ -188,7 +191,8 @@ class WidePlan(NamedTuple):
     ``"wgmma"`` kernels at ``width`` columns, or (``"simple"``) over
     ``slices`` output-column slices: there the forward and the partial run
     the sliced kernels (bf16 on wgmma, f32 on the CUDA cores' register
-    tiles) and dQ and dK/dV the simple kernels."""
+    tiles), and dQ and dK/dV the register-tiled pair in f32 and still the
+    simple kernels in bf16."""
     kernels: str
     width: int | None
     slices: int
@@ -201,9 +205,11 @@ def _wide_plan(d: int, dtype: torch.dtype) -> WidePlan:
     heads over 256-column output slices, whose forward and partial run
     the sliced kernels (bf16: ``wide_{fwd,partial}_bf16_sliced_kernel``
     on wgmma; f32: ``fwd_f32_tiled_kernel`` on the CUDA cores) and whose
-    dQ and dK/dV run the simple kernels. The launches hand this plan to
-    the library, which checks that it has its kernels and does not
-    choose."""
+    dQ and dK/dV run, in f32, the register-tiled pair
+    (``dq_f32_tiled_kernel``, ``dkv_f32_tiled_kernel``) and, in bf16, the
+    simple kernels (``wide_dq_kernel``, ``wide_dkv_kernel``). The
+    launches hand this plan to the library, which checks that it has its
+    kernels and does not choose."""
     if dtype == torch.bfloat16 and d <= WIDE_WGMMA_WIDTHS[-1]:
         width = min(w for w in WIDE_WGMMA_WIDTHS if w >= d)
         return WidePlan("wgmma", width, 1)

@@ -118,11 +118,17 @@ def test_ptxas_notes_keep_each_bf16_kernels_registers_spills_and_c75xx():
      "wide_fwd_bf16_sliced_kernel"),
     ("_ZN12_GLOBAL__N_119wide_dq_bf16_kernelILi192EEEv14CUtensorMap_st",
      "wide_dq_bf16_kernel<192>"),
-    ("_ZN12_GLOBAL__N_114wide_dq_kernelIfEEvNS_6ParamsE", None),
+    ("_ZN55_GLOBAL__N__038de090_22_flash_attention_bwd_cu_846ea7076f32bwd19"
+     "dq_f32_tiled_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_NS1_6ParamsE",
+     "dq_f32_tiled_kernel<128>"),
+    ("_ZN56_GLOBAL__N__d2dbf473_23_flash_attention_wide_cu_5734265b6f32bwd20"
+     "dkv_f32_tiled_kernelILi256EEEv14CUtensorMap_stS2_S2_S2_NS1_6ParamsE",
+     "dkv_f32_tiled_kernel<256>"),
+    ("_ZN12_GLOBAL__N_114wide_dq_kernelI13__nv_bfloat16EEvNS_6ParamsE", None),
 ])
 def test_ptxas_notes_name_the_redesigned_kernels(mangled, name):
-    # The f32 forward and the sliced bf16 forward are named in ptxas's
-    # notes beside the wgmma kernels; the simple kernels are not.
+    # The f32 forward and backward and the sliced bf16 forward are named in
+    # ptxas's notes beside the wgmma kernels; the simple kernels are not.
     line = f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'"
     assert compare._kernel_name(line) == name
     notes = compare.ptxas_notes(
@@ -144,6 +150,18 @@ def test_compare_cases_time_the_redesigned_forward_routes():
                 assert cases[f"{kernel}_{tag}_d{d}_small"] == (
                     kernel, (1, 1024, 8, d), offsets, dtype)
     assert all(len(c) == 5 for c in compare.CASES)
+
+
+def test_compare_cases_time_the_f32_backward_pair():
+    # dQ (computing delta) and dK/dV in f32 at d 32, 128 and 256, at the
+    # shape that fills the card and at [1, 1024, 8, d].
+    cases = {c[0]: c[1:] for c in compare.CASES}
+    for d in (32, 128, 256):
+        assert cases[f"bwd_f32_d{d}"] == ("bwd", (8, 1024, 16, d), None,
+                                          "float32")
+        assert cases[f"bwd_f32_d{d}_small"] == ("bwd", (1, 1024, 8, d),
+                                                None, "float32")
+    assert len({c[0] for c in compare.CASES}) == len(compare.CASES)
 
 
 def test_sass_counts_by_library_and_by_kernel():

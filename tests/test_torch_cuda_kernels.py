@@ -348,11 +348,12 @@ def test_wide_dq_kernel_is_deterministic(cuda):
     (200, torch.bfloat16, "wide_dq_bf16_kernel<256>"),
     (256, torch.bfloat16, "wide_dq_bf16_kernel<256>"),
     (264, torch.bfloat16, "wide_dq_kernel<__nv_bfloat16>"),
-    (136, torch.float32, "wide_dq_kernel<float>"),
+    (136, torch.float32, "dq_f32_tiled_kernel<192>"),
 ])
 def test_wide_dq_launches_the_kernel_of_its_plan(cuda, d, dtype, kernel):
     # bf16 heads up to 256 columns take the wgmma dQ at the narrowest
-    # width that holds them; f32 and wider bf16 heads the simple kernel.
+    # width that holds them, wider bf16 heads the simple kernel; f32 heads
+    # the register-tiled dQ.
     from torch.profiler import ProfilerActivity, profile
 
     q, k, v, o, lse, do = _bwd_inputs((1, 128, 2, d), dtype, cuda)
@@ -361,7 +362,8 @@ def test_wide_dq_launches_the_kernel_of_its_plan(cuda, d, dtype, kernel):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
         torch.cuda.synchronize()
-    names = [ev.key for ev in prof.key_averages() if "wide_dq" in ev.key]
+    names = [ev.key for ev in prof.key_averages()
+             if "wide_dq" in ev.key or "dq_f32_tiled" in ev.key]
     assert len(names) == 1 and kernel in names[0], names
 
 
@@ -871,6 +873,102 @@ def test_forward_launches_the_kernel_of_its_route(cuda, d, dtype, kernel):
         names = [ev.key for ev in prof.key_averages()
                  if "f32_tiled" in ev.key or "bf16_sliced" in ev.key]
         assert len(names) == 1 and want in names[0], (want, names)
+
+
+# The redesigned f32 backward: dq_f32_tiled_kernel and dkv_f32_tiled_kernel
+# (flash_attention_f32_bwd.cuh) at every head dim, 16-128 output columns in
+# the 128-column library and 192- or 256-column slices in the wide one.
+# Causal cases span several 64- and 128-row owned tiles and 64-row
+# streamed tiles; full cases are ragged.
+F32_BWD_DIMS = (8, 16, 32, 64, 128, 136, 256, 264, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", F32_BWD_DIMS)
+def test_redesigned_f32_backward_matches_plain_version(cuda, d, causal):
+    shape = _redesigned_shape(d, causal)
+    q, k, v, _, _, do = _bwd_inputs(shape, torch.float32, cuda, seed=d)
+    o, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    before = _counts()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert _counts()[1:] == (before[1] + 3, before[2] + 2)
+    _assert_grads_close(got, fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=causal), torch.float32)
+    torch.testing.assert_close(delta, fa.attention_delta(o, do), rtol=0,
+                               atol=1e-3)
+    # Two launches on the same inputs: the same bits.
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128, 264])
+@pytest.mark.parametrize("case", ["below", "diagonal", "above", "unaligned",
+                                  "straddle_64_192"])
+def test_redesigned_f32_hop_backward_matches_plain_version(cuda, case, d):
+    # One ring hop's backward as the ring calls it: the final lse and delta
+    # as [b, h, s], the blocks' global offsets; a query that sees no key
+    # of the block gets a zero dq, a key that no query sees zero dk, dv.
+    shape, q_off, k_off = PARTIAL_CASES[case]
+    q, k, v, o, lse, do = _bwd_inputs(shape[:3] + (d,), torch.float32, cuda)
+    b, s, h, _ = q.shape
+    delta = fa.attention_delta(o, do)
+    before = _counts()
+    got = fa.flash_attention_partial_grads(
+        q, k, v, do, lse.reshape(b, h, s), delta.reshape(b, h, s), q_off,
+        k_off)
+    torch.cuda.synchronize()
+    assert _counts()[1:] == (before[1] + 1, before[2] + 1)
+    _assert_grads_close(got, fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, q_offset=q_off, k_offset=k_off, delta=delta),
+        torch.float32)
+    if case == "above":
+        assert all(bool((g == 0).all()) for g in got)
+    if case == "straddle_64_192":
+        assert bool((got[0][:, :128] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 128, 264])
+def test_redesigned_f32_backward_reads_qkv_column_slices(cuda, d):
+    """Heads d elements apart in one [b, s, 3*h*d] product, as the models
+    hand them over: dq, dk and dv are the contiguous case's bits."""
+    b, s, h = 2, 160, 3
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, s, h, d), generator=gen, device=cuda)
+    dense = [t.contiguous() for t in (q, k, v)]
+    o, lse = fa.flash_attention_reference(*dense)
+    for a, c in zip(fa.flash_attention_bwd(q, k, v, o, lse, do),
+                    fa.flash_attention_bwd(*dense, o, lse, do)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,width", [(8, 16), (16, 16), (32, 32), (40, 64),
+                                     (64, 64), (128, 128), (136, 192),
+                                     (256, 256), (264, 256)])
+def test_f32_backward_launches_the_kernels_of_its_route(cuda, d, width):
+    # Every f32 head runs the register-tiled pair at the narrowest output
+    # width that holds it (256-column slices above 256).
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, o, lse, do = _bwd_inputs((1, 128, 2, d), torch.float32, cuda)
+    fa.flash_attention_bwd(q, k, v, o, lse, do)   # built, loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    names = sorted(ev.key for ev in prof.key_averages()
+                   if "_kernel" in ev.key and ("dq" in ev.key
+                                               or "dkv" in ev.key))
+    assert len(names) == 2, names
+    assert f"dkv_f32_tiled_kernel<{width}>" in names[0], names
+    assert f"dq_f32_tiled_kernel<{width}>" in names[1], names
 
 
 @pytest.mark.cuda

@@ -38,11 +38,17 @@ CASES = {
     "f32_d64": ((2, 128, 2, 64), "float32", True),
     "f32_s32": ((2, 32, 2, 128), "float32", True),
     "f32_s256": ((2, 256, 2, 128), "float32", True),
+    # Narrow heads: bench.py's MC_LONGCTX_MODEL head dim (16) and 32 (one
+    # 32-column panel on the card).
+    "f32_d16": ((2, 128, 2, 16), "float32", True),
+    "f32_d32": ((2, 128, 2, 32), "float32", True),
     "bf16_causal": ((2, 128, 2, 128), "bfloat16", True),
     # Heads wider than the 128-column kernels (the wide library on the
     # card): 136 (no multiple of 64) and Gemma's 256.
     "f32_d136": ((2, 128, 2, 136), "float32", True),
     "f32_d256": ((2, 128, 2, 256), "float32", True),
+    # Two 256-column output slices on the card.
+    "f32_d264": ((2, 128, 2, 264), "float32", True),
     "bf16_d136": ((2, 128, 2, 136), "bfloat16", True),
     "bf16_d256": ((2, 128, 2, 256), "bfloat16", True),
 }
