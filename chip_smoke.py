@@ -107,17 +107,18 @@ last line. With no CUDA device it exits 1 and prints no result.
    and 32, at 20 and 36 (no multiple of 8: zero-padded onto the 128-column
    kernels), at 136, 192, 200 and 256 (the wide library's wgmma kernels
    in bf16) and at 264, 832 and 1024 (256-column output slices: the
-   simple backward in bf16, the register-tiled pair in f32), bf16 and
+   sliced wgmma backward in bf16, the register-tiled pair in f32), bf16 and
    f32, causal and full, against their plain
    versions at the tolerances above, four cases also through qkv column
    slices (bitwise equal), and b*h = 66560 ([1040, 64, 64, 16]) in both
    dtypes; at d = 1024 the four column slices' outputs bitwise equal where the inputs' are
    (each slice computes the softmax statistics, slice 0 writes them); a
-   bitwise repeat of the wgmma dQ and dK/dV at [8, 1024, 16, 256]; at
+   bitwise repeat of the wgmma dQ and dK/dV at [8, 1024, 16, 256] and of
+   the sliced pair at [8, 1024, 16, 320]; at
    training shapes of d = 32 [8, 1024, 64, 32], d = 20 [8, 1024, 64, 20]
    (with the padding copies timed apart) and d = 256 ([8, 1024, 16, 256],
    and the wide_heads step's [8, 1024, 8, 256]) the forward, dQ and dK/dV
-   (at d = 256 also the partial, and the simple dQ through the plan
+   (at d = 256 also the partial, and the sliced dQ through the plan
    (0, 1) beside the wgmma one) timed beside their bounds, plain versions
    and SDPA; then the f32 route (the register-tiled forward and backward)
    at d = 32, 128 and 256 and the bf16 route above 256 at d = 320, each at
@@ -650,7 +651,7 @@ TOL_RING_GRAD = 2e-2
 # d], dtype, causal), each through the forward, dQ and dK/dV, and (causal)
 # the partial at a hop below and on the diagonal, at the tolerances above
 # (TOL_O, TOL_LSE, TOL_GRAD, TOL_PARTIAL_*). Causal cases span 2.5 of the
-# 128-row Q tiles (20 of the simple kernels' 16-row tiles); full cases
+# 128-row Q tiles (5 of the dK/dV kernels' 64-key tiles); full cases
 # are ragged.
 HEAD_DIMS = (16, 32, 20, 36, 136, 192, 200, 256, 264, 832, 1024)
 HEAD_DIM_CASES = [
@@ -665,19 +666,20 @@ HEAD_DIM_STRIDED = ("d32_bfloat16_causal", "d20_bfloat16_causal",
 # Four 256-column output slices whose inputs are equal: their outputs must
 # be bitwise equal (each slice computes the softmax statistics itself).
 SLICE_STATS = ("slices_d1024", (1, 320, 4, 1024))
-# The wgmma dQ's and dK/dV's bitwise repeat at the wide training shape.
-WIDE_REPEAT = (8, 1024, 16, 256)
+# The wgmma dQ's and dK/dV's bitwise repeat at the wide training shape,
+# and the sliced pair's at d = 320 (two 256-column slices).
+WIDE_REPEAT = ((8, 1024, 16, 256), (8, 1024, 16, 320))
 # More (batch, head) pairs than a grid's y dimension holds: b*h = 66560,
 # each dtype through the four kernels.
 MANY_HEADS = ("bh66560", (1040, 64, 64, 16))
 # Timed: a d = 32 training shape (b*h = 512 heads of 1024 tokens), a
 # d = 20 one (zero-padded to 24: the copies timed apart) and two d = 256
-# ones (the wide library's wgmma kernels, also the partial and the simple
+# ones (the wide library's wgmma kernels, also the partial and the sliced
 # dQ): [8, 1024, 16, 256], and the wide_heads step's [8, 1024, 8, 256].
 # Then the routes of f32 heads (every d: the CUDA-core forward of
 # flash_attention_f32.cuh and the register-tiled backward pair of
 # flash_attention_f32_bwd.cuh) and of bf16 heads wider than 256 (the sliced
-# wgmma forward; their backward on the simple kernels): f32 at d = 32, 128
+# wgmma forward and backward): f32 at d = 32, 128
 # and 256 and bf16 at d = 320, each at [1, 1024, 8, d] and at [8, 1024,
 # 16, d], a batch that fills the card (also the partial).
 HEAD_DIM_TIMED = [
@@ -695,12 +697,6 @@ HEAD_DIM_TIMED = [
     ("d256_f32_b8h16", (8, 1024, 16, 256), "float32", True, 0, 0, False),
     ("d320_bf16_b8h16", (8, 1024, 16, 320), "bfloat16", True, 0, 0, False),
 ]
-# The backward of bf16 heads wider than 256 runs the simple CUDA-core
-# kernels, tens of ms a call at the larger shapes: fewer calls time them.
-SIMPLE_BWD_RUNS = dict(warmup=2, runs=10, batch=2)
-# The simple dQ (the wide library's plan (0, 1)), timed beside the wgmma
-# dQ at the d = 256 shapes: tens of ms a call, so fewer calls.
-SIMPLE_DQ_RUNS = dict(warmup=2, runs=10, batch=2)
 
 # The MoE config: bench.py's MOE_MODEL uncut (bench.py:616-620; top-2 of 8
 # experts at capacity factor 1.0, flash attention at head_dim 128), batch
@@ -777,8 +773,8 @@ KERNEL_CATEGORIES = (
                                        "bf16_sliced_kernel",
                                        "dq_f32_tiled_kernel",
                                        "dkv_f32_tiled_kernel",
-                                       "wide_dq_kernel",
-                                       "wide_dkv_kernel",
+                                       "wide_dq_bf16_sliced_kernel",
+                                       "wide_dkv_bf16_sliced_kernel",
                                        "wide_fwd_bf16_kernel",
                                        "wide_partial_bf16_kernel",
                                        "wide_dq_bf16_kernel",
@@ -981,12 +977,9 @@ def _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta) -> None:
                                                    **kw),
                 lambda: fa.flash_attention_bwd_dkv_reference(
                     q, k, v, lse, do, delta, **kw))}
-    simple = dtype == "bfloat16" and shape[3] > fa.WIDE_WGMMA_WIDTHS[-1]
-    runs = SIMPLE_BWD_RUNS if simple else {}
     for key, (run, plain) in calls.items():
-        row[f"{key}_ms"] = time_ms(run, **runs)
-        row[f"{key}_profiler_ms"] = profiled(
-            run, torch, runs=runs.get("runs", 20))[0]
+        row[f"{key}_ms"] = time_ms(run)
+        row[f"{key}_profiler_ms"] = profiled(run, torch)[0]
         row[f"{key}_plain_ms"] = time_ms(plain, warmup=1, runs=5, batch=2)
         (row[f"{key}_bound_ms"], row[f"{key}_bound_by"],
          row[f"{key}_flops"]) = bwd_bound_ms(shape, dtype, causal, key, given)
@@ -1129,7 +1122,7 @@ def phase_head_dims(torch, fa) -> dict:
     statistics and the wgmma dQ's and dK/dV's bitwise repeat; the
     forward, dQ and dK/dV timed at d = 32, 20 and 256 training shapes
     beside their bounds, their plain versions and SDPA (and at d = 256 the
-    partial, and the simple dQ beside the wgmma one), and on the f32 and
+    partial, and the sliced dQ beside the wgmma one), and on the f32 and
     the bf16 > 256 routes (f32 at d = 32, 128 and 256, bf16 at d = 320)
     with the partial."""
     import torch.nn.functional as F
@@ -1244,8 +1237,8 @@ def phase_head_dims(torch, fa) -> dict:
              row["partial_flops"]) = partial_bound_ms(shape, dtype, 0, 0)
             _rates(row, "partial_")
         _time_bwd(row, torch, fa, case, q, k, v, o, lse, do, delta)
-        if row["kernels"] == "wide":   # the simple dQ, the same build
-            _time_simple_dq(row, torch, fa, q, k, v, o, lse, do, causal)
+        if row["kernels"] == "wide":   # the sliced dQ, the same build
+            _time_sliced_dq(row, torch, fa, q, k, v, o, lse, do, causal)
         emit(row)
         timed[name] = row
         del q, k, v, do, o, lse, delta, qt, kt, vt
@@ -1265,26 +1258,26 @@ def _fwd_route(fa, d: int, dtype: str) -> str:
     return "wide" if d <= fa.WIDE_WGMMA_WIDTHS[-1] else "wide_sliced"
 
 
-def _time_simple_dq(row, torch, fa, q, k, v, o, lse, do, causal) -> None:
-    """The simple dQ of the same library (the plan (0, slices)) timed
+def _time_sliced_dq(row, torch, fa, q, k, v, o, lse, do, causal) -> None:
+    """The sliced dQ of the same library (the plan (0, slices)) timed
     beside the wgmma one, and how far its dq lies from the wgmma dq's."""
     d = q.shape[-1]
     plan = (0, -(-d // fa.WIDE_SLICE_COLS))
 
-    def simple():
+    def sliced():
         return fa._launch_dq(q, k, v, o, lse, do, None, causal, d ** -0.5,
                              0, 0, plan=plan)
 
     got = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal)[0]
-    row["dq_simple_plan"] = list(plan)
-    row["dq_simple_max_diff"] = _max_err(simple()[0], got)[0]
-    row["dq_simple_ms"] = time_ms(simple, **SIMPLE_DQ_RUNS)
-    row["dq_simple_bound_share"] = row["dq_bound_ms"] / row["dq_simple_ms"]
-    row["dq_speedup_vs_simple"] = row["dq_simple_ms"] / row["dq_ms"]
+    row["dq_sliced_plan"] = list(plan)
+    row["dq_sliced_max_diff"] = _max_err(sliced()[0], got)[0]
+    row["dq_sliced_ms"] = time_ms(sliced)
+    row["dq_sliced_bound_share"] = row["dq_bound_ms"] / row["dq_sliced_ms"]
+    row["dq_speedup_vs_sliced"] = row["dq_sliced_ms"] / row["dq_ms"]
 
 
 def _head_dim_slices(torch, fa, gen) -> None:
-    """At d = 1024 the simple kernels run four 256-column output slices,
+    """At d = 1024 the sliced kernels run four 256-column output slices,
     each computing the softmax statistics (lse; m and l; delta) from all
     of d, slice 0 alone writing them. With q, k, v and dO made of four
     equal 256-column blocks, each slice's block of o, acc, dq, dk and dv
@@ -1318,29 +1311,31 @@ def _head_dim_slices(torch, fa, gen) -> None:
 
 
 def _wide_bwd_repeat(torch, fa, gen) -> None:
-    """The wgmma dQ (delta computed) and dK/dV at the wide training shape
-    twice on the same inputs: the same bits (no atomics; dK/dV's P^T
-    handed over in shared memory)."""
-    q, k, v, do = (torch.randn(WIDE_REPEAT, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = fa.attention_delta(o, do)
-    same = {}
-    for key, run in (
-            ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do)),
-            ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, do,
-                                                       delta))):
-        first, again = run(), run()
-        same[key] = all(torch.equal(a, c) for a, c in zip(first, again))
-        del first, again
-    ok = all(same.values())
-    emit({"phase": "head_dims", "case": "wide_bwd_bitwise_repeat",
-          "shape": list(WIDE_REPEAT), "bitwise_repeat": same, "ok": ok})
-    if not ok:
-        raise AssertionError(f"a wgmma backward kernel is not "
-                             f"deterministic: {same}")
-    del q, k, v, do, o, lse, delta
-    torch.cuda.empty_cache()
+    """The wgmma dQ (delta computed) and dK/dV at the wide training shape,
+    and the sliced pair at d = 320, twice on the same inputs: the same
+    bits (no atomics; dK/dV's P^T handed over in shared memory)."""
+    for shape in WIDE_REPEAT:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = fa.attention_delta(o, do)
+        same = {}
+        for key, run in (
+                ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse,
+                                                         do)),
+                ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, do,
+                                                           delta))):
+            first, again = run(), run()
+            same[key] = all(torch.equal(a, c) for a, c in zip(first, again))
+            del first, again
+        ok = all(same.values())
+        emit({"phase": "head_dims", "case": "wide_bwd_bitwise_repeat",
+              "shape": list(shape), "bitwise_repeat": same, "ok": ok})
+        if not ok:
+            raise AssertionError(f"a wide backward kernel is not "
+                                 f"deterministic: {same}")
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
 
 
 def phase_model(torch, fa, burnin) -> None:
@@ -6732,7 +6727,8 @@ def main() -> int:
            "library_call": "F.scaled_dot_product_attention backward "
                            "(dq, dk, dv together)",
            "device_kernels": device_kernels(
-               f"{key}_bf16_kernel", f32_bwd(key), f"wide_{key}_kernel")}
+               f"{key}_bf16_kernel", f32_bwd(key),
+               f"wide_{key}_bf16_sliced_kernel")}
           for key, line, outs in (("dq", 167, ("dq",)),
                                   ("dkv", 195, ("dk", "dv")))),
         {"name": "flash_attention_partial", "route": "cuda",

@@ -6,9 +6,9 @@ The builds: this checkout's ``csrc/`` sources (label ``this``) and, with
 an older commit unpacked with ``git archive``), which must keep the C
 interfaces: every wide entry point, ``kftpu_wide_bwd_dq`` included, takes
 the caller's plan (width, then slices), so a build older than the wgmma
-dQ's cannot be loaded beside this one. ``--simple-dq`` adds the label
-``this_simple_dq`` instead: the wide cases' dQ of this build through the
-simple kernel's plan ``(0, slices)``, timed in turns with the wgmma dQ.
+dQ's cannot be loaded beside this one. ``--sliced-dq`` adds the label
+``this_sliced_dq`` instead: the wide cases' dQ of this build through the
+sliced kernel's plan ``(0, slices)``, timed in turns with the wgmma dQ.
 Each build runs through the wrappers' own launch code. The
 cases: the forward at the serving decode shape and at the long-context
 length, the ring hop's partial at both (the one-card hop at the longer),
@@ -20,12 +20,13 @@ backward also at the wide_heads step's 8 heads (``bwd_wide_heads``);
 and the f32 forward and partial at d = 32, 128 and 256 and the bf16 ones
 at d = 320, each at ``[8, 1024, 16, d]`` and ``[1, 1024, 8, d]``
 (``*_small``); and the f32 backward (dQ computing delta, and dK/dV) at
-d = 32, 128 and 256 at the same two shapes (``bwd_f32_d*``).
+d = 32, 128 and 256 at the same two shapes (``bwd_f32_d*``), and the bf16
+backward above 256 columns at d = 320 (``bwd_bf16_d320*``).
 
 Run from the root of a checkout, on a machine with one card::
 
     python -m kubeflow_tpu_torch.ops.compare [--build LABEL=DIR ...] \
-        [--simple-dq] [--cases NAME,...] [--rounds N] [--out FILE]
+        [--sliced-dq] [--cases NAME,...] [--rounds N] [--out FILE]
 
 The first line names the card and, per build, ptxas's registers, spills
 and performance notes (C75xx) for each bf16 kernel and the wgmma (HGMMA),
@@ -75,12 +76,15 @@ CASES = (
       for d in dims
       for tag, shape in (("", (8, 1024, 16, d)), ("_small", (1, 1024, 8, d)))
       for kernel, offsets in (("fwd", None), ("partial", (0, 0)))),
-    # The f32 backward's register-tiled pair at the same two shapes.
-    *((f"bwd_f32_d{d}{tag}", "bwd", shape, None, "float32")
-      for d in (32, 128, 256)
+    # The f32 backward's register-tiled pair at the same two shapes, and
+    # the bf16 backward's sliced pair above 256 columns.
+    *((f"bwd_{tag0}_d{d}{tag}", "bwd", shape, None, dtype)
+      for dtype, tag0, dims in (("float32", "f32", (32, 128, 256)),
+                                ("bfloat16", "bf16", (320,)))
+      for d in dims
       for tag, shape in (("", (8, 1024, 16, d)), ("_small", (1, 1024, 8, d)))),
 )
-SIMPLE_DQ = "this_simple_dq"
+SLICED_DQ = "this_sliced_dq"
 
 
 def time_ms(fn, *, warmup=5, runs=30, batch=10) -> float:
@@ -108,8 +112,7 @@ def time_ms(fn, *, warmup=5, runs=30, batch=10) -> float:
 
 def _kernel_name(line: str) -> str | None:
     """The redesigned kernels' names in a ptxas line's mangled one: the
-    bf16 kernels (``name<D>``), the sliced bf16 forward and partial, the
-    f32 forward (``fwd_f32_tiled_kernel<DV, partial>``) and the f32
+    bf16 kernels (``name<D>``), the sliced bf16 kernels, the f32 forward (``fwd_f32_tiled_kernel<DV, partial>``) and the f32
     backward (``dq_f32_tiled_kernel<DV>``, ``dkv_f32_tiled_kernel<DV>``)."""
     found = re.search(r"([a-z_]+_bf16_kernel|d(?:q|kv)_f32_tiled_kernel)"
                       r"ILi(\d+)E", line)
@@ -192,12 +195,12 @@ def builds(others: dict) -> dict:
             for label, d in dirs.items()}
 
 
-def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False,
+def _kernel_calls(kernel, shape, offsets, libs, sliced_dq=False,
                   dtype="bfloat16"):
     """Inputs for one case and, per kernel timed, the call of each build
     and SDPA's call on the same inputs. Heads above 128 columns run each
-    build's wide library; with ``simple_dq`` their dQ also runs this
-    build's simple kernel (label ``SIMPLE_DQ``)."""
+    build's wide library; with ``sliced_dq`` their dQ also runs this
+    build's sliced kernel (label ``SLICED_DQ``)."""
     import torch.nn.functional as F
 
     wide = shape[-1] > fa.TILE_MAX_HEAD_DIM
@@ -232,11 +235,11 @@ def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False,
     dq = {label: (lambda lib=lib["bwd"]: fa._launch_dq(
         q, k, v, o_in, lse, do, given, True, scale, q_off, k_off, lib=lib))
         for label, lib in libs.items()}
-    if wide and simple_dq and dtype == "bfloat16":
-        simple = (0, -(-shape[-1] // fa.WIDE_SLICE_COLS))
-        dq[SIMPLE_DQ] = lambda: fa._launch_dq(
+    if wide and sliced_dq and dtype == "bfloat16":
+        sliced = (0, -(-shape[-1] // fa.WIDE_SLICE_COLS))
+        dq[SLICED_DQ] = lambda: fa._launch_dq(
             q, k, v, o_in, lse, do, given, True, scale, q_off, k_off,
-            lib=libs["this"]["bwd"], plan=simple)
+            lib=libs["this"]["bwd"], plan=sliced)
     return ({"dq": dq,
              "dkv": {label: (lambda lib=lib["bwd"]: fa._launch_dkv(
                  q, k, v, lse, do, delta, True, scale, q_off, k_off,
@@ -246,8 +249,8 @@ def _kernel_calls(kernel, shape, offsets, libs, simple_dq=False,
 
 
 def run_case(name, kernel, shape, offsets, dtype, libs, rounds: int,
-             simple_dq: bool = False) -> dict:
-    calls, library = _kernel_calls(kernel, shape, offsets, libs, simple_dq,
+             sliced_dq: bool = False) -> dict:
+    calls, library = _kernel_calls(kernel, shape, offsets, libs, sliced_dq,
                                    dtype)
     row = {"case": name, "shape": list(shape), "offsets": offsets,
            "dtype": dtype, "ms": {}, "ms_rounds": {},
@@ -279,9 +282,9 @@ def main(argv=None) -> int:
                     metavar="LABEL=DIR",
                     help="another checkout whose kernel sources are timed "
                          "beside this one's (repeatable)")
-    ap.add_argument("--simple-dq", action="store_true",
+    ap.add_argument("--sliced-dq", action="store_true",
                     help=f"also time the wide cases' dQ of this build on "
-                         f"the simple kernel (label {SIMPLE_DQ})")
+                         f"the sliced kernel (label {SLICED_DQ})")
     ap.add_argument("--cases", default=None,
                     help="comma-separated case names (default: all of "
                          + ", ".join(c[0] for c in CASES) + ")")
@@ -306,7 +309,7 @@ def main(argv=None) -> int:
                        for label, lib_set in libs.items()}}]
     print(json.dumps(lines[0]), flush=True)
     for case in cases:
-        lines.append(run_case(*case, libs, args.rounds, args.simple_dq))
+        lines.append(run_case(*case, libs, args.rounds, args.sliced_dq))
         print(json.dumps(lines[-1]), flush=True)
         torch.cuda.empty_cache()
     if args.out is not None:

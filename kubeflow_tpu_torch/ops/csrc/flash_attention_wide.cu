@@ -26,16 +26,16 @@
 //    (d <= 192) or 256 (TMA fills the columns past d with zeros, which add
 //    exactly 0 to Q K^T, dO V^T and delta; the epilogues store d columns).
 //  * bf16 above 256 (the plan (0, slices)): the forward and the partial run
-//    wide_fwd_bf16_sliced_kernel / wide_partial_bf16_sliced_kernel, on
-//    wgmma and TMA, one CTA a 256-column slice of the output (below).
+//    wide_fwd_bf16_sliced_kernel / wide_partial_bf16_sliced_kernel, dQ
+//    wide_dq_bf16_sliced_kernel and dK/dV wide_dkv_bf16_sliced_kernel, on
+//    wgmma and TMA, one CTA a 256-column slice of the output (below). The
+//    plan (0, 1) also runs them at d <= 256 (how the sliced dQ is timed
+//    beside the wgmma one).
 //  * f32 at any d (the plan (0, slices)): the forward and the partial run
 //    flash_attention_f32.cuh's register-tiled loop on the CUDA cores, dQ
 //    and dK/dV flash_attention_f32_bwd.cuh's register-tiled pair
 //    (dq_f32_tiled_kernel, dkv_f32_tiled_kernel; each header has its
 //    design), one CTA a 256-column slice.
-//  * dQ and dK/dV of bf16 above 256: the simple kernels (wide_dq_kernel,
-//    wide_dkv_kernel), FMA on the CUDA cores, with the output columns split
-//    into slices of 256.
 //
 // Bounds on an H100 SXM (989 TFLOP/s dense bf16, 67 TFLOP/s f32 outside
 // the tensor cores, 3.35 TB/s) at [8, 1024, 16, 256] bf16, causal: the
@@ -113,26 +113,23 @@
 // max and the sum in the same order: the statistics are bitwise equal and
 // slice 0 alone writes them.
 //
-// The simple kernels (the backward of bf16 above 256 columns):
-// one CTA of 128 threads (4 warps) per (b*h, 16 owned rows, column slice):
-// query rows for dQ, key rows for dK/dV.
-//  * The output-column split: a CTA accumulates the slice [256 y, 256 y +
-//    256) of the output's columns (dQ, dK and dV; blockIdx.y), so the f32
-//    accumulators take 16 KB each whatever d. The scores (S, and dP) still
-//    contract over all of d, so every slice computes the softmax statistics
-//    (delta) from the same numbers in the same order: they are bitwise
-//    equal, and slice 0 alone writes them.
-//  * The owned rows' inputs (Q and dO; K and V) stay in shared memory
-//    at full width where they fit (dK/dV: d up to about 1300), else they
-//    are read 64 columns at a time beside the streamed chunk.
-//  * The other side streams in tiles of 32 rows (lane j takes streamed row
-//    j), read through its strides in chunks of 64 columns into a
-//    [32][65] f32 buffer, rows and columns past the edge as zeros. Warp w
-//    holds owned rows 4w .. 4w + 3 against the 32 streamed rows. The
-//    products into the accumulators: thread t takes column t % 64 of a
-//    chunk for 8 of the 16 owned rows. Every product is an f32 FMA, and
-//    each reads one operand from shared memory: these kernels are right,
-//    not fast (PERF.md has their times).
+// The sliced bf16 backward (d > 256). Bound at [8, 1024, 16, 320] causal:
+// dQ by bytes (q, k, v, o, dO read, dq written: 0.151 ms), dK/dV by
+// operations (four products, 172 GFLOP: 0.174 ms). Each slice repeats the
+// contraction over d: at d = 320 two slices contract S and dP over 320
+// columns each and accumulate 256, so dQ's products are 1.87 and dK/dV's
+// 1.8 times one pass's. The design is the wgmma pair's with the
+// contraction over d in 64-column panels, as the sliced forward's: the
+// score products panel by panel, each its own commit group, every other
+// panel through a ring released as its products land; the slice's own
+// panels that the output product reads again stay in a kept tile of 4
+// panels that a producer thread of its own refills once both warpgroups
+// are done with it (no head-of-line wait behind the ring). dQ keeps Q and
+// dO resident up to d = 320 (160 KB) and streams them above; dK/dV keeps
+// K and V resident up to d = 384 and streams them above. Every slice
+// computes S, P, dP and delta from the same numbers in the same order:
+// the slices' statistics are bitwise equal, and slice 0 alone writes
+// delta. No atomics: the results repeat bitwise.
 
 #include "flash_attention_f32.cuh"
 #include "flash_attention_f32_bwd.cuh"
@@ -172,85 +169,21 @@ struct Params {
   long long st[kTensors][3];
   float scale;
   int causal, q_offset, k_offset, compute_delta, partial;
-  int held;    // the simple kernels: the owned rows' inputs in shared memory
   int group;   // the wgmma kernels' launch order: (batch, head) pairs a group
-  int slices;  // the sliced forward: output-column slices of kSliceCols
+  int slices;  // the sliced kernels: output-column slices of kSliceCols
 };
 
 // Whether the library has the kernels of a plan for head dim d and dtype
 // (0 f32, 1 bf16): the wgmma kernels at `width` columns (192 or 256, bf16,
 // d <= width, one slice), or (width 0) over `slices` column slices of
-// kSliceCols, as many as d fills: the sliced forward (bf16 on wgmma, f32 on
-// the CUDA cores) and the backward (bf16: the simple kernels; f32: the
-// register-tiled pair).
+// kSliceCols, as many as d fills: the sliced kernels (bf16 on wgmma, f32
+// on the CUDA cores' register tiles).
 bool has_plan(int d, int dtype, int width, int slices) {
   if (width == 0) {
     return slices == (d + kSliceCols - 1) / kSliceCols && slices <= 65535;
   }
   return dtype == 1 && (width == 192 || width == kHopperMaxCols) &&
          d <= width && slices == 1;
-}
-
-// ========================================================= simple kernels
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kOwn = 16;               // owned rows a CTA
-constexpr int kRowsPerWarp = kOwn / kWarps;
-constexpr int kStream = 32;            // streamed rows a tile: a warp's lanes
-constexpr int kChunk = 64;             // columns a streamed chunk
-constexpr int kPitch = kChunk + 1;     // floats a chunk row in shared memory
-constexpr int kTilePitch = kStream + 1;  // floats a P / dS row
-constexpr int kColThreads = kChunk;    // threads on one chunk column set
-constexpr int kRowGroups = kThreads / kColThreads;  // 2
-constexpr int kRowsPerGroup = kOwn / kRowGroups;    // 8
-
-// Floats of one owned input: held at full width, or one chunk.
-__host__ __device__ constexpr int own_floats(int d, bool held) {
-  return held ? kOwn * d : kOwn * kPitch;
-}
-// Columns of a CTA's accumulators.
-__host__ __device__ constexpr int acc_cols(int d) {
-  return d < kSliceCols ? d : kSliceCols;
-}
-
-constexpr int dq_smem(int d, bool held) {
-  return 4 * (2 * own_floats(d, held) + kOwn * acc_cols(d) +
-              2 * kStream * kPitch + kOwn * kTilePitch);
-}
-constexpr int dkv_smem(int d, bool held) {
-  return 4 * (2 * own_floats(d, held) + 2 * kOwn * acc_cols(d) +
-              2 * kStream * kPitch + 2 * kOwn * kTilePitch);
-}
-// Streaming the owned inputs fits at any width.
-static_assert(dkv_smem(1 << 20, false) <= kMaxSmem &&
-                  dq_smem(1 << 20, false) <= kMaxSmem,
-              "every simple kernel fits at any head dim");
-
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// x as the nearest value of T (round to nearest even, as torch's casts).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (sizeof(T) == 2) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
 }
 
 // Row `row` of head (bi, hi) of tensor `which`.
@@ -267,287 +200,6 @@ __device__ __forceinline__ T* out_row_of(void* base, const Params& p,
                                          int which, int bi, int hi, int row) {
   return static_cast<T*>(base) + bi * p.st[which][0] + hi * p.st[which][2] +
          static_cast<long long>(row) * p.st[which][1];
-}
-
-// The owned rows [r0, r0 + kOwn) of one head of `which` into `dst`
-// ([kOwn][d] f32), rows past `rows` as zeros.
-template <typename T>
-__device__ __forceinline__ void load_owned(float* dst, const void* base,
-                                           const Params& p, int which, int bi,
-                                           int hi, int r0, int rows) {
-  for (int idx = threadIdx.x; idx < kOwn * p.d; idx += kThreads) {
-    const int r = idx / p.d, i = idx % p.d;
-    dst[idx] = r0 + r < rows ? load(row_of<T>(base, p, which, bi, hi,
-                                              r0 + r) + i)
-                             : 0.f;
-  }
-}
-
-// Columns [c0, c0 + kChunk) of the rows [n0, n0 + R) of one head of
-// `which` into `dst` ([R][kPitch] f32), rows past `rows` and columns past d
-// as zeros.
-template <typename T, int R>
-__device__ __forceinline__ void load_chunk(float* dst, const void* base,
-                                           const Params& p, int which, int bi,
-                                           int hi, int n0, int rows, int c0) {
-  for (int idx = threadIdx.x; idx < R * kChunk; idx += kThreads) {
-    const int r = idx / kChunk, c = idx % kChunk;
-    const bool in = n0 + r < rows && c0 + c < p.d;
-    dst[r * kPitch + c] =
-        in ? load(row_of<T>(base, p, which, bi, hi, n0 + r) + c0 + c) : 0.f;
-  }
-}
-
-// An owned input's columns from c0 on, as (pointer, row pitch): from its
-// full-width copy when held, else loaded into `buf` ([kOwn][kPitch]).
-template <typename T>
-__device__ __forceinline__ const float* owned_chunk(
-    float* buf, const void* base, const Params& p, int which, int bi, int hi,
-    int r0, int rows, int c0, int& pitch) {
-  if (p.held) {
-    pitch = p.d;
-    return buf + c0;
-  }
-  load_chunk<T, kOwn>(buf, base, p, which, bi, hi, r0, rows, c0);
-  pitch = kPitch;
-  return buf;
-}
-
-__device__ __forceinline__ int chunk_cols(const Params& p, int c0) {
-  return min(kChunk, p.d - c0);
-}
-
-// Whether query `qi` sees key `kj` (both local indices).
-__device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
-  return qi < p.s_q && kj < p.s_k &&
-         !(p.causal && p.k_offset + kj > p.q_offset + qi);
-}
-
-// acc[r][c + col] += sum_j tile[r][j] * chunk[j][col] for this thread's
-// column and its 8 owned rows: the product of a [kOwn][kStream] tile of P
-// or dS with a chunk of the streamed rows; acc rows are `pitch` apart.
-__device__ __forceinline__ void accumulate(float* acc, const float* tile,
-                                           const float* chunk, int pitch,
-                                           int c, int cols) {
-  const int col = threadIdx.x % kColThreads;
-  const int group = threadIdx.x / kColThreads;
-  if (col >= cols) return;
-  float b[kStream];
-#pragma unroll
-  for (int j = 0; j < kStream; ++j) b[j] = chunk[j * kPitch + col];
-#pragma unroll 2
-  for (int rr = 0; rr < kRowsPerGroup; ++rr) {
-    const int r = group * kRowsPerGroup + rr;
-    float a = acc[r * pitch + c + col];
-#pragma unroll
-    for (int j = 0; j < kStream; ++j) a = fmaf(tile[r * kTilePitch + j], b[j], a);
-    acc[r * pitch + c + col] = a;
-  }
-}
-
-// The CTA's (b*h, owned tile, column slice), heaviest causal tiles first
-// when `last_first` (dQ's last query tiles see the most keys).
-struct Tile {
-  int bh, bi, hi, r0, c_lo, c_hi;
-};
-
-__device__ __forceinline__ Tile tile_of(const Params& p, int rows,
-                                        bool last_first) {
-  const int tiles = (rows + kOwn - 1) / kOwn;
-  const int bh = blockIdx.x / tiles, t = blockIdx.x % tiles;
-  const int c_lo = blockIdx.y * kSliceCols;
-  return {bh, bh / p.h, bh % p.h, (last_first ? tiles - 1 - t : t) * kOwn,
-          c_lo, min(p.d, c_lo + kSliceCols)};
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wide_dq_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int w = acc_cols(p.d);
-  const int own = own_floats(p.d, p.held);
-  float* qs = smem;                          // held [kOwn][d], or a chunk
-  float* dos = qs + own;
-  float* dqs = dos + own;                    // [kOwn][w] f32 acc
-  float* kc = dqs + kOwn * w;                // [kStream][kPitch]
-  float* vc = kc + kStream * kPitch;         // [kStream][kPitch]
-  float* dss = vc + kStream * kPitch;        // [kOwn][kTilePitch]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Tile t = tile_of(p, p.s_q, p.causal);
-
-  if (p.held) {
-    load_owned<T>(qs, p.q, p, kQ, t.bi, t.hi, t.r0, p.s_q);
-    load_owned<T>(dos, p.dout, p, kDO, t.bi, t.hi, t.r0, p.s_q);
-  }
-  for (int idx = threadIdx.x; idx < kOwn * w; idx += kThreads) {
-    dqs[idx] = 0.f;
-  }
-  __syncthreads();
-
-  float lse[kRowsPerWarp], delta[kRowsPerWarp];
-#pragma unroll
-  for (int j = 0; j < kRowsPerWarp; ++j) {
-    const int r = warp * kRowsPerWarp + j, row = t.r0 + r;
-    const long long at = static_cast<long long>(t.bh) * p.s_q + row;
-    lse[j] = row < p.s_q ? p.lse[at] : 0.f;
-    if (p.compute_delta) {
-      float part = 0.f;
-      if (row < p.s_q) {
-        const T* o = row_of<T>(p.o, p, kO, t.bi, t.hi, row);
-        const T* dout = row_of<T>(p.dout, p, kDO, t.bi, t.hi, row);
-        for (int i = lane; i < p.d; i += 32) {
-          part = fmaf(load(dout + i), load(o + i), part);
-        }
-      }
-      delta[j] = warp_sum(part);
-      if (blockIdx.y == 0 && lane == 0 && row < p.s_q) p.delta[at] = delta[j];
-    } else {
-      delta[j] = row < p.s_q ? p.delta[at] : 0.f;
-    }
-  }
-
-  const int last = min(t.r0 + kOwn, p.s_q) - 1;
-  const int n_end =
-      p.causal ? max(0, min(p.s_k, p.q_offset + last - p.k_offset + 1))
-               : p.s_k;
-  for (int n0 = 0; n0 < n_end; n0 += kStream) {
-    float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-    for (int c0 = 0; c0 < p.d; c0 += kChunk) {
-      load_chunk<T, kStream>(kc, p.k, p, kK, t.bi, t.hi, n0, p.s_k, c0);
-      load_chunk<T, kStream>(vc, p.v, p, kV, t.bi, t.hi, n0, p.s_k, c0);
-      int pitch;
-      const float* q = owned_chunk<T>(qs, p.q, p, kQ, t.bi, t.hi, t.r0,
-                                      p.s_q, c0, pitch);
-      const float* d_o = owned_chunk<T>(dos, p.dout, p, kDO, t.bi, t.hi,
-                                        t.r0, p.s_q, c0, pitch);
-      __syncthreads();
-      const int cols = chunk_cols(p, c0);
-      for (int i = 0; i < cols; ++i) {
-        const float kval = kc[lane * kPitch + i];
-        const float vval = vc[lane * kPitch + i];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const int r = warp * kRowsPerWarp + j;
-          s[j] = fmaf(q[r * pitch + i], kval, s[j]);
-          dp[j] = fmaf(d_o[r * pitch + i], vval, dp[j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      const int r = warp * kRowsPerWarp + j;
-      const float pr = visible(p, t.r0 + r, n0 + lane)
-                           ? expf(s[j] * p.scale - lse[j])
-                           : 0.f;
-      dss[r * kTilePitch + lane] = round_to<T>(pr * (dp[j] - delta[j]));
-    }
-    __syncthreads();
-    for (int c0 = t.c_lo; c0 < t.c_hi; c0 += kChunk) {
-      load_chunk<T, kStream>(kc, p.k, p, kK, t.bi, t.hi, n0, p.s_k, c0);
-      __syncthreads();
-      accumulate(dqs, dss, kc, w, c0 - t.c_lo, chunk_cols(p, c0));
-      __syncthreads();
-    }
-  }
-
-  const int rows = min(kOwn, p.s_q - t.r0);
-  const int cols = t.c_hi - t.c_lo;
-  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-    const int r = idx / cols, i = idx % cols;
-    store(out_row_of<T>(p.dq, p, kDQ, t.bi, t.hi, t.r0 + r) + t.c_lo + i,
-          dqs[r * w + i] * p.scale);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wide_dkv_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int w = acc_cols(p.d);
-  const int own = own_floats(p.d, p.held);
-  float* ks = smem;                          // owned keys: held, or a chunk
-  float* vs = ks + own;
-  float* dks = vs + own;                     // [kOwn][w] f32 accs
-  float* dvs = dks + kOwn * w;
-  float* qc = dvs + kOwn * w;                // [kStream][kPitch]
-  float* dc = qc + kStream * kPitch;         // [kStream][kPitch]
-  float* ps = dc + kStream * kPitch;         // [kOwn][kTilePitch] P^T
-  float* dss = ps + kOwn * kTilePitch;       // [kOwn][kTilePitch] dS^T
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Tile t = tile_of(p, p.s_k, false);
-
-  if (p.held) {
-    load_owned<T>(ks, p.k, p, kK, t.bi, t.hi, t.r0, p.s_k);
-    load_owned<T>(vs, p.v, p, kV, t.bi, t.hi, t.r0, p.s_k);
-  }
-  for (int idx = threadIdx.x; idx < kOwn * w; idx += kThreads) {
-    dks[idx] = 0.f;
-    dvs[idx] = 0.f;
-  }
-  __syncthreads();
-
-  const float* lse = p.lse + static_cast<long long>(t.bh) * p.s_q;
-  const float* delta = p.delta + static_cast<long long>(t.bh) * p.s_q;
-  // Under the causal mask, the queries at or after the first key's
-  // position.
-  const int m_begin =
-      p.causal ? min(p.s_q, max(0, p.k_offset + t.r0 - p.q_offset)) : 0;
-  for (int m0 = m_begin; m0 < p.s_q; m0 += kStream) {
-    float s[kRowsPerWarp] = {}, dp[kRowsPerWarp] = {};
-    for (int c0 = 0; c0 < p.d; c0 += kChunk) {
-      load_chunk<T, kStream>(qc, p.q, p, kQ, t.bi, t.hi, m0, p.s_q, c0);
-      load_chunk<T, kStream>(dc, p.dout, p, kDO, t.bi, t.hi, m0, p.s_q, c0);
-      int pitch;
-      const float* k = owned_chunk<T>(ks, p.k, p, kK, t.bi, t.hi, t.r0,
-                                      p.s_k, c0, pitch);
-      const float* v = owned_chunk<T>(vs, p.v, p, kV, t.bi, t.hi, t.r0,
-                                      p.s_k, c0, pitch);
-      __syncthreads();
-      const int cols = chunk_cols(p, c0);
-      for (int i = 0; i < cols; ++i) {
-        const float qval = qc[lane * kPitch + i];
-        const float dval = dc[lane * kPitch + i];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const int r = warp * kRowsPerWarp + j;
-          s[j] = fmaf(k[r * pitch + i], qval, s[j]);
-          dp[j] = fmaf(v[r * pitch + i], dval, dp[j]);
-        }
-      }
-      __syncthreads();
-    }
-    const int qi = m0 + lane;
-    const float lse_q = qi < p.s_q ? lse[qi] : 0.f;
-    const float delta_q = qi < p.s_q ? delta[qi] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      const int r = warp * kRowsPerWarp + j;
-      const float pr = visible(p, qi, t.r0 + r)
-                           ? expf(s[j] * p.scale - lse_q)
-                           : 0.f;
-      ps[r * kTilePitch + lane] = round_to<T>(pr);
-      dss[r * kTilePitch + lane] = round_to<T>(pr * (dp[j] - delta_q));
-    }
-    __syncthreads();
-    for (int c0 = t.c_lo; c0 < t.c_hi; c0 += kChunk) {
-      load_chunk<T, kStream>(qc, p.q, p, kQ, t.bi, t.hi, m0, p.s_q, c0);
-      load_chunk<T, kStream>(dc, p.dout, p, kDO, t.bi, t.hi, m0, p.s_q, c0);
-      __syncthreads();
-      const int cols = chunk_cols(p, c0);
-      accumulate(dvs, ps, dc, w, c0 - t.c_lo, cols);
-      accumulate(dks, dss, qc, w, c0 - t.c_lo, cols);
-      __syncthreads();
-    }
-  }
-
-  const int rows = min(kOwn, p.s_k - t.r0);
-  const int cols = t.c_hi - t.c_lo;
-  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-    const int r = idx / cols, i = idx % cols;
-    store(out_row_of<T>(p.dk, p, kDK, t.bi, t.hi, t.r0 + r) + t.c_lo + i,
-          dks[r * w + i] * p.scale);
-    store(out_row_of<T>(p.dv, p, kDV, t.bi, t.hi, t.r0 + r) + t.c_lo + i,
-          dvs[r * w + i]);
-  }
 }
 
 // =========================================================== wgmma kernels
@@ -568,6 +220,11 @@ constexpr int kConsumerWarps = 8;
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
+// setmaxnreg.inc waits until the CTA's other warps gave the registers back:
+// what the consumers take must fit what the SM holds beside the producer.
+static_assert(kWgThreads * kProducerRegs + kConsumerThreads * kConsumerRegs <=
+                  65536,
+              "setmaxnreg's registers balance");
 // Named barriers (0 is __syncthreads) between dK/dV's two consumers.
 constexpr int kPReady = 1;  // P^T of the tile is in shared memory
 constexpr int kPFree = 2;   // ... and was read: the next may overwrite it
@@ -582,17 +239,26 @@ __device__ __forceinline__ void named_arrive(int id) {
                : "memory");
 }
 
-// acc (+)= A B^T for a warpgroup's 64 rows of A and a 64-row B, both
-// K-major over D columns: a k-step of 16 columns moves 32 bytes along the
-// swizzled row, four of them a panel; `a_panel` / `b_panel` bytes apart.
+// acc (+)= A B^T over one 64-column panel of two K-major operands (a
+// warpgroup's 64 rows of A, a 64-row B): 4 k-steps of 32 bytes along the
+// swizzled row; `first` zeroes acc.
+__device__ __forceinline__ void issue_panel(float (&acc)[32], uint32_t a,
+                                            uint32_t b, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss_n64(acc, smem_desc(a + kk * 32, 16, kSbo),
+                 smem_desc(b + kk * 32, 16, kSbo), !first || kk > 0);
+  }
+}
+
+// acc = A B^T for a warpgroup's 64 rows of A and a 64-row B, both K-major
+// over D columns, panel by panel; A's panels `a_panel` bytes apart.
 template <int D>
 __device__ __forceinline__ void issue_ss(float (&acc)[32], uint32_t a,
                                          int a_panel, uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_ss_n64(acc, smem_desc(a + (kk / 4) * a_panel + off, 16, kSbo),
-                 smem_desc(b + (kk / 4) * kPanel64 + off, 16, kSbo), kk > 0);
+  for (int pn = 0; pn < D / kPanelCols; ++pn) {
+    issue_panel(acc, a + pn * a_panel, b + pn * kPanel64, pn == 0);
   }
 }
 
@@ -931,7 +597,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 // to 512) or come through the ring beside K's (streamed). The slice's V
 // tile (4 panels, those past d not loaded) comes through 2 stages.
 constexpr int kSliceStages = 4;
-constexpr int kSliceVTile = (kSliceCols / kPanelCols) * kPanel64;  // 32 KB
+// A 64-row tile of a slice's columns: 4 panels, 32 KB.
+constexpr int kSliceTile = (kSliceCols / kPanelCols) * kPanel64;
 
 struct SlicedLayout {
   int panels;     // 64-column panels of d
@@ -945,13 +612,13 @@ __host__ __device__ constexpr SlicedLayout sliced_layout(int d) {
   // q_full, full and empty a stage, V full and empty a stage.
   constexpr int kBarBytes = 8 * (1 + 2 * kSliceStages + 4);
   const int resident = L.panels * kPanel128 + kSliceStages * kPanel64 +
-                       2 * kSliceVTile + kBarBytes + 1024;
+                       2 * kSliceTile + kBarBytes + 1024;
   L.resident = resident <= kMaxSmem;
   L.q = 0;
   L.ring = L.resident ? L.panels * kPanel128 : 0;
   L.stage = L.resident ? kPanel64 : kPanel128 + kPanel64;  // (Q |) K
   L.v = L.ring + kSliceStages * L.stage;
-  L.bars = L.v + 2 * kSliceVTile;
+  L.bars = L.v + 2 * kSliceTile;
   L.smem = L.bars + kBarBytes + 1024;
   return L;
 }
@@ -1047,7 +714,7 @@ __device__ __forceinline__ void sliced_fwd(const CUtensorMap& qmap,
         mbar_wait(v_empty(vb), ((j >> 1) & 1) ^ 1);
         mbar_expect_tx(v_full(vb), vpanels * kPanel64);
         for (int pn = 0; pn < vpanels; ++pn) {
-          tma_load(base + L.v + vb * kSliceVTile + pn * kPanel64, vmap,
+          tma_load(base + L.v + vb * kSliceTile + pn * kPanel64, vmap,
                    v_full(vb), c_lo + pn * kPanelCols, hi, j * kTileRows, bi);
         }
       }
@@ -1083,11 +750,7 @@ __device__ __forceinline__ void sliced_fwd(const CUtensorMap& qmap,
           c * kWgRows * kRowBytes;
       const uint32_t k_addr = L.resident ? stage : stage + kPanel128;
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wgmma_ss_n64(s, smem_desc(q_addr + kk * 32, 16, kSbo),
-                     smem_desc(k_addr + kk * 32, 16, kSbo), pn > 0 || kk > 0);
-      }
+      issue_panel(s, q_addr, k_addr, pn == 0);
       wgmma_commit();
       if (pn > 0) {
         wgmma_wait<1>();
@@ -1108,7 +771,7 @@ __device__ __forceinline__ void sliced_fwd(const CUtensorMap& qmap,
     const int vb = j & 1;
     mbar_wait(v_full(vb), (j >> 1) & 1);
     wgmma_fence();
-    issue_rs<kSliceCols>(o, pf, base + L.v + vb * kSliceVTile);
+    issue_rs<kSliceCols>(o, pf, base + L.v + vb * kSliceTile);
     wgmma_commit();
     wgmma_wait<0>();
     hold(o);
@@ -1743,6 +1406,729 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
+// ------------------------------- dQ and dK/dV above 256 columns
+
+// The bf16 backward over output-column slices (the plan (0, slices)): one
+// CTA per (b*h, owned tile, slice of kSliceCols output columns), slices
+// side by side, the producer and two consumer warpgroups of the wgmma
+// kernels, the slice's accumulator in 128 registers (m64n256). The scores
+// S and dP (dK/dV: S^T and dP^T) contract over all of d in 64-column
+// panels, each panel its own commit group, in the same order in every
+// slice; the panels of the slice's own columns that the output product
+// reads again (dQ: K's; dK/dV: Q's and dO's) go to a kept tile of 4
+// panels, which one producer thread refills once both warpgroups are done
+// with it, and every other panel passes through a ring of stages, released
+// as soon as its products have landed.
+
+// A sliced CTA's slice: its first column, its columns (those past d are
+// computed, not stored), and its kept panels [kp0, kp0 + nk) of d.
+struct Slice {
+  int index, c_lo, cols, kp0, nk;
+  __device__ bool kept(int pn) const { return pn >= kp0 && pn < kp0 + nk; }
+};
+
+__device__ __forceinline__ Slice slice_of(const Params& p, int panels) {
+  Slice s;
+  s.index = blockIdx.x % p.slices;
+  s.c_lo = s.index * kSliceCols;
+  s.cols = min(kSliceCols, p.d - s.c_lo);
+  s.kp0 = s.c_lo / kPanelCols;
+  s.nk = min(kSliceCols / kPanelCols, panels - s.kp0);
+  return s;
+}
+
+// One panel's products into acc, a commit group of its own (`first` zeroes
+// acc); then the stage of the panel before it (`held`, -1 for none: a kept
+// panel, or none yet) is released once its products have landed, so that
+// the next panel's wait overlaps this one's products. The wait is
+// unconditional (with one group pending it returns at once): a wgmma wait
+// under a branch made ptxas serialize every wgmma of the kernel (C7515).
+__device__ __forceinline__ void panel_step(float (&acc)[32], uint32_t a,
+                                           uint32_t b, bool first, int st,
+                                           int& held, int lane,
+                                           uint32_t empty_bars) {
+  wgmma_fence();
+  issue_panel(acc, a, b, first);
+  wgmma_commit();
+  wgmma_wait<1>();
+  if (held >= 0 && lane == 0) mbar_arrive(empty_bars + 8 * held);
+  held = st;
+}
+
+__device__ __forceinline__ void panels_done(int held, int lane,
+                                            uint32_t empty_bars) {
+  wgmma_wait<0>();
+  if (held >= 0 && lane == 0) mbar_arrive(empty_bars + 8 * held);
+}
+
+// This thread's share of sum over d of f32(a) * f32(b) for one row: the
+// 16-byte chunks tq, tq + 4, ...; the 4 threads of the row add theirs.
+__device__ __forceinline__ float row_dot_part(const bf16* a, const bf16* b,
+                                              int d, int tq) {
+  float sum = 0.f;
+#pragma unroll 4
+  for (int c = tq * 8; c < d; c += 32) {
+    sum = dot8(*reinterpret_cast<const uint4*>(a + c),
+               *reinterpret_cast<const uint4*>(b + c), sum);
+  }
+  return sum;
+}
+
+// dQ's shared memory: Q and dO (128 rows, all of d) resident where they
+// fit beside the kept K tile and a ring of 4 stages of one 64-row panel
+// (d up to 320), else streamed through a ring of 8 stages, each a 128-row
+// panel of Q or dO and a 64-row panel of K or V.
+struct DqSlicedLayout {
+  int panels, stages;
+  bool resident;
+  int dout, kept, ring, stage, kv, bars, smem;  // offsets and sizes in bytes
+};
+
+// own full; full and empty a stage; kept full and empty.
+constexpr int kDqBarBytes = 8 * (3 + 2 * 8);
+
+__host__ __device__ constexpr DqSlicedLayout dq_sliced_layout(int d) {
+  DqSlicedLayout L{};
+  L.panels = (d + kPanelCols - 1) / kPanelCols;
+  L.resident = 2 * L.panels * kPanel128 + kSliceTile + 4 * kPanel64 +
+                   kDqBarBytes + 1024 <=
+               kMaxSmem;
+  L.stages = L.resident ? 4 : 8;
+  L.dout = L.resident ? L.panels * kPanel128 : 0;
+  L.kept = L.resident ? 2 * L.panels * kPanel128 : 0;
+  L.ring = L.kept + kSliceTile;
+  L.stage = L.resident ? kPanel64 : kPanel128 + kPanel64;
+  L.kv = L.resident ? 0 : kPanel128;  // the K or V panel in a stage
+  L.bars = L.ring + L.stages * L.stage;
+  L.smem = L.bars + kDqBarBytes + 1024;
+  return L;
+}
+static_assert(dq_sliced_layout(256).resident &&
+                  dq_sliced_layout(256).smem == 197784 &&
+                  dq_sliced_layout(264).resident &&
+                  dq_sliced_layout(264).smem == 230552 &&
+                  dq_sliced_layout(320).resident &&
+                  dq_sliced_layout(320).smem == 230552 &&
+                  !dq_sliced_layout(512).resident &&
+                  dq_sliced_layout(512).smem == 230552 &&
+                  !dq_sliced_layout(1024).resident &&
+                  dq_sliced_layout(1024).smem == 230552 &&
+                  !dq_sliced_layout(1 << 20).resident &&
+                  dq_sliced_layout(1 << 20).smem <= kMaxSmem,
+              "the sliced dQ's shared memory at d 256, 264 and 320 (Q and "
+              "dO resident), 512, 1024 and any wider head (streamed)");
+
+// dQ over 256-column slices: a consumer warpgroup owns 64 Q rows; per
+// 64-key tile dP = dO V^T, then S = Q K^T, panel by panel (the panels of
+// the slice's K columns from the kept tile), P = exp2(S' - lse') and
+// dS = P (dP - delta) in registers, dQ_slice += dS K_slice (m64n256k16,
+// dS from registers, the kept K tile read MN-major). delta = rowsum(dO *
+// O) over all of d, each thread reading its rows' 16-byte chunks from
+// device memory (the same sum in every slice; slice 0 writes it).
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    wide_dq_bf16_sliced_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap domap,
+                               const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const DqSlicedLayout L = dq_sliced_layout(p.d);
+  const int np = L.panels, stages = L.stages;
+  const uint32_t own_full = base + L.bars;
+  const uint32_t full_bars = own_full + 8;
+  const uint32_t empty_bars = full_bars + 8 * stages;
+  const uint32_t kept_full = empty_bars + 8 * stages;
+  const uint32_t kept_empty = kept_full + 8;
+  const uint32_t kept = base + L.kept;
+  const Slice sl = slice_of(p, np);
+  int bh, tile;
+  group_tile(p, (p.s_q + kBlockM - 1) / kBlockM, true, bh, tile,
+             blockIdx.x / p.slices);
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int m0 = tile * kBlockM;
+  // Keys [0, n_end) reach some row of this tile.
+  const int n_end =
+      p.causal ? max(0, min(p.s_k, p.q_offset + min(m0 + kBlockM, p.s_q) -
+                                       p.k_offset))
+               : p.s_k;
+  const int n_tiles = (n_end + kTileRows - 1) / kTileRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full_bars + 8 * st, 1);
+      mbar_init(empty_bars + 8 * st, kConsumerWarps);
+    }
+    mbar_init(kept_full, 1);
+    mbar_init(kept_empty, kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (n_tiles > 0 && threadIdx.x == 0) {
+      // The ring: Q and dO once when resident, then each key tile's dP
+      // panels (dO's when streamed, V's) and S panels (Q's when streamed,
+      // K's outside the kept tile).
+      if (L.resident) {
+        mbar_expect_tx(own_full, 2 * np * kPanel128);
+        for (int pn = 0; pn < np; ++pn) {
+          tma_load(base + pn * kPanel128, qmap, own_full, pn * kPanelCols,
+                   hi, m0, bi);
+          tma_load(base + L.dout + pn * kPanel128, domap, own_full,
+                   pn * kPanelCols, hi, m0, bi);
+        }
+      }
+      int g = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        for (int x = 0; x < 2 * np; ++x) {
+          const bool is_s = x >= np;
+          const int pn = is_s ? x - np : x;
+          const bool kept_k = is_s && sl.kept(pn);
+          if (L.resident && kept_k) continue;
+          const int st = g % stages;
+          // The stage's previous panel was released (round 0 passes).
+          mbar_wait(empty_bars + 8 * st, ((g / stages) & 1) ^ 1);
+          const uint32_t at = base + L.ring + st * L.stage;
+          const uint32_t bar = full_bars + 8 * st;
+          mbar_expect_tx(bar, (L.resident ? 0 : kPanel128) +
+                                  (kept_k ? 0 : kPanel64));
+          if (is_s) {
+            if (!L.resident) {
+              tma_load(at, qmap, bar, pn * kPanelCols, hi, m0, bi);
+            }
+            if (!kept_k) {
+              tma_load(at + L.kv, kmap, bar, pn * kPanelCols, hi,
+                       j * kTileRows, bi);
+            }
+          } else {
+            if (!L.resident) {
+              tma_load(at, domap, bar, pn * kPanelCols, hi, m0, bi);
+            }
+            tma_load(at + L.kv, vmap, bar, pn * kPanelCols, hi,
+                     j * kTileRows, bi);
+          }
+          ++g;
+        }
+      }
+    } else if (n_tiles > 0 && threadIdx.x == 32) {
+      // The kept K tile: the slice's K panels of each key tile, once both
+      // consumers' dQ += dS K of the one before has landed.
+      for (int j = 0; j < n_tiles; ++j) {
+        mbar_wait(kept_empty, (j & 1) ^ 1);
+        mbar_expect_tx(kept_full, sl.nk * kPanel64);
+        for (int i = 0; i < sl.nk; ++i) {
+          tma_load(kept + i * kPanel64, kmap, kept_full,
+                   (sl.kp0 + i) * kPanelCols, hi, j * kTileRows, bi);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int t = threadIdx.x - wg * kWgThreads;
+  const int lane = t & 31, tq = lane & 3;
+  const int m0w = m0 + c * kWgRows;
+  // The thread's rows of the m64 accumulators: row[0] and row[0] + 8.
+  const int row[2] = {m0w + (t >> 5) * 16 + (lane >> 2),
+                      m0w + (t >> 5) * 16 + (lane >> 2) + 8};
+  const float scale2 = p.scale * kLog2e;
+  const long long stat0 = static_cast<long long>(bh) * p.s_q;
+  float lse2[2], dlt[2];
+  int end[2];  // row i keeps the keys before end[i]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row[i] < p.s_q;
+    lse2[i] = in ? p.lse[stat0 + row[i]] * kLog2e : 0.f;
+    if (p.compute_delta) {
+      float part = in ? row_dot_part(row_of<bf16>(p.dout, p, kDO, bi, hi,
+                                                  row[i]),
+                                     row_of<bf16>(p.o, p, kO, bi, hi, row[i]),
+                                     p.d, tq)
+                      : 0.f;
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      dlt[i] = part;
+      if (sl.index == 0 && tq == 0 && in) p.delta[stat0 + row[i]] = part;
+    } else {
+      dlt[i] = in ? p.delta[stat0 + row[i]] : 0.f;
+    }
+    end[i] = p.causal ? min(p.s_k, p.q_offset + row[i] - p.k_offset + 1)
+                      : p.s_k;
+  }
+  float dq[kSliceCols / 2];
+#pragma unroll
+  for (int i = 0; i < kSliceCols / 2; ++i) dq[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t dsf[4][4];
+  const uint32_t rows_at = c * kWgRows * kRowBytes;  // in a 128-row panel
+  if (n_tiles > 0 && L.resident) mbar_wait(own_full, 0);
+  int g = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = j * kTileRows;
+    int held = -1;
+    // dP = dO V^T.
+    for (int pn = 0; pn < np; ++pn) {
+      const int st = g % stages;
+      mbar_wait(full_bars + 8 * st, (g / stages) & 1);
+      const uint32_t at = base + L.ring + st * L.stage;
+      ++g;
+      const uint32_t a =
+          (L.resident ? base + L.dout + pn * kPanel128 : at) + rows_at;
+      panel_step(dp, a, at + L.kv, pn == 0, st, held, lane,
+                 empty_bars);
+    }
+    // S = Q K^T.
+    for (int pn = 0; pn < np; ++pn) {
+      const bool kept_k = sl.kept(pn);
+      if (kept_k && pn == sl.kp0) mbar_wait(kept_full, j & 1);
+      int st = -1;
+      uint32_t at = 0;
+      if (!L.resident || !kept_k) {
+        st = g % stages;
+        mbar_wait(full_bars + 8 * st, (g / stages) & 1);
+        at = base + L.ring + st * L.stage;
+        ++g;
+      }
+      const uint32_t a = (L.resident ? base + pn * kPanel128 : at) + rows_at;
+      const uint32_t b =
+          kept_k ? kept + (pn - sl.kp0) * kPanel64 : at + L.kv;
+      panel_step(s, a, b, pn == 0, st, held, lane, empty_bars);
+    }
+    panels_done(held, lane, empty_bars);
+    hold(s);
+    hold(dp);
+    // P = exp2(S' - lse') from f32 scores, masked with -1e30 on diagonal
+    // and ragged tiles: s[jj * 4 + i * 2 + e] is row row[i], key n0 + jj *
+    // 8 + tq * 2 + e; dS = P (dP - delta), rounded to bf16 fragments.
+    const bool need_mask =
+        n0 + kTileRows > p.s_k ||
+        (p.causal && p.k_offset + n0 + kTileRows - 1 > p.q_offset + m0w);
+    const int col0 = n0 + tq * 2;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1, col = (x >> 2) * 8 + (x & 1);
+      float v = s[x] * scale2;
+      if (need_mask && col >= end[i] - col0) v = kNegBig;
+      dp[x] = ex2(v - lse2[i]) * (dp[x] - dlt[i]);
+    }
+    pack_a(dp, dsf);
+    wgmma_fence();
+    issue_rs<kSliceCols>(dq, dsf, kept);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(dq);
+    hold(dsf);
+    if (lane == 0) mbar_arrive(kept_empty);  // one arrive a warp
+  }
+
+  // dq[j * 4 + i * 2 + e]: row row[i], slice column j * 8 + tq * 2 + e. A
+  // row that no key reaches stores zeros.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= p.s_q) continue;
+    bf16* orow = out_row_of<bf16>(p.dq, p, kDQ, bi, hi, row[i]) + sl.c_lo;
+#pragma unroll
+    for (int j = 0; j < kSliceCols / 8; ++j) {
+      if (j * 8 >= sl.cols) break;
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) = pack_bf16(
+          dq[j * 4 + i * 2] * p.scale, dq[j * 4 + i * 2 + 1] * p.scale);
+    }
+  }
+}
+
+// dK/dV's shared memory: the owned K and V (64 rows, all of d) resident
+// where they fit beside the kept Q and dO tiles, P^T, the tile's lse and
+// delta and two rings of 3 stages of one 64-row panel (d up to 384), else
+// streamed: each stage of the rings (4 stages) an owned panel of K or V
+// and the streamed one of Q or dO.
+struct DkvSlicedLayout {
+  int panels, stages;
+  bool resident;
+  // Offsets and sizes in bytes; `own` is where a stage's Q or dO panel
+  // sits (after the K or V panel when streamed).
+  int kept_q, kept_do, pbuf, stats, q_ring, do_ring, stage, own, bars, smem;
+};
+
+// own full; full and empty a stage of each ring; kept Q and kept dO full
+// and empty.
+constexpr int kDkvBarBytes = 8 * (1 + 4 * 4 + 4);
+constexpr int kPBytes = kWgThreads * 32 * 4;  // P^T, f32
+
+__host__ __device__ constexpr DkvSlicedLayout dkv_sliced_layout(int d) {
+  DkvSlicedLayout L{};
+  L.panels = (d + kPanelCols - 1) / kPanelCols;
+  const int fixed = 2 * kSliceTile + kPBytes + 1024 + kDkvBarBytes + 1024;
+  L.resident = 2 * L.panels * kPanel64 + 2 * 3 * kPanel64 + fixed <= kMaxSmem;
+  L.stages = L.resident ? 3 : 4;
+  L.stage = L.resident ? kPanel64 : 2 * kPanel64;
+  L.own = L.resident ? 0 : kPanel64;
+  L.kept_q = L.resident ? 2 * L.panels * kPanel64 : 0;
+  L.kept_do = L.kept_q + kSliceTile;
+  L.pbuf = L.kept_do + kSliceTile;
+  L.stats = L.pbuf + kPBytes;  // lse, then delta: 64 floats each
+  L.q_ring = L.stats + 1024;
+  L.do_ring = L.q_ring + L.stages * L.stage;
+  L.bars = L.do_ring + L.stages * L.stage;
+  L.smem = L.bars + kDkvBarBytes + 1024;
+  return L;
+}
+static_assert(dkv_sliced_layout(256).resident &&
+                  dkv_sliced_layout(256).smem == 198824 &&
+                  dkv_sliced_layout(264).resident &&
+                  dkv_sliced_layout(264).smem == 215208 &&
+                  dkv_sliced_layout(320).resident &&
+                  dkv_sliced_layout(320).smem == 215208 &&
+                  dkv_sliced_layout(384).resident &&
+                  dkv_sliced_layout(384).smem == 231592 &&
+                  !dkv_sliced_layout(512).resident &&
+                  dkv_sliced_layout(512).smem == 215208 &&
+                  !dkv_sliced_layout(1024).resident &&
+                  dkv_sliced_layout(1024).smem == 215208 &&
+                  !dkv_sliced_layout(1 << 20).resident &&
+                  dkv_sliced_layout(1 << 20).smem <= kMaxSmem,
+              "the sliced dK/dV's shared memory at d 256, 264, 320 and 384 "
+              "(K and V resident), 512, 1024 and any wider head (streamed)");
+
+// What a dK/dV producer thread needs of its CTA.
+struct DkvProducer {
+  const Params& p;
+  const DkvSlicedLayout& L;
+  const Slice& sl;
+  uint32_t base;
+  unsigned char* ptr;  // base, as a generic pointer
+  uint32_t own_full;
+  int bh, bi, hi, n0, m_begin, n_qtiles;
+};
+
+// One ring of dK/dV: Q's (the owned K's panels when streamed, `own_map`)
+// or dO's (V's); a stage is the owned panel (streamed) and the streamed
+// one outside the kept tile (`stream_map`: Q or dO).
+__device__ __forceinline__ void produce_dkv_ring(const DkvProducer& px,
+                                                 const CUtensorMap& own_map,
+                                                 const CUtensorMap& stream_map,
+                                                 uint32_t full_bars,
+                                                 int ring_offset) {
+  const DkvSlicedLayout& L = px.L;
+  const int stages = L.stages;
+  const uint32_t empty_bars = full_bars + 8 * stages;
+  const uint32_t ring = px.base + ring_offset;
+  int g = 0;
+  for (int j = 0; j < px.n_qtiles; ++j) {
+    const int m0 = px.m_begin + j * kTileRows;
+    for (int pn = 0; pn < L.panels; ++pn) {
+      const bool kept = px.sl.kept(pn);
+      if (L.resident && kept) continue;
+      const int st = g % stages;
+      mbar_wait(empty_bars + 8 * st, ((g / stages) & 1) ^ 1);
+      const uint32_t at = ring + st * L.stage;
+      const uint32_t bar = full_bars + 8 * st;
+      mbar_expect_tx(bar, (L.resident ? 0 : kPanel64) + (kept ? 0 : kPanel64));
+      if (!L.resident) {
+        tma_load(at, own_map, bar, pn * kPanelCols, px.hi, px.n0, px.bi);
+      }
+      if (!kept) {
+        tma_load(at + L.own, stream_map, bar, pn * kPanelCols, px.hi, m0,
+                 px.bi);
+      }
+      ++g;
+    }
+  }
+}
+
+// A kept tile of dK/dV (Q's with the tile's lse, or dO's with its delta:
+// `stats` from `stat_at` floats into the stats buffer), refilled once both
+// warpgroups are done with the tile before; the statistics in 4-byte
+// copies from the warp's 32 lanes (s_q * 4 need not be a multiple of TMA's
+// 16 bytes), rows past s_q as zeros.
+__device__ __forceinline__ void produce_dkv_kept(const DkvProducer& px,
+                                                 const CUtensorMap& map,
+                                                 uint32_t full,
+                                                 uint32_t empty,
+                                                 int kept_offset,
+                                                 const float* stats,
+                                                 int stat_at, int lane) {
+  const uint32_t kept = px.base + kept_offset;
+  const int s_q = px.p.s_q;
+  const float* src = stats + static_cast<long long>(px.bh) * s_q;
+  float* dst = reinterpret_cast<float*>(px.ptr + px.L.stats) + stat_at;
+  for (int j = 0; j < px.n_qtiles; ++j) {
+    const int m0 = px.m_begin + j * kTileRows;
+    mbar_wait(empty, (j & 1) ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(full, px.sl.nk * kPanel64);
+      for (int i = 0; i < px.sl.nk; ++i) {
+        tma_load(kept + i * kPanel64, map, full,
+                 (px.sl.kp0 + i) * kPanelCols, px.hi, m0, px.bi);
+      }
+    }
+#pragma unroll
+    for (int r = lane; r < kTileRows; r += 32) {
+      const bool valid = m0 + r < s_q;
+      cp_async4(dst + r, valid ? src + m0 + r : src, valid);
+    }
+    cp_async_arrive(full);
+  }
+  // The lanes' last copies land before they leave.
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// What a dK/dV consumer warpgroup needs of its CTA.
+struct DkvConsumer {
+  const Params& p;
+  const DkvSlicedLayout& L;
+  const Slice& sl;
+  uint32_t base;
+  unsigned char* ptr;  // base, as a generic pointer
+  uint32_t own_full, full_bars;  // full_bars: its ring's
+  uint32_t kq_full, kq_empty, kdo_full, kdo_empty;
+  int bi, hi, n0, m_begin, n_qtiles, t;
+};
+
+// Warpgroup A (kA: S^T, P^T handed to B, dV) or B (dP^T, dS^T, dK) of
+// the sliced dK/dV, through the epilogue.
+template <bool kA>
+__device__ __forceinline__ void consume_dkv_sliced(const DkvConsumer& cx) {
+  const Params& p = cx.p;
+  const DkvSlicedLayout& L = cx.L;
+  const Slice& sl = cx.sl;
+  const int np = L.panels, stages = L.stages;
+  const int t = cx.t, lane = t & 31, tq = lane & 3, n0 = cx.n0;
+  // The thread's keys of the m64 accumulators: key[0] and key[0] + 8.
+  const int key[2] = {n0 + (t >> 5) * 16 + (lane >> 2),
+                      n0 + (t >> 5) * 16 + (lane >> 2) + 8};
+  float acc[kSliceCols / 2];
+#pragma unroll
+  for (int i = 0; i < kSliceCols / 2; ++i) acc[i] = 0.f;
+  float* pbuf = reinterpret_cast<float*>(cx.ptr + L.pbuf);  // [32][128]
+  // lse, then delta: 64 floats each.
+  const float* stats = reinterpret_cast<const float*>(cx.ptr + L.stats);
+  const uint32_t empty_bars = cx.full_bars + 8 * stages;
+  const uint32_t ring = cx.base + (kA ? L.q_ring : L.do_ring);
+  // A contracts K with Q (the kept Q tile), B V with dO (the kept dO tile).
+  const uint32_t own = cx.base + (kA ? 0 : np * kPanel64);
+  const uint32_t kept = cx.base + (kA ? L.kept_q : L.kept_do);
+  const uint32_t other = cx.base + (kA ? L.kept_do : L.kept_q);
+  float s[32];
+  uint32_t f[4][4];
+  if (cx.n_qtiles > 0 && L.resident) mbar_wait(cx.own_full, 0);
+  int g = 0;
+  for (int j = 0; j < cx.n_qtiles; ++j) {
+    const int m0 = cx.m_begin + j * kTileRows;
+    int held = -1;
+    // A: S^T = K Q^T; B: dP^T = V dO^T.
+    for (int pn = 0; pn < np; ++pn) {
+      const bool kept_p = sl.kept(pn);
+      if (kept_p && pn == sl.kp0) {
+        mbar_wait(kA ? cx.kq_full : cx.kdo_full, j & 1);
+      }
+      int st = -1;
+      uint32_t at = 0;
+      if (!L.resident || !kept_p) {
+        st = g % stages;
+        mbar_wait(cx.full_bars + 8 * st, (g / stages) & 1);
+        at = ring + st * L.stage;
+        ++g;
+      }
+      const uint32_t a = L.resident ? own + pn * kPanel64 : at;
+      const uint32_t b =
+          kept_p ? kept + (pn - sl.kp0) * kPanel64 : at + L.own;
+      panel_step(s, a, b, pn == 0, st, held, lane, empty_bars);
+    }
+    panels_done(held, lane, empty_bars);
+    hold(s);
+    if constexpr (kA) {
+      // P^T from f32 scores and each query's lse, masked with -1e30 on
+      // diagonal and ragged tiles: s[jj * 4 + i * 2 + e] is key key[i],
+      // query m0 + jj * 8 + tq * 2 + e.
+      const float scale2 = p.scale * kLog2e;
+      const bool need_mask =
+          m0 + kTileRows > p.s_q ||
+          (p.causal && p.q_offset + m0 < p.k_offset + n0 + kTileRows - 1);
+      // Key i sees the queries of the tile in [from[i], to), as offsets
+      // from this thread's first column m0 + 2 tq.
+      int from[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        from[i] = (p.causal ? p.k_offset + key[i] - p.q_offset : 0) -
+                  (m0 + tq * 2);
+      }
+      const int to = p.s_q - (m0 + tq * 2);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(stats + jj * 8 + tq * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = jj * 4 + e, i = e >> 1, col = jj * 8 + (e & 1);
+          float v = s[x] * scale2;
+          if (need_mask && (col < from[i] || col >= to)) v = kNegBig;
+          s[x] = ex2(v - ((e & 1) ? l2.y : l2.x) * kLog2e);
+        }
+      }
+      // Done with Q's tile and lse: every lane's reads before the warp's
+      // arrive.
+      __syncwarp();
+      if (lane == 0) mbar_arrive(cx.kq_empty);
+      if (j > 0) named_sync(kPFree);  // B has read the previous tile's P^T
+#pragma unroll
+      for (int x = 0; x < 32; ++x) pbuf[x * kWgThreads + t] = s[x];
+      named_arrive(kPReady);
+    } else {
+      named_sync(kPReady);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 dl = *reinterpret_cast<const float2*>(
+            stats + kTileRows + jj * 8 + tq * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = jj * 4 + e;
+          s[x] = pbuf[x * kWgThreads + t] * (s[x] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      __syncwarp();  // done with dO's tile and delta
+      if (lane == 0) mbar_arrive(cx.kdo_empty);
+      if (j + 1 < cx.n_qtiles) named_arrive(kPFree);
+    }
+    // A: dV += P^T dO_slice; B: dK += dS^T Q_slice.
+    pack_a(s, f);
+    mbar_wait(kA ? cx.kdo_full : cx.kq_full, j & 1);
+    wgmma_fence();
+    issue_rs<kSliceCols>(acc, f, other);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(acc);
+    hold(f);
+    if (lane == 0) mbar_arrive(kA ? cx.kdo_empty : cx.kq_empty);
+  }
+
+  // acc[j * 4 + i * 2 + e]: key key[i], slice column j * 8 + tq * 2 + e;
+  // dV from warpgroup A, dK (scaled) from B. A key tile that no query
+  // reaches stores zeros.
+  const float scale = kA ? 1.f : p.scale;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= p.s_k) continue;
+    bf16* orow = (kA ? out_row_of<bf16>(p.dv, p, kDV, cx.bi, cx.hi, key[i])
+                     : out_row_of<bf16>(p.dk, p, kDK, cx.bi, cx.hi, key[i])) +
+                 sl.c_lo;
+#pragma unroll
+    for (int j = 0; j < kSliceCols / 8; ++j) {
+      if (j * 8 >= sl.cols) break;
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) = pack_bf16(
+          acc[j * 4 + i * 2] * scale, acc[j * 4 + i * 2 + 1] * scale);
+    }
+  }
+}
+
+// dK/dV over 256-column slices: both consumer warpgroups own the CTA's 64
+// keys, as in wide_dkv_bf16_kernel. Per 64-query tile warpgroup A
+// computes S^T = K Q^T panel by panel (Q's ring and the kept Q tile),
+// P^T = exp2(S^T' - lse'), hands the f32 P^T to B through shared memory
+// and accumulates dV_slice += P^T dO_slice (the kept dO tile); B computes
+// dP^T = V dO^T (dO's ring and the kept dO tile), dS^T = P^T (dP^T -
+// delta) and dK_slice += dS^T Q_slice (the kept Q tile), scaled on the
+// f32 result. The producer warpgroup's four warps: Q's ring (and the owned
+// K and V when resident), dO's ring, the kept Q tile with the tile's lse,
+// the kept dO tile with its delta; each role is a function of its own, its
+// maps fixed at the call (selecting them at run time cost spills at the
+// producer's 24 registers).
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    wide_dkv_bf16_sliced_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap domap,
+                                const Params p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t addr = smem_u32(smem_raw);
+  const uint32_t base = (addr + 1023) & ~1023u;
+  unsigned char* const ptr = smem_raw + (base - addr);
+  const DkvSlicedLayout L = dkv_sliced_layout(p.d);
+  const int np = L.panels, stages = L.stages;
+  const uint32_t own_full = base + L.bars;
+  // Q's ring's full and empty barriers, then dO's.
+  const uint32_t ring_bars[2] = {own_full + 8, own_full + 8 + 16 * stages};
+  const uint32_t kept_bars = own_full + 8 + 32 * stages;
+  // kept Q full, empty, kept dO full, empty.
+  const uint32_t kq_full = kept_bars, kq_empty = kept_bars + 8;
+  const uint32_t kdo_full = kept_bars + 16, kdo_empty = kept_bars + 24;
+  const Slice sl = slice_of(p, np);
+  int bh, tile;
+  group_tile(p, (p.s_k + kTileRows - 1) / kTileRows, false, bh, tile,
+             blockIdx.x / p.slices);
+  const int bi = bh / p.h, hi = bh % p.h;
+  const int n0 = tile * kTileRows;
+  // Queries that reach this tile: under the causal mask, those at global
+  // positions from the global position of its first key on.
+  const int m_begin =
+      p.causal ? max(0, p.k_offset + n0 - p.q_offset) / kTileRows * kTileRows
+               : 0;
+  const int n_qtiles =
+      m_begin < p.s_q ? (p.s_q - m_begin + kTileRows - 1) / kTileRows : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int r = 0; r < 2; ++r) {
+      for (int st = 0; st < stages; ++st) {
+        mbar_init(ring_bars[r] + 8 * st, 1);
+        mbar_init(ring_bars[r] + 8 * (stages + st), kConsumerWarps / 2);
+      }
+    }
+    // A kept tile is full once its TMA bytes and the 32 lanes' lse or
+    // delta copies have landed; empty once both warpgroups are done.
+    mbar_init(kq_full, 1 + 32);
+    mbar_init(kq_empty, kConsumerWarps);
+    mbar_init(kdo_full, 1 + 32);
+    mbar_init(kdo_empty, kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (n_qtiles == 0) return;
+    const DkvProducer px{p, L, sl, base, ptr, own_full, bh, bi, hi, n0,
+                         m_begin, n_qtiles};
+    if (warp == 0 && lane == 0) {
+      if (L.resident) {  // the owned K and V
+        mbar_expect_tx(own_full, 2 * np * kPanel64);
+        for (int pn = 0; pn < np; ++pn) {
+          tma_load(base + pn * kPanel64, kmap, own_full, pn * kPanelCols, hi,
+                   n0, bi);
+          tma_load(base + (np + pn) * kPanel64, vmap, own_full,
+                   pn * kPanelCols, hi, n0, bi);
+        }
+      }
+      produce_dkv_ring(px, kmap, qmap, ring_bars[0], L.q_ring);
+    } else if (warp == 1 && lane == 0) {
+      produce_dkv_ring(px, vmap, domap, ring_bars[1], L.do_ring);
+    } else if (warp == 2) {
+      produce_dkv_kept(px, qmap, kq_full, kq_empty, L.kept_q, p.lse, 0,
+                       lane);
+    } else if (warp == 3) {
+      produce_dkv_kept(px, domap, kdo_full, kdo_empty, L.kept_do, p.delta,
+                       kTileRows, lane);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const DkvConsumer cx{p, L, sl, base, ptr, own_full, ring_bars[wg - 1],
+                       kq_full, kq_empty, kdo_full, kdo_empty, bi, hi, n0,
+                       m_begin, n_qtiles, static_cast<int>(threadIdx.x) -
+                                              wg * kWgThreads};
+  if (wg == 1) {
+    consume_dkv_sliced<true>(cx);
+  } else {
+    consume_dkv_sliced<false>(cx);
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 // The map of tensor `which` at `s` rows and the true head dim p.d,
@@ -1930,30 +2316,53 @@ int launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// A simple kernel over (b*h, owned tile) x column slices: the owned rows'
-// inputs held in shared memory where `smem_of(d, true)` fits (never above
-// kMaxHeldCols, which keeps the sum in an int).
-constexpr int kMaxHeldCols = 4096;
-static_assert(dq_smem(kMaxHeldCols, true) > kMaxSmem,
-              "no held width is cut off by kMaxHeldCols");
-
-int launch_simple(void (*kernel)(Params), Params p, int rows, int slices,
-                  int (*smem_of)(int, bool), cudaStream_t stream) {
-  p.held = p.d <= kMaxHeldCols && smem_of(p.d, true) <= kMaxSmem;
-  const int smem = smem_of(p.d, p.held);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long ctas =
-      static_cast<long long>(p.b) * p.h * ((rows + kOwn - 1) / kOwn);
+// The sliced dQ (kDkv false) or dK/dV over `slices` output-column slices.
+// dQ: Q and dO in 128-row boxes, K and V in 64-row ones, K and V streamed
+// through every Q tile of a head; dK/dV: every map in 64-row boxes, Q and
+// dO streamed through every key tile.
+template <bool kDkv>
+int launch_bwd_sliced(const Params& p, int slices, cudaStream_t stream) {
+  CUtensorMap maps[4];  // q, k, v, dO
+  const struct {
+    const void* ptr;
+    int which, s, box_rows;
+  } tensors[4] = {{p.q, kQ, p.s_q, kDkv ? kTileRows : kBlockM},
+                  {p.k, kK, p.s_k, kTileRows},
+                  {p.v, kV, p.s_k, kTileRows},
+                  {p.dout, kDO, p.s_q, kDkv ? kTileRows : kBlockM}};
+  for (int i = 0; i < 4; ++i) {
+    const int err = encode_tensor(&maps[i], tensors[i].ptr, p,
+                                  tensors[i].which, tensors[i].s,
+                                  tensors[i].box_rows);
+    if (err != 0) return err;
+  }
+  const void* kernel =
+      kDkv ? reinterpret_cast<const void*>(&wide_dkv_bf16_sliced_kernel)
+           : reinterpret_cast<const void*>(&wide_dq_bf16_sliced_kernel);
+  static std::atomic<int> l2_bytes[kMaxDevices];
+  int l2 = 0;
+  // The limit every head dim's layout fits under.
+  const int err = prepare(kernel, kMaxSmem, l2_bytes, &l2);
+  if (err != 0) return err;
+  Params grouped = p;
+  grouped.group = heads_a_group(static_cast<long long>(p.b) * p.h,
+                                2LL * (kDkv ? p.s_q : p.s_k) * p.d * 2, l2);
+  grouped.slices = slices;
+  const int rows = kDkv ? kTileRows : kBlockM;
+  const long long ctas = static_cast<long long>(p.b) * p.h *
+                         (((kDkv ? p.s_k : p.s_q) + rows - 1) / rows) * slices;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<dim3(static_cast<unsigned>(ctas), slices), kThreads, smem,
-           stream>>>(p);
+  if constexpr (kDkv) {
+    wide_dkv_bf16_sliced_kernel<<<static_cast<unsigned>(ctas), kHopperThreads,
+                                  dkv_sliced_layout(p.d).smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], grouped);
+  } else {
+    wide_dq_bf16_sliced_kernel<<<static_cast<unsigned>(ctas), kHopperThreads,
+                                 dq_sliced_layout(p.d).smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], grouped);
+  }
   return cudaGetLastError();
 }
-
-int smem_dq(int d, bool held) { return dq_smem(d, held); }
-int smem_dkv(int d, bool held) { return dkv_smem(d, held); }
 
 bool takes(int d, int dtype, int s_q, int s_k) {
   return d >= 8 && d % 8 == 0 && (dtype == 0 || dtype == 1) && s_q >= 1 &&
@@ -2056,8 +2465,7 @@ extern "C" int kftpu_wide_bwd_dq(
                         : launch_dq_bf16<256>(p, st);
   }
   if (dtype == 0) return launch_bwd_f32<false>(p, slices, st);
-  return launch_simple(&wide_dq_kernel<__nv_bfloat16>, p, s_q, slices,
-                       &smem_dq, st);
+  return launch_bwd_sliced<false>(p, slices, st);
 }
 
 // dK and dV from the delta the dQ launch wrote (or the caller gave).
@@ -2086,8 +2494,7 @@ extern "C" int kftpu_wide_bwd_dkv(
                         : launch_dkv_bf16<256>(p, st);
   }
   if (dtype == 0) return launch_bwd_f32<true>(p, slices, st);
-  return launch_simple(&wide_dkv_kernel<__nv_bfloat16>, p, s_k, slices,
-                       &smem_dkv, st);
+  return launch_bwd_sliced<true>(p, slices, st);
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

@@ -3,7 +3,7 @@
 // flash_attention_f32.cuh):
 // mbarriers, TMA loads through 4-D tensor maps of [b, s, h, d] tensors,
 // wgmma descriptors and the wgmma forms the kernels issue, the row sums of
-// two swizzled tiles (the dQ kernels' delta), and the host side that
+// bf16 rows (the dQ kernels' delta), and the host side that
 // encodes the maps. Each source builds into its own library, so
 // nothing here is shared at run time; the header only keeps one copy of
 // the code.
@@ -137,6 +137,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// sum + the dot product of two 16-byte chunks of 8 bf16 values each, in
+// f32, element by element.
+__device__ __forceinline__ float dot8(const uint4 x, const uint4 y,
+                                      float sum) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const float2 fx = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&xs[w]));
+    const float2 fy = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&ys[w]));
+    sum = fmaf(fx.x, fy.x, sum);
+    sum = fmaf(fx.y, fy.y, sum);
+  }
+  return sum;
+}
+
 // sum over the row's D columns of f32(a) * f32(b), for row `row` of two
 // tiles laid out alike (panels `panel` bytes apart): this thread takes the
 // 16-byte chunks 2 tq and 2 tq + 1 of each 128-byte row (the swizzle moves
@@ -152,19 +170,8 @@ __device__ __forceinline__ float row_dot(const unsigned char* a,
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int off = pn * panel + row * kRowBytes + (tq * 2 + c) * 16;
-      const uint4 x = *reinterpret_cast<const uint4*>(a + off);
-      const uint4 y = *reinterpret_cast<const uint4*>(b + off);
-      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
-      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float2 fx = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&xs[w]));
-        const float2 fy = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&ys[w]));
-        sum = fmaf(fx.x, fy.x, sum);
-        sum = fmaf(fx.y, fy.y, sum);
-      }
+      sum = dot8(*reinterpret_cast<const uint4*>(a + off),
+                 *reinterpret_cast<const uint4*>(b + off), sum);
     }
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);

@@ -40,9 +40,8 @@ holds d up to 128 and over 256-column output slices above. In bf16 the
 (128; a narrower head runs on a 64- or 128-column tile whose columns past
 it are zeros); wider heads run the wide library, whose kernel for each
 head dim and dtype :func:`_wide_plan` chooses: the forward, partial, dQ
-and dK/dV on wgmma at 192 or 256 columns up to 256; above that, kernels
-that split the output's columns into slices of 256 (the forward and
-partial on wgmma, dQ and dK/dV on simple CUDA-core kernels). A head dim
+and dK/dV on wgmma at 192 or 256 columns up to 256; above that, wgmma
+kernels that split the output's columns into slices of 256. A head dim
 that is no multiple of 8 is copied into zero-padded ``[b, s, h,
 round_up(d, 8)]`` tensors first (zero columns add exactly 0 to every
 product and to delta; the scale stays ``1/sqrt(d)`` of the true d), and
@@ -188,11 +187,9 @@ def _wide(q) -> bool:
 
 class WidePlan(NamedTuple):
     """How the wide library (``WIDE_SOURCE``) runs one head dim: on the
-    ``"wgmma"`` kernels at ``width`` columns, or (``"simple"``) over
-    ``slices`` output-column slices: there the forward and the partial run
-    the sliced kernels (bf16 on wgmma, f32 on the CUDA cores' register
-    tiles), and dQ and dK/dV the register-tiled pair in f32 and still the
-    simple kernels in bf16."""
+    ``"wgmma"`` kernels at ``width`` columns, or (``"sliced"``) over
+    ``slices`` output-column slices, on the sliced kernels: bf16 on
+    wgmma, f32 on the CUDA cores' register tiles."""
     kernels: str
     width: int | None
     slices: int
@@ -202,23 +199,21 @@ def _wide_plan(d: int, dtype: torch.dtype) -> WidePlan:
     """The wide library's kernels for head dim d (a multiple of 8) in
     ``dtype``: bf16 up to 256 columns on wgmma at the narrowest width
     that holds d (TMA zero-fills the columns past d); f32 and wider bf16
-    heads over 256-column output slices, whose forward and partial run
-    the sliced kernels (bf16: ``wide_{fwd,partial}_bf16_sliced_kernel``
-    on wgmma; f32: ``fwd_f32_tiled_kernel`` on the CUDA cores) and whose
-    dQ and dK/dV run, in f32, the register-tiled pair
-    (``dq_f32_tiled_kernel``, ``dkv_f32_tiled_kernel``) and, in bf16, the
-    simple kernels (``wide_dq_kernel``, ``wide_dkv_kernel``). The
-    launches hand this plan to the library, which checks that it has its
-    kernels and does not choose."""
+    heads over 256-column output slices, on the sliced kernels: in bf16
+    ``wide_{fwd,partial,dq,dkv}_bf16_sliced_kernel`` on wgmma, in f32
+    ``fwd_f32_tiled_kernel``, ``dq_f32_tiled_kernel`` and
+    ``dkv_f32_tiled_kernel`` on the CUDA cores. The launches hand this
+    plan to the library, which checks that it has its kernels and does
+    not choose."""
     if dtype == torch.bfloat16 and d <= WIDE_WGMMA_WIDTHS[-1]:
         width = min(w for w in WIDE_WGMMA_WIDTHS if w >= d)
         return WidePlan("wgmma", width, 1)
-    return WidePlan("simple", None, -(-d // WIDE_SLICE_COLS))
+    return WidePlan("sliced", None, -(-d // WIDE_SLICE_COLS))
 
 
 def _plan_args(q) -> tuple:
     """The wide library's plan arguments for q's head dim and dtype:
-    ``(width, slices)``, width 0 for the simple kernels."""
+    ``(width, slices)``, width 0 for the sliced kernels."""
     plan = _wide_plan(q.shape[-1], q.dtype)
     return plan.width or 0, plan.slices
 
@@ -523,8 +518,8 @@ def _check_stats_contiguous(lse, delta) -> None:
 def _launch_dq(q, k, v, o, lse, do, delta, causal, scale, q_offset,
                k_offset, lib=None, plan=None):
     """The dQ launch; ``plan`` replaces :func:`_plan_args`'s plan for a
-    wide head (``(0, slices)`` times the simple kernel beside the wgmma
-    one in one build)."""
+    wide head (``(0, slices)`` times the sliced dQ beside the wgmma one
+    in one build)."""
     global BWD_DQ_LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v), ("dO", do), ("o", o)):
         if t is not None:

@@ -124,11 +124,18 @@ def test_ptxas_notes_keep_each_bf16_kernels_registers_spills_and_c75xx():
     ("_ZN56_GLOBAL__N__d2dbf473_23_flash_attention_wide_cu_5734265b6f32bwd20"
      "dkv_f32_tiled_kernelILi256EEEv14CUtensorMap_stS2_S2_S2_NS1_6ParamsE",
      "dkv_f32_tiled_kernel<256>"),
-    ("_ZN12_GLOBAL__N_114wide_dq_kernelI13__nv_bfloat16EEvNS_6ParamsE", None),
+    ("_ZN56_GLOBAL__N__d2dbf473_23_flash_attention_wide_cu_5734265b26wide_"
+     "dq_bf16_sliced_kernelE14CUtensorMap_stS0_S0_S0_NS_6ParamsE",
+     "wide_dq_bf16_sliced_kernel"),
+    ("_ZN56_GLOBAL__N__d2dbf473_23_flash_attention_wide_cu_5734265b27wide_"
+     "dkv_bf16_sliced_kernelE14CUtensorMap_stS0_S0_S0_NS_6ParamsE",
+     "wide_dkv_bf16_sliced_kernel"),
+    ("_Z19encode_tensor_helperP14CUtensorMap_stPKv", None),
 ])
 def test_ptxas_notes_name_the_redesigned_kernels(mangled, name):
-    # The f32 forward and backward and the sliced bf16 forward are named in
-    # ptxas's notes beside the wgmma kernels; the simple kernels are not.
+    # The f32 forward and backward and the sliced bf16 kernels are named in
+    # ptxas's notes beside the wgmma kernels; a function that is no kernel
+    # of the port is not.
     line = f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'"
     assert compare._kernel_name(line) == name
     notes = compare.ptxas_notes(
@@ -161,6 +168,17 @@ def test_compare_cases_time_the_f32_backward_pair():
                                           "float32")
         assert cases[f"bwd_f32_d{d}_small"] == ("bwd", (1, 1024, 8, d),
                                                 None, "float32")
+    assert len({c[0] for c in compare.CASES}) == len(compare.CASES)
+
+
+def test_compare_cases_time_the_sliced_bf16_backward_pair():
+    # dQ (computing delta) and dK/dV in bf16 at d 320 (two 256-column
+    # slices), at the shape that fills the card and at [1, 1024, 8, d].
+    cases = {c[0]: c[1:] for c in compare.CASES}
+    assert cases["bwd_bf16_d320"] == ("bwd", (8, 1024, 16, 320), None,
+                                      "bfloat16")
+    assert cases["bwd_bf16_d320_small"] == ("bwd", (1, 1024, 8, 320), None,
+                                            "bfloat16")
     assert len({c[0] for c in compare.CASES}) == len(compare.CASES)
 
 

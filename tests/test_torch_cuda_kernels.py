@@ -203,12 +203,11 @@ def test_forward_kernel_is_deterministic(cuda):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernels_take_head_dims_past_the_old_cap(cuda, dtype):
     # The wide kernels once stopped at 824 columns (what one CTA's shared
-    # memory held in dK/dV) and refused 825 and 832. Now the simple
-    # kernels split the output's columns into slices of 256 and read the
-    # owned rows 64 columns at a time where they do not fit: 825 (padded
-    # to 832), 832 and 1024 (owned rows held in shared memory) and 4096
-    # (read from device memory in all three kernels) through all four
-    # kernels against their plain versions, nothing refused.
+    # memory held in dK/dV) and refused 825 and 832. Now the sliced
+    # kernels split the output's columns into slices of 256 and stream
+    # the inputs 64 columns a panel where they do not fit: 825 (padded to
+    # 832), 832, 1024 and 4096 through all four kernels against their
+    # plain versions, nothing refused.
     for d in (825, 832, 1024, 4096):
         _check_forward_and_backward((1, 64, 2, d), True, dtype, cuda)
         _check_partial_and_hop_backward((1, 96, 2, d), 96, 0, dtype, cuda)
@@ -217,7 +216,7 @@ def test_kernels_take_head_dims_past_the_old_cap(cuda, dtype):
 
 # Plans the wide library has no kernels for, (d, dtype, width, slices):
 # a wgmma width narrower than d, f32 or a third width on wgmma, wgmma
-# over two slices, and too few or too many simple slices.
+# over two slices, and too few or too many sliced slices.
 LACKING_PLANS = [
     (256, torch.bfloat16, 192, 1),
     (136, torch.float32, 192, 1),
@@ -250,11 +249,10 @@ def test_wide_library_refuses_plans_it_lacks(cuda, monkeypatch, d, dtype,
 # Every head dim the JAX kernels take: no multiple of 8 (20, 36: padded
 # with zero columns onto the 128-column kernels); above their tile: 136
 # and 192 (the wgmma kernels at 192 columns), 200, 248 and Gemma's 256 (at
-# 256), 264 (two output-column slices of the simple kernels), 824, 832 and
+# 256), 264 (two output-column slices of the sliced kernels), 824, 832 and
 # 1024 (four); through all four kernels at the tolerances above. Causal
-# cases span 10 of the simple kernels' 16-row tiles, 2.5 of the wgmma
-# forward's 128-row Q tiles and 5 of dK/dV's 64-key tiles; full cases are
-# ragged.
+# cases span 1.25 of the 128-row Q tiles and 2.5 of dK/dV's 64-key tiles;
+# full cases are ragged.
 ANY_HEAD_DIMS = (20, 36, 136, 192, 200, 248, 256, 264, 824, 832, 1024)
 
 
@@ -347,13 +345,13 @@ def test_wide_dq_kernel_is_deterministic(cuda):
     (136, torch.bfloat16, "wide_dq_bf16_kernel<192>"),
     (200, torch.bfloat16, "wide_dq_bf16_kernel<256>"),
     (256, torch.bfloat16, "wide_dq_bf16_kernel<256>"),
-    (264, torch.bfloat16, "wide_dq_kernel<__nv_bfloat16>"),
+    (264, torch.bfloat16, "wide_dq_bf16_sliced_kernel"),
     (136, torch.float32, "dq_f32_tiled_kernel<192>"),
 ])
 def test_wide_dq_launches_the_kernel_of_its_plan(cuda, d, dtype, kernel):
     # bf16 heads up to 256 columns take the wgmma dQ at the narrowest
-    # width that holds them, wider bf16 heads the simple kernel; f32 heads
-    # the register-tiled dQ.
+    # width that holds them, wider bf16 heads the sliced wgmma dQ; f32
+    # heads the register-tiled dQ.
     from torch.profiler import ProfilerActivity, profile
 
     q, k, v, o, lse, do = _bwd_inputs((1, 128, 2, d), dtype, cuda)
@@ -368,9 +366,36 @@ def test_wide_dq_launches_the_kernel_of_its_plan(cuda, d, dtype, kernel):
 
 
 @pytest.mark.cuda
-def test_wide_dq_simple_plan_matches_plain_version(cuda):
-    # The simple dQ stays in the library for bf16 at 256 columns (the
-    # plan (0, 1)), where it is timed beside the wgmma dQ.
+@pytest.mark.parametrize("d,dtype,kernel", [
+    (136, torch.bfloat16, "wide_dkv_bf16_kernel<192>"),
+    (200, torch.bfloat16, "wide_dkv_bf16_kernel<256>"),
+    (256, torch.bfloat16, "wide_dkv_bf16_kernel<256>"),
+    (264, torch.bfloat16, "wide_dkv_bf16_sliced_kernel"),
+    (1024, torch.bfloat16, "wide_dkv_bf16_sliced_kernel"),
+    (136, torch.float32, "dkv_f32_tiled_kernel<192>"),
+])
+def test_wide_dkv_launches_the_kernel_of_its_plan(cuda, d, dtype, kernel):
+    # dK/dV as dQ: the wgmma kernel at the narrowest width that holds a
+    # bf16 head up to 256 columns, the sliced wgmma kernel above, the
+    # register-tiled one in f32.
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, o, lse, do = _bwd_inputs((1, 128, 2, d), dtype, cuda)
+    delta = fa.attention_delta(o, do)
+    fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)   # built, loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()
+             if "wide_dkv" in ev.key or "dkv_f32_tiled" in ev.key]
+    assert len(names) == 1 and kernel in names[0], names
+
+
+@pytest.mark.cuda
+def test_wide_dq_sliced_plan_matches_plain_version(cuda):
+    # The sliced dQ takes bf16 at 256 columns too (the plan (0, 1)), where
+    # it is timed beside the wgmma dQ.
     q, k, v, o, lse, do = _bwd_inputs((2, 160, 3, 256), torch.bfloat16,
                                       cuda)
     got, delta = fa._launch_dq(q, k, v, o, lse, do, None, True,
@@ -419,6 +444,44 @@ def test_column_slices_share_their_softmax_statistics(cuda, dtype):
     torch.testing.assert_close(lse, rlse, rtol=0, atol=TOL_LSE)
     _assert_partial_close((acc, m, l), fa.flash_attention_partial_reference(
         q, k, v, 0, 0), dtype)
+
+
+# The sliced bf16 backward (wide_dq_bf16_sliced_kernel and
+# wide_dkv_bf16_sliced_kernel, wgmma over 256-column output slices): Q and
+# dO resident in dQ up to 320 columns, K and V in dK/dV up to 384, both
+# streamed above. Causal cases span several 128-row Q tiles and 64-key
+# tiles; full cases are ragged.
+SLICED_BWD_DIMS = (264, 320, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", SLICED_BWD_DIMS)
+def test_sliced_bf16_backward_matches_plain_version(cuda, d, causal):
+    shape = _redesigned_shape(d, causal)
+    q, k, v, _, _, do = _bwd_inputs(shape, torch.bfloat16, cuda, seed=d)
+    o, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    before = _counts()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert _counts()[1:] == (before[1] + 2, before[2] + 1)
+    _assert_grads_close(got, fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=causal), torch.bfloat16)
+    torch.testing.assert_close(delta, fa.attention_delta(o, do), rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sliced_bf16_backward_is_deterministic(cuda):
+    # No atomics: dq (delta computed from O), dk and dv of the sliced pair
+    # at two slices repeat bitwise.
+    q, k, v, o, lse, do = _bwd_inputs((2, 1024, 4, 320), torch.bfloat16,
+                                      cuda)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -238,7 +238,7 @@ def test_kernel_refuses_no_head_dim():
 
 
 # (d, dtype) -> the wide library's kernels: bf16 up to 256 columns on the
-# wgmma kernels at the next instantiation up, the rest on the simple
+# wgmma kernels at the next instantiation up, the rest on the sliced
 # kernels over 256-column output slices.
 WIDE_PLANS = {
     (136, "bfloat16"): ("wgmma", 192, 1),
@@ -246,13 +246,13 @@ WIDE_PLANS = {
     (200, "bfloat16"): ("wgmma", 256, 1),
     (248, "bfloat16"): ("wgmma", 256, 1),
     (256, "bfloat16"): ("wgmma", 256, 1),
-    (264, "bfloat16"): ("simple", None, 2),
-    (832, "bfloat16"): ("simple", None, 4),
-    (1024, "bfloat16"): ("simple", None, 4),
-    (136, "float32"): ("simple", None, 1),
-    (256, "float32"): ("simple", None, 1),
-    (264, "float32"): ("simple", None, 2),
-    (1024, "float32"): ("simple", None, 4),
+    (264, "bfloat16"): ("sliced", None, 2),
+    (832, "bfloat16"): ("sliced", None, 4),
+    (1024, "bfloat16"): ("sliced", None, 4),
+    (136, "float32"): ("sliced", None, 1),
+    (256, "float32"): ("sliced", None, 1),
+    (264, "float32"): ("sliced", None, 2),
+    (1024, "float32"): ("sliced", None, 4),
 }
 
 
