@@ -5,9 +5,9 @@ training, long-context training, MoE, vision and pipelined training paths,
 its slice burn-in (the probes and the kernel cache), its notebook
 spawn path, its fleet scheduler and warm pods, its culling and serving
 controllers, its controller manager and admission webhook as processes,
-its web apps as a process and the control plane's chaos soak and load
-test on one NVIDIA GPU and hold its kernels against their plain
-versions.
+its web apps as a process, the control plane's chaos soak and load
+test and the notebook's live profiler server on one NVIDIA GPU and hold
+its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -412,14 +412,38 @@ last line. With no CUDA device it exits 1 and prints no result.
    nodes as 64 ``1x1`` shares (LOAD_FLEET_SPEC), one ``1x1`` notebook a
    card, all Ready with no failure, the CRs deleted after; the report's
    p50, p95 and wall seconds on the host clock. Launches no kernel.
-
+37. profiler_server (right after train) — the notebook's live profiler
+   server, in a notebook process of its own (``profiler_notebook``), so
+   that its first capture starts CUPTI as a user's first click does:
+   ``sdk.start_profiler_server`` on a free port (the card's
+   ``torch.profiler`` behind TensorBoard's capture button), then
+   ``make_train_step`` at TRAIN_MODEL in the main thread, one host sync a
+   step, PROFILER_BASELINE_STEPS of them timed, then two clicks: each
+   time another thread captures PROFILER_CAPTURE_MS through
+   ``testing.profiler_client`` (xprof's request, over the package's own
+   HTTP/2 and gRPC) while the loop runs on, and in the second click a
+   third thread sends a second ``Profile`` while the first records,
+   which must be refused (INTERNAL, "Another profiling session
+   active."). Each ``.xplane.pb`` is decoded with ``profiler.wire``: a
+   ``/device:GPU:0`` plane with events of each of ``fwd_bf16_kernel``,
+   ``dq_bf16_kernel`` and ``dkv_bf16_kernel``, whose counts agree within
+   one step's launches a layer, every device event inside the session's
+   window (its ``Task Environment`` plane), and each of those kernels'
+   events correlated with a CUDA runtime launch on the host plane (the
+   main thread's: recorded by CUPTI from the server's session).
+   Launches: one forward, one dQ and one dK/dV a layer and step of the
+   clicks. The row prints, a click, the call's seconds, the wait until
+   the first device event, each kernel's events and device ms, the
+   file's bytes, and the step ms (median, longest) inside the recording
+   and in the rest of the call against the baseline's, with the
+   recording's ratio; and the phase's seconds.
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
 ``launches_by_path`` with ``moe``, ``vision``, ``pipelined``,
 ``pipelined_schedule``, ``wide_heads``, ``sharded``, ``checkpoint``,
 ``fleet``, ``serving_control``, ``entrypoints``, ``webapps``,
-and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
+``profiler_server``, and ``sharded_grads`` and ``serving_sharded_world`` (each summed over
 its 4 processes), and ``device_kernels``: the CUDA kernels behind each
 entry, by head dim and dtype), the script's wall seconds, the card line,
 and the result line.
@@ -1971,6 +1995,267 @@ def phase_train(torch, fa, burnin, card: str) -> dict:
     del params
     torch.cuda.empty_cache()
     return row
+
+
+# The live profiler server's capture: long enough for ~12 TRAIN_MODEL
+# steps, as a user's click on TensorBoard's capture button asks 1000 ms
+# by default.
+PROFILER_CAPTURE_MS = 1000
+# The notebook's steps timed before its first click: what a capture's
+# steps are held against.
+PROFILER_BASELINE_STEPS = 16
+PROFILER_CLICKS = ("first", "second")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _correlations(plane: dict, line: dict) -> list:
+    """Each event's ``correlation_id`` stat on ``line`` (None without)."""
+    stat = next((m["id"] for m in plane.get("stat_metadata", {}).values()
+                 if m["name"] == "correlation_id"), None)
+    return [next((s.get("int64_value") for s in event.get("stats", [])
+                  if s["metadata_id"] == stat), None)
+            for event in line.get("events", [])]
+
+
+def _capture_counts(space: dict, kernels) -> dict:
+    """Events, device ms and the window check of ``kernels`` in a decoded
+    ``XSpace``: each kernel's events and device ms on ``/device:GPU:0``,
+    every device event's span against the Task Environment plane's
+    window, the span of the device events, the host plane's kernel
+    launches (the CUDA runtime's, of every thread), the kernels' events
+    launched outside the host's recorded launches (cut at the session's
+    edges) and those whose correlation id names no launch between
+    them."""
+    import re
+
+    planes = {plane["name"]: plane for plane in space.get("planes", [])}
+    host = planes.get("/host:CPU", {})
+    host_names = {m["id"]: m["name"]
+                  for m in host.get("event_metadata", {}).values()}
+    launched = set()
+    for line in host.get("lines", []):
+        for event, corr in zip(line.get("events", []),
+                               _correlations(host, line)):
+            if corr is not None and host_names.get(
+                    event["metadata_id"], "").startswith(
+                        ("cudaLaunch", "cuLaunch")):
+                launched.add(corr)
+    env = planes.get("Task Environment", {})
+    env_names = {m["id"]: m["name"]
+                 for m in env.get("stat_metadata", {}).values()}
+    window = {env_names[stat["metadata_id"]]: stat["uint64_value"]
+              for stat in env.get("stats", [])}
+    gpu = planes.get("/device:GPU:0", {})
+    names = {m["id"]: m["name"]
+             for m in gpu.get("event_metadata", {}).values()}
+    counts = dict.fromkeys(kernels, 0)
+    device_ms = dict.fromkeys(kernels, 0.0)
+    events = outside = 0
+    # A kernel's launch is missing when the host plane recorded launches
+    # on both sides of its id; an id outside them is a launch the session
+    # cut at its start or stop.
+    unlaunched, edges = [], 0
+    low, high = min(launched, default=0), max(launched, default=-1)
+    first = last = None
+    for line in gpu.get("lines", []):
+        for event, corr in zip(line.get("events", []),
+                               _correlations(gpu, line)):
+            events += 1
+            start = line["timestamp_ns"] + event.get("offset_ps", 0) // 1000
+            end = start + event.get("duration_ps", 0) // 1000
+            first = start if first is None else min(first, start)
+            last = end if last is None else max(last, end)
+            if not (window.get("profile_start_time", 0) <= start
+                    and end <= window.get("profile_stop_time", 0)):
+                outside += 1
+            name = names.get(event["metadata_id"], "")
+            for kernel in kernels:
+                if re.search(rf"(?<!\w){kernel}(?!\w)", name):
+                    counts[kernel] += 1
+                    device_ms[kernel] += event.get("duration_ps", 0) / 1e9
+                    if corr is not None and not low <= corr <= high:
+                        edges += 1
+                    elif corr not in launched:
+                        unlaunched.append({"correlation_id": corr,
+                                           "start_ns": start})
+    return {"planes": sorted(planes), "window_ns": window,
+            "device_events": events, "device_events_outside": outside,
+            "device_span_ns": [first, last],
+            "kernel_events": counts, "kernel_device_ms": device_ms,
+            "host_launches": len(launched),
+            "host_launch_ids": [low, high],
+            "kernel_events_at_edges": edges,
+            "kernel_events_without_launch": len(unlaunched),
+            "kernel_events_without_launch_first": unlaunched[:4],
+            "host_threads": len(host.get("lines", []))}
+
+
+def _step_ms(spans) -> dict:
+    """The median and the longest of ``(start_ns, end_ns)`` step spans,
+    in ms (None for no span)."""
+    ms = [(end - start) / 1e6 for start, end in spans]
+    return {"median": statistics.median(ms) if ms else None,
+            "max": max(ms) if ms else None, "steps": len(ms)}
+
+
+def profiler_notebook() -> dict:
+    """The notebook of the profiler_server phase, in a process of its own
+    as a user's is, so that its first click starts CUPTI: the sdk's server
+    on a free port, TRAIN_MODEL steps in the main thread (one host sync a
+    step), PROFILER_BASELINE_STEPS of them timed, then one capture a click
+    of PROFILER_CLICKS from another thread while the loop runs on, the
+    second click with a concurrent ``Profile`` that must be refused.
+    Launches counted from zero over the clicks' steps. Each click's
+    ``.xplane.pb`` is decoded with ``profiler.wire`` and its steps split
+    into those inside the recording (from the first device event to the
+    session's stop) and the call's others (the session's start, its
+    export)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from kubeflow_tpu_torch import sdk
+    from kubeflow_tpu_torch.models import burnin
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.profiler import h2, server, wire
+    from kubeflow_tpu_torch.testing import profiler_client
+
+    port = _free_port()
+    sdk.start_profiler_server(port)
+    addr = f"localhost:{port}"
+    cfg = burnin.BurninConfig(**TRAIN_MODEL)
+    params, tokens = _train_inputs(torch, burnin, cfg, seed=0)
+    step = burnin.make_train_step(cfg)
+    step(params, tokens)
+    torch.cuda.synchronize()
+    spans: list = []
+    losses: list = []
+
+    def timed_step() -> None:
+        t0 = time.time_ns()
+        losses.append(float(step(params, tokens)[1]))   # one sync a step
+        spans.append((t0, time.time_ns()))
+
+    for _ in range(PROFILER_BASELINE_STEPS):
+        timed_step()
+    out = {"port": port, "baseline_step_ms": _step_ms(spans)}
+    logdir = tempfile.mkdtemp(prefix="kftpu-capture-")
+    got: dict = {}
+
+    def capture(key: str) -> None:
+        got[f"{key}_at_ns"] = time.time_ns()
+        t0 = time.perf_counter()
+        try:
+            got[key] = profiler_client.capture(
+                addr, os.path.join(logdir, key), PROFILER_CAPTURE_MS)
+        except h2.GrpcError as exc:
+            got[key] = (exc.code, exc.message)
+        got[f"{key}_sec"] = time.perf_counter() - t0
+
+    clicks = {}
+    _zero_launch_counts(fa)              # ---- the main path starts here
+    try:
+        for click in PROFILER_CLICKS:
+            first = len(spans)
+            thread = threading.Thread(target=capture, args=(click,))
+            second = threading.Thread(target=capture, args=("refused",))
+            thread.start()
+            while thread.is_alive():
+                timed_step()
+                if (click == PROFILER_CLICKS[-1] and not second.ident
+                        and server._SESSION.locked()):
+                    second.start()       # while the click's session runs
+            if second.ident:
+                second.join(60)
+            path = got.get(click)
+            raw = open(path, "rb").read() if isinstance(path, str) else b""
+            seen = _capture_counts(wire.decode(wire.XSPACE, raw),
+                                   ENTRY_KERNELS)
+            window = seen["window_ns"]
+            begin = (seen["device_span_ns"][0]
+                     or window.get("profile_start_time", 0))
+            stop = window.get("profile_stop_time", 0)
+            inside = [(a, b) for a, b in spans[first:]
+                      if begin <= a and b <= stop]
+            clicks[click] = {
+                "path_ok": isinstance(path, str), "xplane_bytes": len(raw),
+                "capture_sec": got.get(f"{click}_sec"),
+                "recording_after_sec": (begin - got[f"{click}_at_ns"]) / 1e9,
+                "step_ms": _step_ms(spans[first:]),
+                "step_ms_recording": _step_ms(inside),
+                "step_ms_other": _step_ms(
+                    [s for s in spans[first:] if s not in inside]),
+                **seen}
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["launches"] = _launch_counts(fa)  # ---- the main path ends here
+    refused = got.get("refused")
+    return {**out, "clicks": clicks,
+            "steps": len(spans) - PROFILER_BASELINE_STEPS,
+            "refused": list(refused) if isinstance(refused, tuple)
+            else refused, "refused_sec": got.get("refused_sec"),
+            "loss_first": losses[0], "loss_last": losses[-1]}
+
+
+PROFILER_NOTEBOOK_CHILD = """
+import json
+import chip_smoke
+print(json.dumps(chip_smoke.profiler_notebook()), flush=True)
+"""
+
+
+def phase_profiler_server(fa, burnin, card: str) -> dict:
+    """The notebook's live profiler server (docstring, 37): a notebook
+    process (``profiler_notebook``) captured twice from another thread
+    while its main thread trains; the launches its clicks' steps made."""
+    import os
+
+    from kubeflow_tpu_torch.profiler import h2, server
+
+    phase_t0 = time.perf_counter()
+    notebook = json.loads(_run_children(
+        [(["-c", PROFILER_NOTEBOOK_CHILD], dict(os.environ))])[0]
+        .strip().splitlines()[-1])
+    cfg = burnin.BurninConfig(**TRAIN_MODEL)
+    steps = notebook["steps"]
+    baseline = notebook["baseline_step_ms"]["median"]
+    for click in notebook["clicks"].values():
+        recording = click["step_ms_recording"]["median"]
+        click["step_ms_recording_ratio"] = (
+            recording / baseline if recording else None)
+    row = {"phase": "profiler_server", "card": card,
+           "capture_ms": PROFILER_CAPTURE_MS, **notebook,
+           "launches_expected": cfg.n_layers * steps,
+           "phase_sec": time.perf_counter() - phase_t0}
+    emit(row)
+
+    def click_ok(click: dict) -> bool:
+        counts = list(click["kernel_events"].values())
+        return (click["path_ok"] and click["xplane_bytes"] > 0
+                and "/device:GPU:0" in click["planes"]
+                and min(counts) > 0
+                and max(counts) - min(counts) <= cfg.n_layers
+                and click["device_events_outside"] == 0
+                and click["kernel_events_without_launch"] == 0
+                and click["step_ms_recording"]["steps"] > 0)
+
+    if not (all(click_ok(c) for c in notebook["clicks"].values())
+            and notebook["refused"] == [h2.INTERNAL, server.SESSION_ACTIVE]
+            and notebook["launches"] == _burnin_counts(cfg.n_layers * steps)
+            and math.isfinite(notebook["loss_last"])):
+        raise AssertionError(f"profiler_server phase failed: {row}")
+    return notebook["launches"]
 
 
 def phase_wide_heads(torch, fa, burnin, card: str) -> dict:
@@ -6625,7 +6910,8 @@ def main() -> int:
     phase_model(torch, fa, burnin)
     phase_train_grads(torch, fa, burnin)
     train = phase_train(torch, fa, burnin, card)
-    by_path = {"train": train["launches"]}
+    by_path = {"train": train["launches"],
+               "profiler_server": phase_profiler_server(fa, burnin, card)}
     with world_of_one(torch):
         by_path["serving"] = {"fwd": phase_serving(
             torch, fa, burnin, engine_mod, loadgen)["launches"]}

@@ -11,7 +11,9 @@ Reference: ``tensorboard-controller/api/v1alpha1/tensorboard_types.go:28-63``
 
 ``spec.profilerPlugin: bool`` — serve the TensorBoard profile plugin over
 the logdir, where ``sdk.trace`` and ``sdk.capture_profile`` write their
-``torch.profiler`` traces (``*.pt.trace.json``).
+``torch.profiler`` traces (``*.pt.trace.json``) and the plugin's capture
+button, pointed at a notebook running ``sdk.start_profiler_server``, its
+``*.xplane.pb``.
 """
 
 from __future__ import annotations

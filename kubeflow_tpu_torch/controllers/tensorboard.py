@@ -13,8 +13,10 @@ Reference: ``tensorboard-controller/controllers/tensorboard_controller.go``:
 the logdir that ``sdk.trace`` / ``sdk.capture_profile`` write their
 ``torch.profiler`` traces (``*.pt.trace.json``) into. The default image
 stays the reference's ``tensorflow/tensorflow:latest``, whose profile
-plugin reads XLA ``xplane.pb`` files: browsing the torch traces needs an
-image with the PyTorch profiler plugin, set through ``TENSORBOARD_IMAGE``.
+plugin reads ``xplane.pb`` files: what its capture button records from a
+notebook that runs ``sdk.start_profiler_server`` (the card's kernels
+included); browsing the torch traces needs an image with the PyTorch
+profiler plugin, set through ``TENSORBOARD_IMAGE``.
 """
 
 from __future__ import annotations

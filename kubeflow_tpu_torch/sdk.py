@@ -37,8 +37,12 @@ on the device is torch's:
   (``utils/compilecache``), attaches the card and builds the kernels (the
   port's compile phase) before it parks.
 
-``start_profiler_server`` has no counterpart: TensorBoard's capture button
-speaks the TF profiler's gRPC, which torch does not serve.
+- ``start_profiler_server`` serves the TF profiler's gRPC
+  (``tensorflow.ProfilerService``, what TensorBoard's capture button
+  calls) from this package's own server (``profiler/``: torch serves no
+  such thing, so the port carries one, as jaxlib carries the
+  reference's), recording with ``torch.profiler``: the capture's
+  ``XSpace`` holds the card's kernels.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ __all__ = [
     "capture_profile",
     "initialize_distributed",
     "resume",
+    "start_profiler_server",
     "suspend",
     "telemetry_publisher",
     "trace",
@@ -206,6 +211,46 @@ def initialize_distributed(environ=os.environ, *, device=None) -> bool:
     return True
 
 
+PROFILER_PORT = 9999
+_profiler_port: int | None = None
+_profiler_server = None
+
+
+def start_profiler_server(port: int = PROFILER_PORT, *, device=None) -> None:
+    """The TF profiler's gRPC service on the conventional port — the target
+    of TensorBoard's profile-plugin "capture" button (SURVEY §5: the
+    ``jax.profiler.start_server`` convention in images). Point a
+    ``Tensorboard`` CR with ``spec.profilerPlugin: true`` at the
+    notebook's DNS name to capture live: the capture records, with
+    ``torch.profiler``, the card's kernels and every thread's CUDA runtime
+    calls, but the ops of the server's own thread only
+    (``kubeflow_tpu_torch.profiler.server`` says why). Idempotent:
+    re-running the setup cell is a no-op (one server per process). Runs
+    for the card; ``device="cpu"`` records every thread's ops on the
+    host, and without a card and without it the call raises."""
+    global _profiler_port, _profiler_server
+    if _profiler_port is not None:
+        if _profiler_port >= 0 and port != _profiler_port:
+            # One server per process; a move is impossible — say so
+            # instead of silently ignoring the new port.
+            _log.warning(
+                "profiler server already on port %d; cannot move to %d "
+                "(one server per process)", _profiler_port, port)
+        return
+    from kubeflow_tpu_torch.profiler.server import ProfilerServer
+
+    try:
+        _profiler_server = ProfilerServer(port, device=device)
+        _profiler_port = port
+    except ValueError:
+        # A server already runs in this process (started outside the
+        # sdk) — on an unknown port, so record the sentinel rather than
+        # a port we can't confirm (a later mismatch warning would state
+        # the inverse of reality).
+        _log.warning("profiler server already running; reusing it")
+        _profiler_port = -1
+
+
 def trace(logdir: str, *, device=None):
     """Context manager writing a ``torch.profiler`` trace under ``logdir``
     (``tensorboard_trace_handler``, one ``*.pt.trace.json`` a capture) —
@@ -218,16 +263,48 @@ def trace(logdir: str, *, device=None):
 
     Records the card's kernels and the host's ops (``device="cpu"``: the
     host's alone); without a card and without ``device="cpu"`` it
-    raises."""
+    raises. On the card the window opens only after :func:`_warm_up_cupti`
+    has run, so the block's first kernels are in the trace."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 
     dev = resolve_device(device)
-    activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(logdir))
+    handler = tensorboard_trace_handler(logdir)
+    if dev.type != "cuda":
+        return profile(activities=[ProfilerActivity.CPU],
+                       on_trace_ready=handler)
+    return _WarmedProfile(
+        dev, activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        on_trace_ready=handler)
+
+
+def _warm_up_cupti(device) -> None:
+    """Kernels on ``device`` between enabling CUPTI's activity records and
+    opening the trace's window. On an H100 (torch 2.11.0+cu128) a session
+    opened after the card had idled for 20-30 s lost the records of the
+    kernels of its first ~1 ms (1-15 kernels, more the longer the process
+    had run); with these kernels in front, none was lost (PERF.md §6).
+    kineto drops what precedes the window, so they are not in the trace."""
+    with torch.cuda.device(device):
+        torch.cuda._sleep(2_000_000)          # ~1 ms of one spinning thread
+        x = torch.ones(16, device=device)
+        for _ in range(16):
+            x.add_(1.0)
+        torch.cuda.synchronize(device)
+
+
+class _WarmedProfile(torch.profiler.profile):
+    """``torch.profiler.profile`` whose ``prepare_trace`` (CUPTI enabled,
+    the window not yet open) ends with :func:`_warm_up_cupti` on
+    ``card``."""
+
+    def __init__(self, card, **kwargs):
+        super().__init__(**kwargs)
+        self.card = card
+
+    def prepare_trace(self):
+        super().prepare_trace()
+        _warm_up_cupti(self.card)
 
 
 # Where capture_profile() writes when the caller doesn't say: the same

@@ -1,7 +1,8 @@
 """Trace-driven open-loop load generator for the serving bench.
 
 A copy of ``kubeflow_tpu/serving/loadgen.py`` (``Phase``,
-``generate_trace``, ``burst_trace``) over the port's ``Request``.
+``generate_trace``, ``burst_trace``, the gateway's trailing-window rates
+``observed_rate`` and ``model_load``) over the port's ``Request``.
 
 Open loop means arrivals are scheduled by the trace alone — a slow
 server does not slow the generator down, so overload shows up as
@@ -110,3 +111,25 @@ def burst_trace(*, seed: int = 0, warm_rate: float = 2.0,
         seed=seed, tokens_out=tokens_out, tokens_jitter=tokens_jitter,
         **dims)
 
+
+def observed_rate(requests: list, now: float, *,
+                  window: float = 1.0) -> float:
+    """Trailing-window request rate at trace time ``now`` — what a
+    serving gateway would stamp as the observed-rate annotation."""
+    lo = now - window
+    n = sum(1 for r in requests if lo < r.arrival <= now)
+    return n / window if window > 0 else 0.0
+
+
+def model_load(requests: list, now: float, *,
+               window: float = 1.0) -> dict:
+    """Per-model trailing-window rates at trace time ``now`` — what the
+    gateway stamps into the per-model load annotations the autoscaler
+    and JWA read (the multiplexing signal)."""
+    lo = now - window
+    counts: dict = {}
+    for r in requests:
+        if lo < r.arrival <= now:
+            model = getattr(r, "model", DEFAULT_MODEL)
+            counts[model] = counts.get(model, 0) + 1
+    return {m: n / window for m, n in counts.items()} if window > 0 else {}

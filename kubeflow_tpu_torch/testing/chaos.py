@@ -907,6 +907,13 @@ class ChaosSoak:
             if fab is None or not committed:
                 continue
             await asyncio.to_thread(fab.wait)
+            # An upload that committed inside the wait is in the set
+            # whether or not the commit poller has ticked since (the
+            # pointer advance is the ground truth it records); a crashed
+            # one stays out.
+            committed = committed | {
+                step for handle, step, _ in self._pending_commits.get(key, ())
+                if handle.done() and handle.committed}
             try:
                 tree = await asyncio.to_thread(fab.restore)
             except CheckpointIntegrityError:

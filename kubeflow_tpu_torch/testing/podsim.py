@@ -205,14 +205,7 @@ class PodSimulator:
         self._owner_refs[owner_key] = (kind, name)
         existing = set(self._owner_pods.get(owner_key, ()))
         for pod_name, pod in want.items():
-            if pod_name not in existing:
-                try:
-                    created = await self.kube.create("Pod", pod)
-                except AlreadyExists:
-                    continue
-                self._owner_pods.setdefault(owner_key, set()).add(pod_name)
-                self._spawn_pod_task(created)
-            else:
+            if pod_name in existing:
                 # Stuck-pod backstop: a pod whose _run_pod task died under
                 # an injected fault storm (status patch never landed — no
                 # phase) gets re-driven on the next workload reconcile,
@@ -222,8 +215,20 @@ class PodSimulator:
                 if (ns, pod_name) in self._pods_in_flight:
                     continue
                 live = await self.kube.get_or_none("Pod", pod_name, ns)
-                if live is not None and not deep_get(live, "status", "phase"):
-                    self._spawn_pod_task(live)
+                if live is not None:
+                    if not deep_get(live, "status", "phase"):
+                        self._spawn_pod_task(live)
+                    continue
+                # The index outlived the pod: its delete fell into a pod
+                # watch gap (a re-watch replays what exists, never what
+                # went), so create it again, as a controller resyncing
+                # against the apiserver does.
+            try:
+                created = await self.kube.create("Pod", pod)
+            except AlreadyExists:
+                continue
+            self._owner_pods.setdefault(owner_key, set()).add(pod_name)
+            self._spawn_pod_task(created)
         for pod_name in existing:
             if pod_name not in want:
                 try:

@@ -14,7 +14,7 @@ KF.registerMessages("en", {
   "twa.schemeS3": "S3 bucket",
   "twa.schemePath": "path",
   "twa.profilerHintPre": "gs:// paths serve profiler traces (*.pt.trace.json) captured with ",
-  "twa.profilerHintPost": " — open the Profile tab inside TensorBoard.",
+  "twa.profilerHintPost": " — open the Profile tab inside TensorBoard; its capture button records a live *.xplane.pb from a notebook that ran sdk.start_profiler_server().",
   "twa.events": "Events",
   "twa.noEvents": "No events.",
   "twa.deleteTitle": "Delete TensorBoard {name}?",
@@ -43,7 +43,7 @@ KF.registerMessages("de", {
   "twa.schemeS3": "S3-Bucket",
   "twa.schemePath": "Pfad",
   "twa.profilerHintPre": "gs://-Pfade liefern Profiler-Traces (*.pt.trace.json), aufgezeichnet mit ",
-  "twa.profilerHintPost": " — den Profile-Tab in TensorBoard öffnen.",
+  "twa.profilerHintPost": " — den Profile-Tab in TensorBoard öffnen; seine Capture-Schaltfläche zeichnet live ein *.xplane.pb eines Notebooks auf, das sdk.start_profiler_server() ausgeführt hat.",
   "twa.events": "Ereignisse",
   "twa.noEvents": "Keine Ereignisse.",
   "twa.deleteTitle": "TensorBoard {name} löschen?",
@@ -75,7 +75,9 @@ KF.registerMessages("fr", {
     "les chemins gs:// servent des traces du profileur (*.pt.trace.json) " +
     "capturées avec ",
   "twa.profilerHintPost":
-    " — ouvrez l'onglet Profile dans TensorBoard.",
+    " — ouvrez l'onglet Profile dans TensorBoard ; son bouton Capture " +
+    "enregistre en direct un *.xplane.pb d'un notebook qui a lancé " +
+    "sdk.start_profiler_server().",
   "twa.events": "Événements",
   "twa.noEvents": "Aucun événement.",
   "twa.deleteTitle": "Supprimer le TensorBoard {name} ?",

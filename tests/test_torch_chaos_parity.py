@@ -7,12 +7,15 @@ shard-kill and poison-pill scenarios.
 Shapes map as in tests/test_torch_scheduler_parity.py: v5e ``2x2`` →
 H100 ``1x4`` (a slice keeps its card count).
 
-Last, three faults of the reference, fixed in the port: two kept its
-soak from settling under load (a queued gang's scale-up wait written to
-its status at millisecond precision, so every status write re-enqueued
-it: a reconcile loop; and a StatefulSet pod that a warm-pool claim
-adopted and deleted never coming back in the kubelet simulator), and the
-shard kill could strike before the shard ring had settled."""
+Last, faults of the reference, fixed in the port: three kept its soak
+from settling under load (a queued gang's scale-up wait written to its
+status at millisecond precision, so every status write re-enqueued it:
+a reconcile loop; a StatefulSet pod that a warm-pool claim adopted and
+deleted never coming back in the kubelet simulator; and a pod whose
+delete the simulator's watch missed never coming back either), and the
+shard kill could strike before the shard ring had settled. The port's
+soak also counts a commit that lands while its restore check waits for
+the uploads."""
 
 import asyncio
 import importlib
@@ -262,6 +265,71 @@ async def _pod_back_after_adoption() -> dict:
 def test_a_statefulset_pod_adopted_then_deleted_is_recreated():
     pod = asyncio.run(_pod_back_after_adoption())
     assert pod["metadata"]["ownerReferences"][0]["kind"] == "StatefulSet"
+
+
+async def _pod_after_a_missed_delete(pkg) -> tuple:
+    """A StatefulSet's pod deleted while the simulator's pod watch is not
+    running (a watch gap: a re-watch replays what exists, never what
+    went), then the workload reconciled again: (the pod before the
+    delete, the pod after)."""
+    fakekube = importlib.import_module(f"{pkg}.testing.fakekube")
+    podsim = importlib.import_module(f"{pkg}.testing.podsim")
+    kube = fakekube.FakeKube()
+    sim = podsim.PodSimulator(kube)
+    sim._running = True                  # reconcile by hand, no watches
+    try:
+        sts = await kube.create("StatefulSet", {
+            "apiVersion": "apps/v1", "kind": "StatefulSet",
+            "metadata": {"name": "slot", "namespace": "ns"},
+            "spec": {"replicas": 1, "template": {"spec": {"containers": [
+                {"name": "c", "image": "img:latest"}]}}}})
+        await sim._reconcile_workload("StatefulSet", sts)
+        while sim._pods_in_flight:       # the pod's start runs to its end
+            await asyncio.sleep(0.01)
+        before = await kube.get_or_none("Pod", "slot-0", "ns")
+        await kube.delete("Pod", "slot-0", "ns")
+        await sim._reconcile_workload("StatefulSet", sts)
+        return before, await kube.get_or_none("Pod", "slot-0", "ns")
+    finally:
+        await sim.stop()
+
+
+@pytest.mark.parametrize("pkg", [REFERENCE, PORT])
+def test_a_pod_whose_delete_the_simulator_missed_is_recreated(pkg):
+    """The fault that wedged a warm pool's slot without a pod for the
+    soak's whole 30 s convergence (chip_smoke.py's ``chaos`` phase on the
+    card, and 1 of 120 seed-0 soaks on the CPU under load)."""
+    before, after = asyncio.run(_pod_after_a_missed_delete(pkg))
+    assert before is not None
+    if pkg == REFERENCE:
+        assert after is None             # the reference's simulator's fault
+    else:
+        assert after is not None
+        assert after["metadata"]["ownerReferences"][0]["name"] == "slot"
+
+
+async def _restore_check_with_a_commit_in_its_wait() -> tuple:
+    """The soak's restore check on a fabric whose step 1 the harness has
+    recorded and whose step 2 was saved and not yet recorded (the commit
+    poller has not ticked): what the check reports, and the step the
+    fabric restored."""
+    m = chaos(PORT)
+    soak = m.ChaosSoak(m.SoakConfig(seed=0))
+    key = ("team-0", "nb")
+    fab = soak._fabric_for(key)
+    soak._save(fab, key, 1)
+    fab.wait()
+    soak._committed_steps[key] = {1}
+    soak._pending_commits[key] = [(soak._save(fab, key, 2), 2, None)]
+    problems = await soak._check_restores()
+    return problems, fab.last_restore["step"]
+
+
+def test_the_restore_check_counts_a_commit_that_lands_in_its_wait():
+    problems, restored = asyncio.run(
+        _restore_check_with_a_commit_in_its_wait())
+    assert restored == 2
+    assert problems == []
 
 
 def test_shard_kill_waits_for_a_late_replica_to_take_its_shard(monkeypatch):

@@ -90,6 +90,8 @@ def test_twa_create_and_details_names_torch_profiler_traces(twa):
     assert "TensorBoard profiles" in drawer
     assert "/tensorboard/team/profiles/" in drawer
     assert "*.pt.trace.json" in drawer and "torch.profiler" in drawer
+    # The capture button's files, from the sdk's live profiler server.
+    assert "*.xplane.pb" in drawer and "start_profiler_server" in drawer
     assert "XLA" not in drawer and "jax" not in drawer
 
 

@@ -163,6 +163,13 @@ def test_the_scan_covers_the_package_and_the_smoke_script():
     # The kernels' CUDA sources, which ops/flash_attention.py builds (the
     # ring hop's partial kernel shares the forward's source; heads wider
     # than 128 columns run the wide source's four kernels).
+    # The notebook's live profiler server and its capture client.
+    assert {"kubeflow_tpu_torch/profiler/__init__.py",
+            "kubeflow_tpu_torch/profiler/h2.py",
+            "kubeflow_tpu_torch/profiler/server.py",
+            "kubeflow_tpu_torch/profiler/wire.py",
+            "kubeflow_tpu_torch/profiler/xspace.py",
+            "kubeflow_tpu_torch/testing/profiler_client.py"} <= names
     csrc = REPO / "kubeflow_tpu_torch" / "ops" / "csrc"
     assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu",
             "flash_attention_wide.cu"} <= {p.name for p in csrc.glob("*.cu")}
@@ -213,6 +220,8 @@ def test_importing_the_engine_loads_no_jax():
             "kubeflow_tpu_torch.api.pvcviewer, "
             "kubeflow_tpu_torch.controllers.tensorboard, "
             "kubeflow_tpu_torch.controllers.pvcviewer, "
+            "kubeflow_tpu_torch.profiler.server, "
+            "kubeflow_tpu_torch.testing.profiler_client, "
             "kubeflow_tpu_torch.runtime.flowcontrol, "
             "kubeflow_tpu_torch.runtime.httpclient, "
             "kubeflow_tpu_torch.webhooks.jsonpatch, "

@@ -11,6 +11,8 @@ guards in a world of 2 save at the step rank 0's drain signal names.
 """
 
 import dataclasses
+import inspect
+import json
 import multiprocessing
 import os
 import socket
@@ -328,7 +330,51 @@ def test_trace_and_capture_profile_write_under_the_logdir(tmp_path):
         names = os.listdir(tmp_path / sub)
         assert any(n.endswith(".pt.trace.json") for n in names), names
     assert sdk.DEFAULT_TRACE_LOGDIR == jax_sdk.DEFAULT_TRACE_LOGDIR
-    assert not hasattr(sdk, "start_profiler_server")
+    # The capture button's server: the reference's signature (its one
+    # parameter, default the same port) and the port's keyword-only device.
+    assert "start_profiler_server" in sdk.__all__
+    assert sdk.PROFILER_PORT == jax_sdk.PROFILER_PORT == 9999
+    got = inspect.signature(sdk.start_profiler_server).parameters
+    want = inspect.signature(jax_sdk.start_profiler_server).parameters
+    assert list(got) == [*want, "device"]
+    assert all(got[name].kind == want[name].kind
+               and got[name].default == want[name].default for name in want)
+    assert got["device"].kind == inspect.Parameter.KEYWORD_ONLY
+    assert got["device"].default is None
+
+
+def test_trace_on_the_card_warms_cupti_up_before_its_window(monkeypatch,
+                                                          tmp_path):
+    """On the card, ``sdk.trace``'s session runs the warm-up once, after
+    ``prepare_trace`` enabled the activities and before ``start_trace``
+    opened the window, so the warm-up's own work is not in the trace (the
+    card's session driven here with the host's activities alone)."""
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+    card = sdk.trace(str(tmp_path / "card"), device="cuda")
+    assert isinstance(card, sdk._WarmedProfile)
+    assert card.card == torch.device("cuda")
+    assert card.activities == {ProfilerActivity.CPU, ProfilerActivity.CUDA}
+    assert not isinstance(sdk.trace(str(tmp_path), device="cpu"),
+                          sdk._WarmedProfile)
+    seen = []
+
+    def warm_up(device):
+        seen.append((device, torch._C._autograd._profiler_enabled()))
+        torch.ones(8).cumprod(0)
+
+    monkeypatch.setattr(sdk, "_warm_up_cupti", warm_up)
+    with sdk._WarmedProfile(torch.device("cpu"),
+                            activities=[ProfilerActivity.CPU],
+                            on_trace_ready=tensorboard_trace_handler(
+                                str(tmp_path / "cpu"))):
+        assert seen == [(torch.device("cpu"), False)]
+        torch.ones(64).cumsum(0)
+    assert seen == [(torch.device("cpu"), False)]
+    [name] = os.listdir(tmp_path / "cpu")
+    with open(tmp_path / "cpu" / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::cumsum" in names and "aten::cumprod" not in names
 
 
 def test_suspend_resume_and_warm_idle_match_the_reference():

@@ -335,6 +335,35 @@ def test_burst_trace_is_seeded_like_the_jax_loadgen():
     assert got == want and got
 
 
+@pytest.mark.parametrize("models", [None, {"default": 6, "alt-a": 3,
+                                             "alt-b": 1}])
+@pytest.mark.parametrize("window", [0.25, 1.0, 0.0])
+def test_gateway_rates_match_the_jax_loadgen(models, window):
+    """``observed_rate`` and ``model_load`` of the port's copy give the
+    reference's rates on the same seeded trace, at every arrival and
+    between them, with one model and with several."""
+    from kubeflow_tpu.serving import loadgen as jax_loadgen
+    from kubeflow_tpu_torch.serving import loadgen
+
+    kw = dict(seed=5, warm_sec=0.5, burst_sec=0.5, cool_sec=0.25,
+              **({"models": models} if models else {}))
+    got_trace, want_trace = (loadgen.burst_trace(**kw),
+                             jax_loadgen.burst_trace(**kw))
+    times = sorted({r.arrival for r in want_trace}
+                   | {0.0, 0.3, 0.61, 1.0, 1.25, 2.0})
+    got = [(loadgen.observed_rate(got_trace, t, window=window),
+            loadgen.model_load(got_trace, t, window=window))
+           for t in times]
+    want = [(jax_loadgen.observed_rate(want_trace, t, window=window),
+             jax_loadgen.model_load(want_trace, t, window=window))
+            for t in times]
+    assert got == want
+    if window:
+        assert any(rate for rate, _ in got)
+        if models:
+            assert any(len(load) > 1 for _, load in got)
+
+
 # ---- where the engine runs ---------------------------------------------------
 
 
