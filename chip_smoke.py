@@ -6,8 +6,8 @@ its slice burn-in (the probes and the kernel cache), its notebook
 spawn path, its fleet scheduler and warm pods, its culling and serving
 controllers, its controller manager and admission webhook as processes,
 its web apps as a process, the control plane's chaos soak and load
-test and the notebook's live profiler server on one NVIDIA GPU and hold
-its kernels against their plain versions.
+test, the notebook's live profiler server and the conformance runner on
+one NVIDIA GPU and hold its kernels against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; it imports ``kubeflow_tpu_torch``
@@ -437,6 +437,21 @@ last line. With no CUDA device it exits 1 and prints no result.
    file's bytes, and the step ms (median, longest) inside the recording
    and in the rest of the call against the baseline's, with the
    recording's ratio; and the phase's seconds.
+38. conformance (right after chaos) — the port's conformance runner as
+   an operator runs it, ``python -m kubeflow_tpu_torch.conformance.run``
+   in a child process: (a) hermetic (the in-process fake apiserver,
+   controllers and kubelet simulator), every one of the 20 checks run and
+   passed; (b) ``--live`` over ``HttpKube`` against the facade with the
+   manager and the webhook as processes as in webapps (every admission
+   an AdmissionReview to the webhook process; the runner's fixed 2.0 s
+   settle), every check passed but the nine the reference's runner skips
+   in live mode, which must be exactly those skipped. In both, the
+   pipeline-parallel step runs the pipelined dp x pp x tp train step in
+   a world of 8 processes on the card (over NCCL with 8 cards, else gloo
+   with every process on the one card), its line printed on its own with
+   its world, backend and device, which must be ``cuda``. Each leg's
+   seconds and the phase's. Launches no kernel (the step's attention is
+   the reference's default, the dense one).
 Then the ``{"kernels": [...]}`` line (each kernel's times at the main
 path's shape, with ``bound_share`` = bound_ms / ms and ``tflops``, ``at``
 every timed shape, the d = 32 and d = 256 ones included,
@@ -5489,6 +5504,132 @@ def phase_chaos(card: str) -> None:
         raise AssertionError(f"chaos phase failed: {failed}")
 
 
+CONFORMANCE_MODULE = "kubeflow_tpu_torch.conformance.run"
+CONFORMANCE_CHECKS = 20
+CONFORMANCE_TIMEOUT = 900
+# The checks the reference's runner skips in --live mode: they need the
+# kubelet simulator, the in-process culler or the in-process manager.
+CONFORMANCE_LIVE_SKIPS = (
+    "culling", "slice-atomic-restart", "preemption-recovery",
+    "queued-provisioning", "maintenance-mirror", "version-conversion",
+    "contributor-authz", "sidecar-restart-isolation", "profile-v1beta1")
+CONFORMANCE_PP = "pipeline-parallel-step"
+
+
+def conformance_run(argv: list, env: dict) -> dict:
+    """``python -m kubeflow_tpu_torch.conformance.run <argv>`` as a child
+    process, as an operator runs it: its exit code, wall seconds, check
+    lines and summary (and its stderr's tail when it failed)."""
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", CONFORMANCE_MODULE, *argv], env=env,
+        cwd=Path(__file__).parent, capture_output=True, text=True,
+        timeout=CONFORMANCE_TIMEOUT)
+    sec = time.perf_counter() - t0
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    return {"returncode": proc.returncode, "sec": sec,
+            "checks": [line for line in lines if "check" in line],
+            "summary": next((line["summary"] for line in lines
+                             if "summary" in line), None),
+            "stderr_tail": proc.stderr[-3000:] if proc.returncode else ""}
+
+
+def _conformance_pp(leg: str, ran: dict, card: str) -> dict:
+    """The pipeline-parallel step's line of one leg, printed on its own:
+    it must have run on the card, in the world ``pp_world`` picks for this
+    machine's cards."""
+    from kubeflow_tpu_torch.conformance.run import PP_WORLD, pp_world
+
+    line = next((c for c in ran["checks"] if c["check"] == CONFORMANCE_PP),
+                {})
+    device, backend, _ = pp_world(None)
+    row = {"phase": "conformance_pp_step", "leg": leg, "card": card,
+           **{key: line.get(key) for key in ("pass", "world", "backend",
+                                             "device", "seconds")}}
+    emit(row)
+    row["ok"] = (line.get("pass") is True and line.get("device") == device
+                 and line.get("world") == PP_WORLD
+                 and line.get("backend") == backend)
+    return row
+
+
+def _conformance_live() -> dict:
+    """(b): ``--live`` in a child process over ``HttpKube`` against the
+    facade (127.0.0.1:8001, where HttpKube looks with no in-cluster
+    apiserver) with the manager and the webhook as processes and every
+    admission sent to the webhook."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-conformance-")
+    t0 = time.perf_counter()
+    ep = Entrypoints(tmp, fleet="", webhook_admission=True)
+    ended = {}
+    try:
+        ep.wait_synced()
+        up_sec = time.perf_counter() - t0
+        env = {k: v for k, v in _pod_process_env({}).items()
+               if not k.startswith("KUBERNETES_")}
+        ran = conformance_run(["--live"], env)
+        by_path = admissions_by_path(ep.facade.admissions)
+        facade_requests = dict(sorted(ep.facade.requests.items()))
+    finally:
+        try:
+            ended = ep.stop()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    skipped = [c["check"] for c in ran["checks"] if "skipped" in c]
+    return {**ran, "processes_up_sec": up_sec, "skipped": skipped,
+            "admissions_by_path": by_path,
+            "facade_requests_by_verb": facade_requests, "processes": ended}
+
+
+def phase_conformance(card: str) -> None:
+    """The conformance runner on the port (module docstring, item 38):
+    (a) the hermetic suite, (b) ``--live`` against the facade and the
+    entry points as processes; the pipeline-parallel step on the card in
+    both. Any failed check raises."""
+    phase_t0 = time.perf_counter()
+    hermetic = conformance_run([], _pod_process_env({}))
+    hermetic_pp = _conformance_pp("hermetic", hermetic, card)
+    live = _conformance_live()
+    live_pp = _conformance_pp("live", live, card)
+    total = CONFORMANCE_CHECKS
+    checks = {
+        "hermetic_all_pass": hermetic["returncode"] == 0
+        and len(hermetic["checks"]) == total
+        and all(c["pass"] and "skipped" not in c for c in hermetic["checks"])
+        and hermetic["summary"] == f"{total}/{total} checks passed",
+        "hermetic_pp_on_card": hermetic_pp["ok"],
+        "live_all_pass": live["returncode"] == 0
+        and len(live["checks"]) == total
+        and all(c["pass"] for c in live["checks"])
+        and live["summary"] == f"{total}/{total} checks passed",
+        "live_skips_are_the_references": tuple(live["skipped"])
+        == CONFORMANCE_LIVE_SKIPS,
+        "live_pp_on_card": live_pp["ok"],
+        "live_admitted_by_webhook": live["admissions_by_path"].get(
+            "Notebook /mutate-notebooks allowed", 0) > 0
+        and live["admissions_by_path"].get(
+            "Pod /apply-poddefault allowed", 0) > 0,
+        "processes_stopped": set(live["processes"]) == {"manager", "webhook"}
+        and all(e["ran_until_stopped"] and e["stopped_by_sigterm"]
+                for e in live["processes"].values()),
+    }
+    emit({"phase": "conformance", "card": card,
+          "hermetic": {k: hermetic[k] for k in ("returncode", "sec",
+                                                "summary", "checks",
+                                                "stderr_tail")},
+          "live": live,
+          "phase_sec": time.perf_counter() - phase_t0, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"conformance phase failed: {failed}")
+
+
 @contextmanager
 def world_of_one(torch):
     """A process group of this process alone over NCCL (a file store in
@@ -6931,6 +7072,7 @@ def main() -> int:
     by_path["entrypoints"] = phase_entrypoints(torch, fa, burnin, sdk, card)
     by_path["webapps"] = phase_webapps(card)
     phase_chaos(card)
+    phase_conformance(card)
     partial = phase_partial_kernels(torch, fa)
     by_path["ring_hops"] = phase_ring_hops(torch, fa, ring)
     phase_longctx_grads(torch, fa, longctx, tree)

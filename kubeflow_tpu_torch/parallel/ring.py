@@ -46,13 +46,18 @@ def shift(tensors, axis: Axis, section: str, step: int = 1) -> list:
     """Send each tensor ``step`` indices along ``axis`` and receive, in
     its place, those of the index ``step`` behind: JAX's ``ppermute`` by
     ``step``. One batch of point-to-point ops, one tag per tensor, inside
-    the registered section ``section``."""
+    the registered section ``section``. Over gloo a CUDA tensor travels
+    through a host copy: gloo's point-to-point ops hand the tensor's
+    pointer to the host's socket calls, which refuse device memory
+    (``writev ... Bad address``)."""
     dst = axis.ranks[(axis.index + step) % axis.size]
     src = axis.ranks[(axis.index - step) % axis.size]
+    on_host = dist.get_backend(axis.group) == dist.Backend.GLOO
     sent = [t.contiguous() for t in tensors]
-    got = [torch.empty_like(t) for t in sent]
+    wire = [t.cpu() for t in sent] if on_host else sent
+    got = [torch.empty_like(t) for t in wire]
     ops = []
-    for tag, (out, into) in enumerate(zip(sent, got)):
+    for tag, (out, into) in enumerate(zip(wire, got)):
         ops += [dist.P2POp(dist.isend, out, dst, axis.group, tag),
                 dist.P2POp(dist.irecv, into, src, axis.group, tag)]
 
@@ -61,6 +66,8 @@ def shift(tensors, axis: Axis, section: str, step: int = 1) -> list:
             work.wait()
 
     sections.collective(section, exchange)
+    if on_host:
+        return [g.to(t.device) for g, t in zip(got, sent)]
     return got
 
 

@@ -789,6 +789,9 @@ class FakeKube:
             if key in bucket:
                 raise AlreadyExists(f"{kind} {key} already exists")
             await self._run_admission(obj, "CREATE")
+            # A mutator may replace the metadata (a webhook's JSONPatch
+            # applied to the object): stamp the admitted object's.
+            meta = get_meta(obj)
             meta["uid"] = str(uuid.uuid4())
             meta["resourceVersion"] = self._next_rv()
             meta["generation"] = 1
@@ -826,6 +829,7 @@ class FakeKube:
                 obj["status"] = deepcopy(current["status"])
             else:
                 obj.pop("status", None)
+            meta = get_meta(obj)  # as in create: admission may replace it
             meta["uid"] = cur_meta["uid"]
             meta["creationTimestamp"] = cur_meta["creationTimestamp"]
             meta["resourceVersion"] = cur_meta["resourceVersion"]

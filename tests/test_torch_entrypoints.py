@@ -22,8 +22,8 @@ from pathlib import Path
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
-from torch_control import (PORT, clear_kftpu_env, free_port, make_harness,
-                           ported, run_case)
+from torch_control import (PORT, clear_kftpu_env, facade_port, free_port,
+                           make_harness, ported, run_case)
 
 from kubeflow_tpu_torch.api import notebook as nbapi
 from kubeflow_tpu_torch.api import tensorboard as tbapi
@@ -386,7 +386,7 @@ def test_both_entry_points_run_as_processes_on_the_facade(tmp_path):
     from kubeflow_tpu_torch.sdk import TELEMETRY_LOGDIR_ENV
 
     smoke = _chip_smoke()
-    with _deadline(PROCESS_TIMEOUT):
+    with facade_port(), _deadline(PROCESS_TIMEOUT):
         started = time.monotonic()
         ep = smoke.Entrypoints(str(tmp_path), fleet="")
         try:
@@ -555,7 +555,7 @@ def test_the_webapp_process_spawns_through_the_webhook_process(tmp_path):
     from kubeflow_tpu_torch.api import profile as profileapi
 
     smoke = _chip_smoke()
-    with _deadline(PROCESS_TIMEOUT):
+    with facade_port(), _deadline(PROCESS_TIMEOUT):
         ep = smoke.Entrypoints(str(tmp_path), fleet=FLEET,
                                nodes=(smoke.ENTRY_NODE,),
                                webhook_admission=True)

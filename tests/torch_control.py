@@ -223,6 +223,25 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def facade_port():
+    """Hold the fake apiserver's fixed address (``chip_smoke.Entrypoints``
+    serves it on 127.0.0.1:8001, where the entry points' ``HttpKube``
+    looks) for the block. Test files that serve it may run at once on
+    separate workers, so they take turns on a lock file."""
+    import fcntl
+    import tempfile
+
+    path = os.path.join(tempfile.gettempdir(),
+                        "kubeflow-tpu-torch-facade-8001.lock")
+    with open(path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def run_workers(pod_envs: list, **overrides) -> list:
     """Run ``kubeflow_tpu_torch.testing.distributed_worker`` once per pod,
     each under that pod's env as admission rendered it, with
