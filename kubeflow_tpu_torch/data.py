@@ -18,6 +18,11 @@ model axis of a data x model mesh) must train on the same block, so the
 first batch is compared across them, and a loader placed by process rank
 instead of by ``mesh_place`` raises there instead of quietly training each
 model peer on another batch.
+
+The consumer's queue wait and each leaf's staging run inside the
+registered spans ``data_wait`` and ``data_stage``
+(``telemetry.sections.span``): ``kftpu.*`` ranges while a torch profiler
+collects, nothing otherwise.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch.distributed as dist
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.parallel.mesh import axis, world_size
+from kubeflow_tpu_torch.telemetry.sections import span
 
 __all__ = [
     "ArraySource",
@@ -394,7 +400,8 @@ class _Prefetcher:
     def __next__(self):
         if self._done:
             raise StopIteration
-        item = self._q.get()
+        with span("data_wait"):
+            item = self._q.get()
         if (isinstance(item, tuple) and len(item) == 2
                 and item[0] is self._end):
             self._done = True
@@ -510,7 +517,10 @@ class _Staging:
         self._rings: dict = {}
 
     def __call__(self, x) -> torch.Tensor:
-        host = torch.as_tensor(x)
+        with span("data_stage"):
+            return self._stage(torch.as_tensor(x))
+
+    def _stage(self, host: torch.Tensor) -> torch.Tensor:
         if self.device.type != "cuda":
             return host.to(self.device, copy=True)
         key = (tuple(host.shape), host.dtype)

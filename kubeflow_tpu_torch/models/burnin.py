@@ -27,6 +27,11 @@ column blocks, a qkv shard holds whole heads of q, k and v (the columns of
 heads ``[r H/m, (r+1) H/m)`` of each), so attention runs locally; where
 ``n_heads`` does not divide by the model axis, qkv and attn_out stay whole
 on every model process and only the FF splits.
+
+The step's sections run inside registered spans
+(``telemetry.sections.span``: ``embed``, ``norm``, ``attention_layer``,
+``mlp_layer``, ``head``, ``loss``, ``update``, ``train_step``), which are
+``kftpu.*`` ranges while a torch profiler collects and nothing otherwise.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.parallel.mesh import (Axis, Spec, axis, grad_groups,
                                               model_sum, reduce_grads, shard,
                                               unshard, world_size)
+from kubeflow_tpu_torch.telemetry.sections import span
 
 __all__ = ["BurninConfig", "forward", "init_params", "leaves", "loss_fn",
            "make_train_step", "map_params", "param_shapes",
@@ -144,9 +150,10 @@ def unshard_params(params: dict, mesh, cfg: BurninConfig) -> dict:
 
 
 def _rmsnorm(x, gamma):
-    x32 = x.float()
-    scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + 1e-6)
-    return (x32 * scale * gamma).to(x.dtype)
+    with span("norm"):
+        x32 = x.float()
+        scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + 1e-6)
+        return (x32 * scale * gamma).to(x.dtype)
 
 
 def _attention(x, layer, cfg: BurninConfig, model: Axis = Axis()):
@@ -191,15 +198,19 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BurninConfig,
     the logits are whole on every model process."""
     dtype = getattr(torch, cfg.dtype)
     model = axis(mesh, "model")
-    x = (params["embed"][tokens].to(dtype)
-         + params["pos"][: tokens.shape[1]].to(dtype))
+    with span("embed"):
+        x = (params["embed"][tokens].to(dtype)
+             + params["pos"][: tokens.shape[1]].to(dtype))
     for layer in params["layers"]:
-        x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, cfg, model)
-        h = _rmsnorm(x, layer["ln2"])
-        h = F.gelu(h @ layer["ff1"].to(dtype), approximate="tanh")
-        x = x + model_sum(h @ layer["ff2"].to(dtype), model)
+        with span("attention_layer"):
+            x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, cfg, model)
+        with span("mlp_layer"):
+            h = _rmsnorm(x, layer["ln2"])
+            h = F.gelu(h @ layer["ff1"].to(dtype), approximate="tanh")
+            x = x + model_sum(h @ layer["ff2"].to(dtype), model)
     x = _rmsnorm(x, params["out_norm"])
-    return (x @ params["embed"].T.to(dtype)).float()
+    with span("head"):
+        return (x @ params["embed"].T.to(dtype)).float()
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: BurninConfig,
@@ -212,8 +223,9 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: BurninConfig,
     model process computes the loss its data shard's model axis
     replicates); the shares sum over the world to the loss."""
     logits = forward(params, tokens[:, :-1], cfg, mesh)
-    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           tokens[:, 1:].reshape(-1))
+    with span("loss"):
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1))
     world = world_size(mesh)
     return loss if world == 1 else loss / world
 
@@ -240,12 +252,13 @@ def make_train_step(cfg: BurninConfig, mesh=None, lr: float = 1e-3):
                   for spec in leaves(param_sharding_rules(cfg))]
 
     def step(params, tokens):
-        loss, grads = value_and_grad(loss_fn, params, tokens, cfg, mesh)
-        if world > 1:
-            reduce_grads(grads, groups)
-            dist.all_reduce(loss)
-        with torch.no_grad():
-            torch._foreach_add_(leaves(params), grads, alpha=-lr)
-        return params, loss
+        with span("train_step"):
+            loss, grads = value_and_grad(loss_fn, params, tokens, cfg, mesh)
+            if world > 1:
+                reduce_grads(grads, groups)
+                dist.all_reduce(loss)
+            with span("update"), torch.no_grad():
+                torch._foreach_add_(leaves(params), grads, alpha=-lr)
+            return params, loss
 
     return step

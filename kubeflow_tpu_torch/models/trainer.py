@@ -26,7 +26,11 @@ norm of the global leaves. AdamW, its decoupled weight decay and the
 schedule are elementwise and run on the shards unchanged.
 
 ``fit`` takes the telemetry hooks (``telemetry.StepProfiler``,
-``telemetry.TelemetryPublisher``) as the JAX ``fit`` does.
+``telemetry.TelemetryPublisher``) as the JAX ``fit`` does. The step runs
+inside registered spans (``telemetry.sections.span``): ``train_step``,
+with the step count as its args, around ``accumulate``, ``update`` and
+the ``clip`` inside it; ``kftpu.*`` ranges while a torch profiler
+collects, nothing otherwise.
 
 Checkpoints. The live state holds torch optimizer objects, which no
 checkpoint stores. ``checkpoint_tree`` gives the state in the JAX
@@ -59,6 +63,7 @@ from kubeflow_tpu_torch.models.tree import (leaves, map_params, map_with,
                                             value_and_grad)
 from kubeflow_tpu_torch.parallel.mesh import (axis, cuts, grad_groups,
                                               reduce_grads, shard, world_size)
+from kubeflow_tpu_torch.telemetry.sections import span
 
 
 @dataclass(frozen=True)
@@ -98,28 +103,29 @@ def clip_by_global_norm_(grads: list, max_norm: float,
     process groups its shards are cut over (``[]``: whole on every
     process). The norm is then the global leaves': each cut leaf's
     squared norm summed over its groups, each whole one counted once."""
-    norms = torch.stack(torch._foreach_norm(grads))
-    if split and any(split):
-        parts = {}
-        for i, groups in enumerate(split):
-            parts.setdefault(tuple(groups), []).append(i)
-        squares = norms * norms
-        total = torch.zeros_like(norms[0])
-        for groups, rows in parts.items():
-            part = squares[rows].sum()
-            for group in groups:
-                dist.all_reduce(part, group=group)
-            total = total + part
-        norm = total.sqrt()
-    else:
-        norm = torch.linalg.vector_norm(norms)
-    below = norm < max_norm
-    divisor = torch.where(below, torch.ones_like(norm), norm)
-    factor = torch.where(below, torch.ones_like(norm),
-                         torch.full_like(norm, max_norm))
-    for g in grads:
-        g.div_(divisor).mul_(factor)
-    return norm
+    with span("clip"):
+        norms = torch.stack(torch._foreach_norm(grads))
+        if split and any(split):
+            parts = {}
+            for i, groups in enumerate(split):
+                parts.setdefault(tuple(groups), []).append(i)
+            squares = norms * norms
+            total = torch.zeros_like(norms[0])
+            for groups, rows in parts.items():
+                part = squares[rows].sum()
+                for group in groups:
+                    dist.all_reduce(part, group=group)
+                total = total + part
+            norm = total.sqrt()
+        else:
+            norm = torch.linalg.vector_norm(norms)
+        below = norm < max_norm
+        divisor = torch.where(below, torch.ones_like(norm), norm)
+        factor = torch.where(below, torch.ones_like(norm),
+                             torch.full_like(norm, max_norm))
+        for g in grads:
+            g.div_(divisor).mul_(factor)
+        return norm
 
 
 class Optimizer:
@@ -149,16 +155,17 @@ class Optimizer:
 
     def update(self, grads: list, opt_state: dict, params,
                split: list | None = None) -> None:
-        if self.cfg.grad_clip:
-            clip_by_global_norm_(grads, self.cfg.grad_clip, split)
-        tensors = leaves(params)
-        for p, g in zip(tensors, grads):
-            p.grad = g
-        opt_state["optimizer"].step()
-        for p in tensors:
-            p.grad = None
-        if opt_state["schedule"] is not None:
-            opt_state["schedule"].step()
+        with span("update"):
+            if self.cfg.grad_clip:
+                clip_by_global_norm_(grads, self.cfg.grad_clip, split)
+            tensors = leaves(params)
+            for p, g in zip(tensors, grads):
+                p.grad = g
+            opt_state["optimizer"].step()
+            for p in tensors:
+                p.grad = None
+            if opt_state["schedule"] is not None:
+                opt_state["schedule"].step()
 
 
 def make_optimizer(cfg: TrainerConfig) -> Optimizer:
@@ -362,20 +369,23 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         total = None
         for micro in batch.chunk(accum_steps):
             part, grads = value_and_grad(loss_fn, params, micro)
-            loss = loss + (part / accum_steps).float()
-            torch._foreach_div_(grads, accum_steps)
-            if total is None:
-                total = grads
-            else:
-                torch._foreach_add_(total, grads)
+            with span("accumulate"):
+                loss = loss + (part / accum_steps).float()
+                torch._foreach_div_(grads, accum_steps)
+                if total is None:
+                    total = grads
+                else:
+                    torch._foreach_add_(total, grads)
         return loss, total
 
     def step(state, batch):
-        loss, grads = grads_of(state["params"], batch)
-        if world > 1:
-            reduce_grads(grads, groups)
-            dist.all_reduce(loss)
-        optimizer.update(grads, state["opt_state"], state["params"], split)
+        with span("train_step", state["step"]):
+            loss, grads = grads_of(state["params"], batch)
+            if world > 1:
+                reduce_grads(grads, groups)
+                dist.all_reduce(loss)
+            optimizer.update(grads, state["opt_state"], state["params"],
+                             split)
         return {"params": state["params"], "opt_state": state["opt_state"],
                 "step": state["step"] + 1}, loss
 

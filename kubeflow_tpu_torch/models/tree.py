@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from kubeflow_tpu_torch.telemetry.sections import tag_backward
+
 
 def map_params(fn, tree):
     """``tree`` with ``fn`` applied to every leaf tensor."""
@@ -37,7 +39,10 @@ def map_with(fn, tree, rules):
 def value_and_grad(fn, params: dict, *args):
     """``(fn(params, *args), grads)``, the grads a list in
     :func:`leaves` order. The gradient is taken through aliases of the
-    parameters, so their own ``requires_grad`` is left as it is."""
+    parameters, so their own ``requires_grad`` is left as it is. While a
+    profiler collects, the backward runs in the forward's spans
+    (``telemetry.sections.tag_backward``)."""
     live = map_params(lambda p: p.detach().requires_grad_(), params)
     loss = fn(live, *args)
+    tag_backward(loss)
     return loss.detach(), list(torch.autograd.grad(loss, leaves(live)))

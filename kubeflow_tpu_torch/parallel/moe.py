@@ -29,10 +29,11 @@ probabilities; ``torch.topk`` promises no order, so the choices come from
 a stable descending sort. Equal probabilities are common: the router
 logits are a bf16 product.
 
-Each stage runs inside a ``torch.profiler.record_function`` range
-(``kftpu.moe_router``, ``kftpu.moe_seat_table``, ``kftpu.moe_dispatch``,
-``kftpu.moe_expert_ffn``, ``kftpu.moe_combine``), so a profile books the
-layer's device time by stage.
+Each stage runs inside a registered span
+(``telemetry.sections.span``: ``kftpu.moe_router``,
+``kftpu.moe_seat_table``, ``kftpu.moe_dispatch``, ``kftpu.moe_expert_ffn``,
+``kftpu.moe_combine`` in a trace), so a profile books the layer's device
+time by stage.
 """
 
 from __future__ import annotations
@@ -43,13 +44,10 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch.parallel.mesh import Axis, world_size
 from kubeflow_tpu_torch.parallel.ulysses import all_to_all
+from kubeflow_tpu_torch.telemetry.sections import span
 
 __all__ = ["load_balancing_loss", "moe_ffn", "moe_ffn_local",
            "router_dispatch", "router_slots", "top_k"]
-
-
-def _stage(name: str):
-    return torch.profiler.record_function("kftpu.moe_" + name)
 
 
 def top_k(probs, k: int):
@@ -193,13 +191,13 @@ def moe_ffn_local(x, router_w, expert_w1, expert_w2, axis: Axis | None = None,
     capacity = max(1, int(capacity_factor * router_top_k * t / n_experts))
     n_seats = n_experts * capacity
 
-    with _stage("router"):
+    with span("moe_router"):
         logits = (x @ router_w.to(x.dtype)).float()           # [T, E]
         choices, probs, idx = router_slots(logits, n_experts, capacity,
                                            k=router_top_k)
         aux = load_balancing_loss(probs, idx, n_experts)
 
-    with _stage("seat_table"):
+    with span("moe_seat_table"):
         # Every dropped choice points at the pad seat n_seats, the only
         # seat written more than once; it is cut off below.
         all_slots = torch.stack(
@@ -219,7 +217,7 @@ def moe_ffn_local(x, router_w, expert_w1, expert_w2, axis: Axis | None = None,
                                  device=x.device)
         seat_scale[flat] = all_scales.detach().reshape(-1)
 
-    with _stage("dispatch"):
+    with span("moe_dispatch"):
         slots = _DispatchGather.apply(_pad_row(x), seat_tok[:-1], all_slots,
                                       keep_mask).reshape(n_experts,
                                                          capacity, d)
@@ -227,14 +225,14 @@ def moe_ffn_local(x, router_w, expert_w1, expert_w2, axis: Axis | None = None,
     # slots for its own experts.
     slots = all_to_all(slots, axis, 0, 1, section="moe_dispatch_all_to_all")
 
-    with _stage("expert_ffn"):
+    with span("moe_expert_ffn"):
         h = F.gelu(torch.bmm(slots, expert_w1.to(x.dtype)),
                    approximate="tanh")
         out = torch.bmm(h, expert_w2.to(x.dtype))
 
     # And back to the tokens' processes: [E_local, P*C, d] -> [E, C, d].
     out = all_to_all(out, axis, 1, 0, section="moe_combine_all_to_all")
-    with _stage("combine"):
+    with span("moe_combine"):
         y = _CombineGather.apply(out.reshape(n_seats, d), all_slots,
                                  all_scales, keep_mask, seat_tok[:-1],
                                  seat_scale[:-1])
