@@ -11,8 +11,15 @@ tree is a copy (:mod:`.convert`). Compute follows the JAX code's
 rounding points: weights cast to the compute dtype where they are used,
 the embedding and position add and the residual adds in that dtype,
 RMSNorm in f32, GELU in its tanh form, the tied head in the compute
-dtype and then cast to f32. The plain GEMMs stay ``torch.matmul``, as
-the JAX package leaves them to XLA; ``attention="flash"`` runs the
+dtype and then cast to f32 (``tied_head``). Where the vocabulary is no
+multiple of 64 (GPT-2's 50257), the head computes over the vocabulary
+padded to the next multiple, with zero rows in its operand, and drops the
+pad columns in that cast. A ``[rows, vocab]`` product and its gradient
+would have leading dimensions that are not TMA-aligned (a multiple of 16
+bytes), and Hopper's fast GEMM kernels load through TMA, so all three of
+the head's products would fall back to older, slower kernels. The logits
+and the loss are the same. The plain GEMMs stay ``torch.matmul``, as the
+JAX package leaves them to XLA; ``attention="flash"`` runs the
 hand-written kernels (:mod:`kubeflow_tpu_torch.ops.flash_attention`): the
 forward, and under autograd the dQ and dK/dV backward kernels. Gradients
 land in f32 on the f32 master weights, as JAX's do through ``astype``.
@@ -53,8 +60,15 @@ from kubeflow_tpu_torch.telemetry.sections import span
 
 __all__ = ["BurninConfig", "forward", "init_params", "leaves", "loss_fn",
            "make_train_step", "map_params", "param_shapes",
-           "param_sharding_rules", "shard_params", "unshard_params",
-           "value_and_grad"]
+           "param_sharding_rules", "shard_params", "tied_head",
+           "unshard_params", "value_and_grad"]
+
+#: Head calls by this process that padded the vocabulary (``tied_head``).
+PADDED_HEAD_CALLS = 0
+#: The vocabulary multiple ``tied_head`` pads to. Any multiple of 8 bf16
+#: columns (16 bytes) is TMA-aligned; of 8, 16, 64 and 256, 64 gave an H100
+#: the fastest head GEMMs at GPT-2 XL's and Cerebras-GPT-1.3B's shapes.
+HEAD_PAD = 64
 
 
 @dataclass(frozen=True)
@@ -191,6 +205,61 @@ def _attention(x, layer, cfg: BurninConfig, model: Axis = Axis()):
     return model_sum(ctx @ layer["attn_out"].to(x.dtype), model)
 
 
+class _PaddedOperand(torch.autograd.Function):
+    """``embed [V, d]`` → its cast to ``dtype`` over ``[Vp, d]``, zeros in
+    the pad rows, written once; the gradient is the first ``V`` rows' in
+    ``embed``'s dtype, as a plain cast's is."""
+
+    @staticmethod
+    def forward(ctx, embed, vp, dtype):
+        v = ctx.v = embed.shape[0]
+        ctx.dtype = embed.dtype
+        w = embed.new_empty((vp, embed.shape[1]), dtype=dtype)
+        w[:v].copy_(embed)
+        w[v:].zero_()
+        return w
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[:ctx.v].to(ctx.dtype), None, None
+
+
+class _DropPad(torch.autograd.Function):
+    """Padded logits ``[..., Vp]`` → f32 ``[..., V]`` in one strided cast.
+    The backward casts the gradient straight into a ``[..., Vp]`` buffer
+    and zeroes only its pad columns (autograd's slice would zero the whole
+    buffer, then copy into it)."""
+
+    @staticmethod
+    def forward(ctx, logits, v):
+        ctx.vp, ctx.dtype = logits.shape[-1], logits.dtype
+        return logits[..., :v].float().contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        v = grad.shape[-1]
+        out = grad.new_empty((*grad.shape[:-1], ctx.vp), dtype=ctx.dtype)
+        out[..., :v].copy_(grad)
+        out[..., v:].zero_()
+        return out, None
+
+
+def tied_head(x: torch.Tensor, embed: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The tied head: f32 logits ``[..., V]`` of ``x @ embed.T`` computed
+    in ``dtype``. A vocabulary ``V`` that is no multiple of ``HEAD_PAD``
+    computes over ``Vp``, the next multiple, with zero rows in the operand,
+    and drops the pad columns in the f32 cast: the same logits, by
+    products whose leading dimensions TMA can load (module docstring)."""
+    global PADDED_HEAD_CALLS
+    v = embed.shape[0]
+    if v % HEAD_PAD == 0:
+        return (x @ embed.T.to(dtype)).float()
+    PADDED_HEAD_CALLS += 1
+    vp = -(-v // HEAD_PAD) * HEAD_PAD
+    return _DropPad.apply(x @ _PaddedOperand.apply(embed, vp, dtype).T, v)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: BurninConfig,
             mesh=None) -> torch.Tensor:
     """Token ids [batch, seq] → f32 logits [batch, seq, vocab]. With a
@@ -210,7 +279,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BurninConfig,
             x = x + model_sum(h @ layer["ff2"].to(dtype), model)
     x = _rmsnorm(x, params["out_norm"])
     with span("head"):
-        return (x @ params["embed"].T.to(dtype)).float()
+        return tied_head(x, params["embed"], dtype)
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: BurninConfig,

@@ -32,7 +32,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models import burnin
-from kubeflow_tpu_torch.models.burnin import _rmsnorm
+from kubeflow_tpu_torch.models.burnin import _rmsnorm, tied_head
 from kubeflow_tpu_torch.models.tree import leaves, value_and_grad
 from kubeflow_tpu_torch.parallel.mesh import Axis, world_size
 from kubeflow_tpu_torch.parallel.ring import ring_attention
@@ -147,7 +147,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LongContextConfig,
         h = F.gelu(h @ layer["ff1"].to(dtype), approximate="tanh")
         x = x + h @ layer["ff2"].to(dtype)
     x = _rmsnorm(x, params["out_norm"])
-    return (x @ params["embed"].T.to(dtype)).float()
+    return tied_head(x, params["embed"], dtype)
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: LongContextConfig,

@@ -31,7 +31,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import resolve_device
-from kubeflow_tpu_torch.models.burnin import _attention, _rmsnorm
+from kubeflow_tpu_torch.models.burnin import _attention, _rmsnorm, tied_head
 from kubeflow_tpu_torch.models.tree import leaves, map_with, value_and_grad
 from kubeflow_tpu_torch.parallel.mesh import (Axis, grad_groups, reduce_grads,
                                               shard, world_size)
@@ -149,7 +149,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig, mesh=None,
         x = x + y
         aux_total = aux_total + aux
     x = _rmsnorm(x, params["out_norm"])
-    logits = (x @ params["embed"].T.to(dtype)).float()
+    logits = tied_head(x, params["embed"], dtype)
     return logits, aux_total / cfg.n_layers
 
 

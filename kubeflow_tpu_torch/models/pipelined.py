@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from kubeflow_tpu_torch.device import resolve_device
-from kubeflow_tpu_torch.models.burnin import _rmsnorm
+from kubeflow_tpu_torch.models.burnin import _rmsnorm, tied_head
 from kubeflow_tpu_torch.models.tree import leaves, map_with, value_and_grad
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.parallel.mesh import (Axis, axis, grad_groups,
@@ -198,7 +198,7 @@ def _stage_fn(cfg: PipelinedConfig, model: Axis = Axis()):
 
 def _logits_nll(params, x, tgt, dtype):
     x = _rmsnorm(x, params["out_norm"])
-    logits = (x @ params["embed"].T.to(dtype)).float()
+    logits = tied_head(x, params["embed"], dtype)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            tgt.reshape(-1))
 
