@@ -7,7 +7,8 @@ correctness check; the configuration's file holds the model's sizes as
 run (``model``). A per-layer metric is
 ``perfbench/metrics/<name>.py``, whose ``read(run)`` returns the number
 or None. Adding any of these is adding files and entries: no file here
-changes.
+changes. A cell's ``mesh`` (its file's key) runs its job over one rank a
+card (``perfbench.launch``).
 """
 
 from __future__ import annotations
@@ -61,11 +62,20 @@ class Cell:
         return self.workload["limits"]
 
     @property
+    def mesh(self) -> dict | None:
+        """The job's mesh plan (``{"data": ..., "model": ...}``, one rank a
+        card), or None for a job on one card."""
+        return self.workload.get("mesh")
+
+    @property
     def attention_shape(self) -> tuple:
-        """One attention call's ``[b, s, h, d]``: a microbatch's rows."""
+        """One attention call's ``[b, s, h, d]`` on one card: a
+        microbatch's rows over that card's share of the heads (the heads
+        over the mesh's model axis)."""
         m = self.model
+        shards = (self.mesh or {}).get("model", 1)
         return (self.batch // self.accum_steps, m["seq_len"] - 1,
-                m["n_heads"], m["d_model"] // m["n_heads"])
+                m["n_heads"] // shards, m["d_model"] // m["n_heads"])
 
     @property
     def trained_positions(self) -> int:

@@ -8,6 +8,13 @@ state and the same batch iterator (``skip_batches=False``: the iterator
 is already where the state is). The optimizer handed to
 ``make_train_step`` is the trainer's own, inside a host range
 ``perfbench.optimizer`` that the trace reads.
+
+A cell with a ``mesh`` runs the sharded path, one rank a card: the
+program's mesh of that plan over the ranks' process group
+(``parallel.mesh.make_mesh``), the state cut to this rank's shards by
+``trainer.shard_state`` under ``trainer.state_sharding_rules`` of the
+model's ``burnin.param_sharding_rules``, the loss and the step given the
+mesh. Every rank gets the same batch (the data axis is 1).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from torch.profiler import record_function
 
 from kubeflow_tpu_torch.models import burnin, trainer
 from kubeflow_tpu_torch.models.tree import leaves
+from kubeflow_tpu_torch.parallel.mesh import MeshPlan, cuts, make_mesh, shard
 
 from perfbench.trace import OPTIMIZER_RANGE
 
@@ -38,15 +46,27 @@ class Job:
     def __init__(self, cell, params: dict, feed):
         opt = dict(cell.optimizer)
         inner = trainer.make_optimizer(trainer.TrainerConfig(**opt))
+        cfg = burnin.BurninConfig(**cell.model)
         self.beta1 = 0.9 if opt["optimizer"] == "adamw" else None
         self.lr = opt["lr"]
         self.state = trainer.init_state(params, inner)
-        self.tensors = leaves(params)
+        self.mesh = rules = None
+        if cell.mesh:
+            self.mesh = make_mesh(MeshPlan(**cell.mesh),
+                                  leaves(params)[0].device.type)
+            rules = trainer.state_sharding_rules(
+                burnin.param_sharding_rules(cfg), params, inner)
+            self.state = trainer.shard_state(self.state, self.mesh, rules)
+            self.specs = leaves(rules["params"])
+            # Whether each leaf is cut over the mesh, by leaf.
+            self.cut = [any(cuts(spec, self.mesh)) for spec in self.specs]
+        self.tensors = leaves(self.state["params"])
         self.feed = feed
         self.losses: list = []
         inner_step = trainer.make_train_step(
-            partial(burnin.loss_fn, cfg=burnin.BurninConfig(**cell.model)),
-            RangedOptimizer(inner), accum_steps=cell.accum_steps)
+            partial(burnin.loss_fn, cfg=cfg, mesh=self.mesh),
+            RangedOptimizer(inner), accum_steps=cell.accum_steps,
+            mesh=self.mesh, rules=rules)
 
         def recorded(state, batch):
             state, loss = inner_step(state, batch)
@@ -60,10 +80,18 @@ class Job:
                                  steps=self.state["step"] + 1,
                                  step_fn=self.step_fn, skip_batches=False)
 
+    def block(self, i: int, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the global leaf ``i`` (``leaf`` itself
+        without a mesh)."""
+        return leaf if self.mesh is None else shard(leaf, self.specs[i],
+                                                    self.mesh)
+
     def first_gradient(self, i: int, initial: torch.Tensor) -> torch.Tensor:
         """After the first step: leaf ``i``'s gradient as the optimizer
         took it, from its state (AdamW's first moment is ``(1 - b1) g``;
-        SGD's change from the leaf's ``initial`` weights is ``-lr g``)."""
+        SGD's change from the leaf's ``initial`` weights is ``-lr g``);
+        on a mesh, this rank's block of it, ``initial`` this rank's block
+        too."""
         p = self.tensors[i]
         if self.beta1 is not None:
             # Moments are zeros before a first update (torch makes them

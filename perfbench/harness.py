@@ -20,6 +20,17 @@ warm) and the per-layer metrics are read from it.
 After the window, the program's state is freed and the reference runs the
 same first steps from the same weights and rows in f32; the readings are
 compared leaf by leaf against the cell's limits.
+
+A cell of more than one card runs here once a rank (``perfbench.launch``),
+each on its own card, every rank building the same job from the same seed
+and taking the same batches. The readings are the global leaves': a leaf
+cut over the mesh reads the square root of the sum over the ranks of its
+blocks' squared norms, a whole leaf rank 0's norm. The window ends at a
+step that rank 0 fixes by its clock (``Ranks.step_due``); each rank traces
+the same stretch, and rank 0's trace gives the per-layer metrics. The
+memory peak is the largest rank's. After the window every rank frees its
+state and all but rank 0 end; rank 0 then runs the reference over all the
+cell's cards, layer by layer (:func:`placement`), and reports.
 """
 
 from __future__ import annotations
@@ -100,36 +111,73 @@ def _norm(t: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(t.double()))
 
 
-def program_readings(job, cell, seed: int, device) -> dict:
+def _whole(i: int, leaf: torch.Tensor) -> torch.Tensor:
+    return leaf
+
+
+def global_norms(norms: dict, cut: dict, ranks) -> dict:
+    """The global leaves' norms from each rank's norms of its blocks: a
+    leaf ``cut`` over the mesh, the square root of the sum over the ranks
+    of its blocks' squared norms; a whole leaf, rank 0's."""
+    names = list(norms)
+    squares = ranks.sum([norms[n] ** 2 if cut[n] else 0.0 for n in names])
+    return {n: math.sqrt(sq) if cut[n] else norms[n]
+            for n, sq in zip(names, squares)}
+
+
+def program_readings(job, cell, seed: int, device, ranks=None) -> dict:
     """Run the job's first steps and read them: the losses, the first
     gradient's norms and the norms of each leaf's change, by leaf name.
-    The starting weights are drawn again a group at a time."""
+    The starting weights are drawn again a group at a time. A job on a
+    mesh reads its blocks (``job.block``) and, over ``ranks``, the global
+    leaves' norms (:func:`global_norms`)."""
     model, steps = cell.model, cell.checked_steps
     index = {name: i for i, name in enumerate(inputs.leaf_names(model))}
+    block = getattr(job, "block", _whole)
     job.step()
     grads, change = {}, {}
     for g in range(inputs.n_groups(model)):
         for name, w in inputs.make_group(model, seed, g, device).items():
-            grads[name] = _norm(job.first_gradient(index[name], w))
+            i = index[name]
+            grads[name] = _norm(job.first_gradient(i, block(i, w)))
     for _ in range(steps - 1):
         job.step()
     for g in range(inputs.n_groups(model)):
         for name, w in inputs.make_group(model, seed, g, device).items():
-            change[name] = _norm(job.tensors[index[name]] - w)
+            i = index[name]
+            change[name] = _norm(job.tensors[i] - block(i, w))
+    if ranks is not None:
+        cut = {name: job.cut[i] for name, i in index.items()}
+        grads = global_norms(grads, cut, ranks)
+        change = global_norms(change, cut, ranks)
     return {"losses": [float(v) for v in job.losses[:steps]],
             "grad_norms": grads, "change_norms": change}
 
 
+def placement(n_layers: int, devices: list) -> list:
+    """The reference's device of each weight group: the embeddings, the
+    final norm and so the head on the first; layer ``i`` on device
+    ``i * len(devices) // n_layers``. One device holds everything."""
+    return [devices[0]] + [devices[i * len(devices) // n_layers]
+                           for i in range(n_layers)]
+
+
 def reference_readings(cell, rows, seed: int, device,
-                       matmul=gpt.plain_matmul) -> dict:
+                       matmul=gpt.plain_matmul, devices=None) -> dict:
     """The plain reference's readings of the same first steps, from the
-    same weights and the rows the loader hands out first."""
+    same weights and the rows the loader hands out first. ``devices``
+    (default: ``device`` alone) hold its weight groups by
+    :func:`placement`; activations move between them as tensors."""
+    model = cell.model
     batches = order.first_batches(rows, cell.batch, seed,
                                  cell.checked_steps)
+    where = placement(model["n_layers"], devices or [device])
     with gpt.f32_exact():
-        weights = inputs.make_weights(cell.model, seed, device)
-        tokens = [torch.from_numpy(b).to(device) for b in batches]
-        return gpt.train(weights, tokens, cell.model, cell.optimizer, matmul)
+        weights = {}
+        for g in range(inputs.n_groups(model)):
+            weights.update(inputs.make_group(model, seed, g, where[g]))
+        tokens = [torch.from_numpy(b).to(where[0]) for b in batches]
+        return gpt.train(weights, tokens, model, cell.optimizer, matmul)
 
 
 def gaps(prog: dict, ref: dict) -> dict:
@@ -212,18 +260,26 @@ def capture(job, steps: int) -> tuple:
     return Trace(events), wall, launches
 
 
-def window(job, seconds: float, device, trace: bool = False) -> dict:
+def window(job, seconds: float, device, trace: bool = False,
+           ranks=None) -> dict:
     """Steps back to back for ``seconds`` (the host waits for the step
     before the one it just queued), ending in a device sync; with
     ``trace``, a traced stretch of :data:`TRACE_STEPS` a third of the way
-    in."""
+    in. Over ``ranks``, both points are steps that rank 0 fixes by its
+    clock and every rank reaches (``Ranks.step_due``): a host read of the
+    ranks' store before each step, no device sync and no collective."""
     cuda = device.type == "cuda"
     traced = None
     steps, prev = 0, None
     t0 = time.perf_counter()
+
+    def due(key: str, part: float) -> bool:
+        reached = time.perf_counter() - t0 >= seconds / part
+        return reached if ranks is None else ranks.step_due(key, steps,
+                                                             reached)
+
     while True:
-        if (trace and traced is None
-                and time.perf_counter() - t0 >= seconds / 3):
+        if trace and traced is None and due("trace", 3):
             traced = capture(job, TRACE_STEPS)
             steps += TRACE_STEPS + 1
             prev = None
@@ -235,7 +291,7 @@ def window(job, seconds: float, device, trace: bool = False) -> dict:
             if prev is not None:
                 prev.synchronize()
             prev = event
-        if time.perf_counter() - t0 >= seconds:
+        if due("stop", 1):
             break
     if trace and traced is None:
         traced = capture(job, TRACE_STEPS)
@@ -258,28 +314,42 @@ def power_limit() -> str:
         return "unknown"
 
 
+def token_rows(cell: cells.Cell, seed: int):
+    """The cell's token rows from the seed (on the host)."""
+    model = cell.model
+    return inputs.token_rows(cell.workload["tokens"], model["vocab"],
+                             model["seq_len"], seed)
+
+
 def build(cell: cells.Cell, seed: int, device) -> tuple:
     """The cell's inputs from the seed and its job over them: (the token
     rows, the feed, the job)."""
     model = cell.model
-    rows = inputs.token_rows(cell.workload["tokens"], model["vocab"],
-                             model["seq_len"], seed)
+    rows = token_rows(cell, seed)
     params = inputs.as_tree(inputs.make_weights(model, seed, device), model)
     feed = Feed(cell.batch, rows, seed, device)
     return rows, feed, cells.entry_module(cell.entry).build(cell, params, feed)
 
 
 def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
-        started: float) -> dict:
-    """One run of ``cell``; ``started`` is the process's start on the host
+        started: float, ranks=None) -> dict | None:
+    """One run of ``cell``; ``started`` is the run's start on the host
     clock. On the CPU (the tests) the metrics stay empty: a CPU run gives
-    no device number."""
+    no device number. Over ``ranks`` (a cell of several cards), every
+    rank calls this with its own device; rank 0 returns the result, the
+    others None."""
     device = torch.device(device)
     cuda = device.type == "cuda"
-    log(started, f"{cell.name} seed {seed}: torch and the harness imported")
+    lead = ranks is None or ranks.rank == 0
+
+    def say(what: str) -> None:
+        if lead:
+            log(started, what)
+
+    say(f"{cell.name} seed {seed}: torch and the harness imported")
     rows, feed, job = build(cell, seed, device)
-    log(started, "inputs made, job built")
-    prog = program_readings(job, cell, seed, device)
+    say("inputs made, job built")
+    prog = program_readings(job, cell, seed, device, ranks)
     if cuda:
         torch.cuda.synchronize()
         setup_peak = torch.cuda.max_memory_allocated()
@@ -289,38 +359,44 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
     # set-up; every later run loads them. The line names what was built,
     # so that run's set-up can be told apart.
     built = sorted(_build.BUILD_LOG)
-    log(started, f"set-up done, losses {prog['losses']}; "
-                 f"kernels built in this run: {built or 'none'}")
+    say(f"set-up done, losses {prog['losses']}; "
+        f"kernels built in this run: {built or 'none'}")
 
     wait0, pulls0 = feed.wait_s, feed.pulls
-    done = window(job, seconds, device, trace and cuda)
+    done = window(job, seconds, device, trace and cuda, ranks)
     input_wait_s = feed.wait_s - wait0
-    log(started, f"window done: {done['steps']} steps in "
-                 f"{done['seconds']:.3f} s")
+    say(f"window done: {done['steps']} steps in {done['seconds']:.3f} s")
     window_losses = job.losses[cell.checked_steps:]
     failed = int((~torch.isfinite(torch.stack(window_losses))).sum())
-    metrics, dev, breakdown = {}, {"platform": "cpu", "count": 1}, None
+    count = 1 if ranks is None else ranks.world
+    metrics, dev, breakdown = {}, {"platform": "cpu", "count": count}, None
     if cuda:
         window_peak = torch.cuda.max_memory_allocated()
+        peak = max(setup_peak, window_peak)
+        if ranks is not None:
+            window_peak, peak = ranks.max([window_peak, peak])
         name = torch.cuda.get_device_name(device)
-        dev = {"platform": "gpu", "kind": name, "count": 1,
-               "memory_peak_bytes": max(setup_peak, window_peak),
-               "power": power_limit()}
+        dev = {"platform": "gpu", "kind": name, "count": count,
+               "memory_peak_bytes": int(peak), "power": power_limit()}
         if trace:
             traced_trace, wall, launches = done["traced"]
-            view = TracedRun(cell, traced_trace, TRACE_STEPS, wall, launches,
-                             flops.peaks_for(name), input_wait_s,
-                             feed.pulls - pulls0)
-            for m in cell.per_layer:
-                value = cells.metric_reader(m["name"])(view)
-                if value is not None:
-                    metrics[m["name"]] = {"value": value, "unit": m["unit"]}
             busy = traced_trace.busy_us() / 1e6
+            if ranks is not None:
+                busy = ranks.sum([busy])[0] / ranks.world
             dev.update(busy_s=busy, window_s=wall)
-            step_starts = traced_trace.ranges(STEP_RANGE)
-            breakdown = {"device_ops": traced_trace.top_ops(),
-                         "idle_gaps": traced_trace.idle_gaps(
-                             step_starts[0].ts if step_starts else 0.0)}
+            if lead:
+                view = TracedRun(cell, traced_trace, TRACE_STEPS, wall,
+                                 launches, flops.peaks_for(name),
+                                 input_wait_s, feed.pulls - pulls0)
+                for m in cell.per_layer:
+                    value = cells.metric_reader(m["name"])(view)
+                    if value is not None:
+                        metrics[m["name"]] = {"value": value,
+                                              "unit": m["unit"]}
+                step_starts = traced_trace.ranges(STEP_RANGE)
+                breakdown = {"device_ops": traced_trace.top_ops(),
+                             "idle_gaps": traced_trace.idle_gaps(
+                                 step_starts[0].ts if step_starts else 0.0)}
         else:
             e2e = {"train_tokens_per_s":
                    done["steps"] * cell.trained_positions / done["seconds"],
@@ -336,10 +412,16 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    log(started, "program freed; reference")
-    ref = reference_readings(cell, rows, seed, device)
+    if not lead:
+        return None
+    devices = None
+    if ranks is not None:
+        ranks.wait_others()
+        devices = ranks.devices
+    say("program freed; reference")
+    ref = reference_readings(cell, rows, seed, device, devices=devices)
     check = checks(prog, ref, cell.limits)
-    log(started, f"reference done, losses {ref['losses']}")
+    say(f"reference done, losses {ref['losses']}")
     result = {"correct": passed(check) and failed == 0,
               "attempted": attempted, "failed": failed, "metrics": metrics,
               "device": dev}

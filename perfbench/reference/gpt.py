@@ -12,7 +12,10 @@ position. No linear layer has a bias.
 Everything is f32 with TF32 off (:func:`f32_exact`). To fit a long row on
 one card, each layer and each block of 1024 query rows of attention is
 recomputed in the backward pass (``torch.utils.checkpoint``), which
-changes no number.
+changes no number. The weights may lie on several devices (a model too
+large for one card): each layer runs where its weights are, the
+activations moved there as tensors, and the head where the final norm
+is; that too changes no number.
 
 ``matmul`` is the product of every linear layer and of the head: plain
 ``@`` for the reference; :func:`fp8_matmul` rounds both operands of every
@@ -139,9 +142,10 @@ def loss(weights: dict, tokens: torch.Tensor, model: dict,
     x = weights["embed"][inputs] + weights["pos"][: inputs.shape[1]]
     for i in range(model["n_layers"]):
         layer = [weights[f"layers.{i}.{name}"] for name in LAYER_LEAVES]
-        x = checkpoint(_layer, x, *layer, n_heads=model["n_heads"],
-                       matmul=matmul, use_reentrant=False)
-    x = _rmsnorm(x, weights["out_norm"])
+        x = checkpoint(_layer, x.to(layer[0].device), *layer,
+                       n_heads=model["n_heads"], matmul=matmul,
+                       use_reentrant=False)
+    x = _rmsnorm(x.to(weights["out_norm"].device), weights["out_norm"])
     logits = matmul(x, weights["embed"].transpose(0, 1))
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))
@@ -167,7 +171,9 @@ def lr_factor(count: int, warmup: int, decay_steps: int) -> float:
 def clip_global_norm(grads: dict, max_norm: float) -> None:
     """``g * max / ||g||`` on every leaf when the global norm ``||g|| >=
     max``; untouched below it."""
-    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+    first = next(iter(grads.values())).device
+    norm = torch.sqrt(sum((g.double() ** 2).sum().to(first)
+                          for g in grads.values()))
     if norm >= max_norm:
         for g in grads.values():
             g.mul_(float(max_norm / norm))

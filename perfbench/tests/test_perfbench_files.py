@@ -43,8 +43,10 @@ def test_config_file(config):
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
 def test_cell_file(cell):
     assert NAME.match(cell["name"]) and len(cell["why"]) <= 200
-    assert cell["chips"] == 1
     c = cells.load_cell(cell["name"])
+    # One card, or one rank a card over the cell's whole mesh.
+    ranks = c.mesh["data"] * c.mesh["model"] if c.mesh else 1
+    assert cell["chips"] == ranks and ranks in (1, 4)
     assert c.config["name"] == cell["config"]
     assert c.entry in ("fit", "burnin_step")
     cells.entry_module(c.entry)
@@ -54,7 +56,9 @@ def test_cell_file(cell):
     assert c.workload["tokens"]["rows"] >= c.checked_steps * c.batch
     assert [m["name"] for m in c.end_to_end] == [
         "train_tokens_per_s", "peak_mem_gib", "setup_s"]
-    assert len(c.per_layer) == 7
+    named = [m["name"] for m in BENCH["per_layer"]
+             if cell["name"] in m["workloads"]]
+    assert [m["name"] for m in c.per_layer] == named and named
 
 
 def test_pairs_and_names_are_unique():

@@ -30,6 +30,9 @@ ATTENTION_KERNELS = {
     "dkv": re.compile(r"(?<![A-Za-z_])dkv_bf16_kernel\b"),
 }
 FOREACH_KEY = "multi_tensor_apply"
+# NCCL's kernels (``ncclDevKernel_*``, ``ncclKernel_*``): the collectives
+# between the cards.
+COLLECTIVE_KEY = "nccl"
 STEP_RANGE = "perfbench.step"
 OPTIMIZER_RANGE = "perfbench.optimizer"
 INPUT_RANGE = "perfbench.input"
@@ -51,6 +54,10 @@ class Event:
 def is_gemm(name: str) -> bool:
     low = name.lower()
     return any(key in low for key in GEMM_KEYS)
+
+
+def is_collective(name: str) -> bool:
+    return COLLECTIVE_KEY in name.lower()
 
 
 def attention_kind(name: str) -> str | None:
